@@ -9,21 +9,34 @@ Phases, in order; any failure exits non-zero without the result line:
 1. Environment: a CUDA device is present; the card's name and power
    limit (nvidia-smi), torch, CUDA and nvcc versions; g++ links -lz (the
    native engine needs zlib).
-2. Build: the two CUDA kernels (csrc/, nvcc for sm_90a) and the native
+2. Build: the CUDA kernels (csrc/, one nvcc per source, all started
+   together, for sm_90a; ptxas register and spill lines) and the native
    engine (g++), from the checkout's sources; build times.
 3. Kernels against their plain PyTorch versions on the card, at each
    engine bucket shape at its production batch width, on planted, indel,
    N-run, tandem-repeat, junk, empty and >32-run pairs: forward outputs
    (score, t_end, q_end; dirs on valid cells), traceback outputs (runs,
    meta) and the fused packed transfer buffer must be equal byte for
-   byte (tolerance 0: everything is integer). Kernel and plain times
-   with CUDA events at the tight bucket.
+   byte (tolerance 0: everything is integer). The int16 forward (the
+   RSB_SW16 configuration) must equal its plain int16 version and the
+   int32 kernel byte for byte at the same shapes; a span-violating
+   scoring must stay on int32; the int16 probe kernel must equal its
+   plain version exactly on seeded tiles with the int16 extremes. Kernel
+   and plain times with CUDA events at the tight bucket.
 4. The main path through the CLI at a size users run: a 40 Mbp simulated
-   genome (bench.py's generator), 48k x 150 bp SE reads and 24k x 2x150 bp
-   PE pairs; the index built once with `-i`, then mapped with
-   `--use-index --device cuda` and again with `--no-tpu` (host SSW). The
-   SAM of both runs must be identical apart from @PG, the device runs must
-   have dispatched extend batches, and both kernels must have launched.
+   genome (bench.py's generator), 240k x 150 bp SE reads and 120k x 2x150 bp
+   PE pairs (24 chunks each, so each of 3 workers maps several); the index
+   built once with `-i`, then three paths, each with
+   the launch counts set to 0 before it and read after it, and each from a
+   cold probe cache (so its prewarm runs the probe kernel):
+   - `-t 1`: SE and PE, `--device cuda`;
+   - the default run, 3 workers: SE with the default `-t` and PE with
+     `--deterministic -t 3`;
+   - the same with RSB_SW16=1 (the int16 forward).
+   Each device SAM must equal, apart from @PG, the host-only SAM
+   (`--no-tpu`) of the same threading, the `-t 1` device SAM (SE) and the
+   int32 device SAM (RSB_SW16); the device runs must have dispatched
+   extend batches, and every kernel of a path must have launched in it.
 
 The line before last is a JSON object with each kernel's launches in
 phase 4 and its phase-3 error and times; the last line is
@@ -31,8 +44,10 @@ phase 4 and its phase-3 error and times; the last line is
 """
 
 import contextlib
+import hashlib
 import io
 import json
+import os
 import re
 import shutil
 import subprocess
@@ -44,11 +59,23 @@ ROOT = Path(__file__).resolve().parent
 WORK = ROOT / "build" / "chip_smoke"  # git-ignored
 DEVICE = "cuda"  # device 0
 GENOME_BP = 40_000_000
-N_SE_READS = 48_000
-N_PE_PAIRS = 24_000
+N_SE_READS = 240_000
+N_PE_PAIRS = 120_000
 REQUIRED = ("rabbitsalign_tpu_torch/__init__.py", "rabbitsalign_tpu_torch/csrc/sw_forward.cu",
-            "rabbitsalign_tpu_torch/csrc/sw_traceback.cu", "rabbitsalign_tpu/native/engine.cpp",
+            "rabbitsalign_tpu_torch/csrc/sw_traceback.cu",
+            "rabbitsalign_tpu_torch/csrc/int16_probe.cu", "rabbitsalign_tpu/native/engine.cpp",
             "bench.py", "tests/torch_extend_cases.py")
+# kernel name -> (source, the pallas_call it replaces)
+KERNELS = {
+    "sw_forward": ("rabbitsalign_tpu_torch/csrc/sw_forward.cu",
+                   "rabbitsalign_tpu/ops/sw_pallas.py:464"),
+    "sw_forward_i16": ("rabbitsalign_tpu_torch/csrc/sw_forward.cu",
+                       "rabbitsalign_tpu/ops/sw_pallas.py:464"),
+    "sw_traceback": ("rabbitsalign_tpu_torch/csrc/sw_traceback.cu",
+                     "rabbitsalign_tpu/ops/tb_pallas.py:254"),
+    "int16_probe": ("rabbitsalign_tpu_torch/csrc/int16_probe.cu",
+                    "rabbitsalign_tpu/ops/sw_pallas.py:105"),
+}
 
 
 def fail(msg: str) -> None:
@@ -100,8 +127,6 @@ def environment():
 
 def build():
     say("== phase 2: build")
-    import os
-
     from rabbitsalign_tpu_torch.ops import cuda_build
 
     cuda_build.build_kernels(extra_flags=("-Xptxas", "-v"))
@@ -139,16 +164,31 @@ def max_abs_err(torch, pairs) -> int:
                for a, b in pairs)
 
 
+@contextlib.contextmanager
+def sw16(value):
+    """RSB_SW16 set to `value` (None: unset) inside the block."""
+    old = os.environ.pop("RSB_SW16", None)
+    if value is not None:
+        os.environ["RSB_SW16"] = value
+    try:
+        yield
+    finally:
+        os.environ.pop("RSB_SW16", None)
+        if old is not None:
+            os.environ["RSB_SW16"] = old
+
+
 def kernels(torch, card):
     say("== phase 3: kernels against their plain versions")
     from rabbitsalign_tpu_torch.native.engine import engine_buckets
     from rabbitsalign_tpu_torch.ops import extend_device as px
+    from rabbitsalign_tpu_torch.ops import int16_probe as probe
     from rabbitsalign_tpu_torch.ops import sw_cuda, tb_cuda
     from tests.torch_extend_cases import mixed_pairs, q2_batch
 
     dev = torch.device(DEVICE)
     sw = sw_cuda.SwParams(2, 8, 12, 1)
-    err = {"sw_forward": 0, "sw_traceback": 0}
+    err = {name: 0 for name in KERNELS}
     times = {}
     for i, (Q, T, bcap, groups) in enumerate(engine_buckets(150)):
         B = bcap * groups  # the widest dispatch the planner makes
@@ -156,7 +196,8 @@ def kernels(torch, card):
         buf = torch.from_numpy(buf).to(dev)
         ref = px.resident_ref_codes(genome, dev)
         q_t, t_t, qlen, tlen = px.unpack_q2(buf, ref, Q, T)
-        k = sw_cuda.sw_forward(q_t, t_t, qlen, tlen, sw)
+        with sw16(None):
+            k = sw_cuda.sw_forward(q_t, t_t, qlen, tlen, sw)
         p = sw_cuda.sw_forward_plain(q_t, t_t, qlen, tlen, sw)
         qi = torch.arange(Q, device=dev)[:, None, None]
         ti = torch.arange(T, device=dev)[None, :, None]
@@ -164,37 +205,74 @@ def kernels(torch, card):
         e_f = max_abs_err(torch, list(zip(k[:3], p[:3])) + [(torch.where(valid, k[3], 0), p[3])])
         kt = tb_cuda.sw_traceback(k[3], *k[:3])
         e_t = max_abs_err(torch, zip(kt, tb_cuda.sw_traceback_plain(k[3], *k[:3])))
-        fused = px.extend_batch_packed_resident_q2(buf, ref, Q, T, sw, bcap)
+        with sw16(None):
+            fused = px.extend_batch_packed_resident_q2(buf, ref, Q, T, sw, bcap)
         runs_op, runs_len, meta = tb_cuda.sw_traceback_plain(p[3], *p[:3])
         plain = px._pack_rle_output(runs_op, runs_len, *p[:3], meta)
+        # the int16 configuration: against its plain int16 version and
+        # against the int32 kernel, byte for byte
+        with sw16("1"):
+            check(sw_cuda.pick_dtype(Q, T, sw) == torch.int16, f"({Q}, {T}) not int16 under RSB_SW16")
+            k16 = sw_cuda.sw_forward(q_t, t_t, qlen, tlen, sw)
+        p16 = sw_cuda.sw_forward_plain(q_t, t_t, qlen, tlen, sw, torch.int16)
+        e_16 = max_abs_err(torch, list(zip(k16[:3], p16[:3])) + list(zip(k16[:3], k[:3])) + [
+            (torch.where(valid, k16[3], 0), p16[3]), (torch.where(valid, k16[3], 0),
+                                                      torch.where(valid, k[3], 0))])
         torch.cuda.synchronize()
         same = torch.equal(fused, plain)
         fields = px.unpack_output(fused.cpu().numpy())
         n_overflow, n_aligned = int((fields[2] == 0xFFFF).sum()), int((fields[3] > 0).sum())
         say(f"bucket ({Q}, {T}) B={B}: forward max_abs_err {e_f}, traceback max_abs_err {e_t}, "
-            f"fused output byte-equal {same}, {n_aligned} pairs aligned, {n_overflow} over 32 runs")
-        check(e_f == 0 and e_t == 0 and same, f"kernel and plain version disagree at ({Q}, {T})")
+            f"fused output byte-equal {same}, int16 forward against plain int16 and int32 kernel "
+            f"max_abs_err {e_16}, {n_aligned} pairs aligned, {n_overflow} over 32 runs")
+        check(e_f == 0 and e_t == 0 and same and e_16 == 0,
+              f"kernel and plain version disagree at ({Q}, {T})")
         check(n_overflow > 0 and n_aligned > B // 2, f"degenerate test batch at ({Q}, {T})")
         err["sw_forward"] = max(err["sw_forward"], e_f)
         err["sw_traceback"] = max(err["sw_traceback"], e_t)
+        err["sw_forward_i16"] = max(err["sw_forward_i16"], e_16)
         if i == 0:  # the tight, high-volume bucket
-            times["sw_forward"] = (
-                time_ms(torch, lambda: sw_cuda.sw_forward(q_t, t_t, qlen, tlen, sw), 20),
-                time_ms(torch, lambda: sw_cuda.sw_forward_plain(q_t, t_t, qlen, tlen, sw), 3))
+            with sw16(None):
+                times["sw_forward"] = (
+                    time_ms(torch, lambda: sw_cuda.sw_forward(q_t, t_t, qlen, tlen, sw), 20),
+                    time_ms(torch, lambda: sw_cuda.sw_forward_plain(q_t, t_t, qlen, tlen, sw), 3))
+            with sw16("1"):
+                times["sw_forward_i16"] = (
+                    time_ms(torch, lambda: sw_cuda.sw_forward(q_t, t_t, qlen, tlen, sw), 20),
+                    time_ms(torch, lambda: sw_cuda.sw_forward_plain(
+                        q_t, t_t, qlen, tlen, sw, torch.int16), 3))
             times["sw_traceback"] = (
                 time_ms(torch, lambda: tb_cuda.sw_traceback(k[3], *k[:3]), 20),
                 time_ms(torch, lambda: tb_cuda.sw_traceback_plain(k[3], *k[:3]), 3))
-            fused_ms = time_ms(torch, lambda: px.extend_batch_packed_resident_q2(
-                buf, ref, Q, T, sw, bcap), 20)
+            with sw16(None):
+                fused_ms = time_ms(torch, lambda: px.extend_batch_packed_resident_q2(
+                    buf, ref, Q, T, sw, bcap), 20)
             for name, (ms, plain_ms) in times.items():
                 say(f"{name} at ({Q}, {T}) B={B}: kernel {ms:.4f} ms ({ms * 1e3 / B:.4f} us/pair), "
                     f"plain {plain_ms:.4f} ms ({plain_ms * 1e3 / B:.4f} us/pair) [{card}]")
             say(f"fused extend (unpack + both kernels + pack) at ({Q}, {T}) B={B}: "
                 f"{fused_ms:.4f} ms ({fused_ms * 1e3 / B:.4f} us/pair) [{card}]")
+    with sw16("1"):
+        wide = sw_cuda.pick_dtype(512, 2048, sw_cuda.SwParams(100, 8, 12, 1))
+    check(wide == torch.int32, f"SwParams(100, 8, 12, 1) at (512, 2048) picked {wide}")
+    say("span bound: SwParams(100, 8, 12, 1) at (512, 2048) stays int32 under RSB_SW16=1")
+
+    for seed in range(3):
+        a = torch.from_numpy(probe.probe_input(seed)).to(dev)
+        got = probe.int16_probe(a)
+        e_p = max_abs_err(torch, [(got, probe.int16_probe_plain(a))])
+        check(e_p == 0, f"int16 probe kernel disagrees with its plain version (seed {seed})")
+        err["int16_probe"] = max(err["int16_probe"], e_p)
+    times["int16_probe"] = (time_ms(torch, lambda: probe.int16_probe(a), 100),
+                            time_ms(torch, lambda: probe.int16_probe_plain(a), 100))
+    say(f"int16 probe {tuple(a.shape)}: kernel equals plain (max_abs_err 0) on 3 seeded tiles; "
+        f"kernel {times['int16_probe'][0]:.4f} ms, plain {times['int16_probe'][1]:.4f} ms [{card}]")
     return err, times
 
 
 def map_run(main, tag, argv):
+    """One CLI call; returns (sha256 of its SAM without @PG, reads,
+    mapping-loop reads/s, whole-call reads/s, wall s, phase times)."""
     out = WORK / f"{tag}.sam"
     log = io.StringIO()
     t0 = time.perf_counter()
@@ -207,19 +285,23 @@ def map_run(main, tag, argv):
     check(m is not None, f"{tag}: no 'Mapped' line in the log")
     n_reads = int(m.group(1))
     phases = re.search(r"Phase times: (.*)", text)
-    return out, n_reads, int(m.group(3)), n_reads / wall, wall, phases.group(1) if phases else ""
-
-
-def without_pg(path) -> bytes:
-    with open(path, "rb") as f:
-        return b"".join(line for line in f if not line.startswith(b"@PG"))
+    digest = hashlib.sha256()
+    with open(out, "rb") as f:
+        for line in f:
+            if not line.startswith(b"@PG"):
+                digest.update(line)
+    out.unlink()
+    return digest.hexdigest(), n_reads, int(m.group(3)), n_reads / wall, wall, \
+        phases.group(1) if phases else ""
 
 
 def main_path(torch, card):
     say("== phase 4: main path")
     import bench
     from rabbitsalign_tpu_torch.cli import main
+    from rabbitsalign_tpu_torch.native import cache_dir
     from rabbitsalign_tpu_torch.ops import extend_device as px
+    from rabbitsalign_tpu_torch.ops import int16_probe as probe
     from rabbitsalign_tpu_torch.ops import sw_cuda, tb_cuda
 
     t0 = time.perf_counter()
@@ -245,30 +327,67 @@ def main_path(torch, card):
     check(rc == 0, f"index build failed:\n{log.getvalue()[-3000:]}")
     say(f"index built with -i in {time.perf_counter() - t0:.1f} s")
 
-    base = ["--use-index", "-t", "1", "--no-progress"]
-    configs = {"SE": [str(ref), str(se)], "PE": [str(ref), str(pe[0]), str(pe[1])]}
-    device_runs, dispatches = {}, {}
-    sw_cuda.launches = tb_cuda.launches = px.calls = 0
-    for name, argv in configs.items():
-        before = px.calls
-        device_runs[name] = map_run(main, f"{name}.cuda", [*argv, *base, "--device", DEVICE])
-        dispatches[name] = px.calls - before
-    torch.cuda.synchronize()
-    launches = {"sw_forward": sw_cuda.launches, "sw_traceback": tb_cuda.launches}
-    host_runs = {name: map_run(main, f"{name}.host", [*argv, *base, "--no-tpu"])
-                 for name, argv in configs.items()}
-    for name in configs:
-        for label, run in (("device", device_runs[name]), ("host-only", host_runs[name])):
-            _, n, rate_log, rate_wall, wall, phases = run
-            say(f"{name} {label}: {n} reads, mapping loop {rate_log} reads/s, whole CLI call "
-                f"{rate_wall:.1f} reads/s ({wall:.2f} s) [{card}]; {phases}")
-        check(without_pg(device_runs[name][0]) == without_pg(host_runs[name][0]),
-              f"{name}: device SAM differs from the host-only SAM")
-        say(f"{name}: device and host-only SAM identical apart from @PG")
-    say(f"device extend dispatches {dispatches}, kernel launches {launches}")
-    check(sum(dispatches.values()) > 0, "no extend batch was dispatched to the device")
-    check(all(v > 0 for v in launches.values()), f"a kernel never launched: {launches}")
-    return launches
+    reads = {"SE": [str(ref), str(se)], "PE": [str(ref), str(pe[0]), str(pe[1])]}
+    base = ["--use-index", "--no-progress"]
+    # path -> (RSB_SW16, {SE/PE: extra flags}); the SE runs of the
+    # default paths leave -t at its default (3 workers)
+    paths = {
+        "t1": (None, {"SE": ["-t", "1"], "PE": ["-t", "1"]}),
+        "t3": (None, {"SE": [], "PE": ["--deterministic", "-t", "3"]}),
+        "t3-sw16": ("1", {"SE": [], "PE": ["--deterministic", "-t", "3"]}),
+    }
+    counters = {"sw_forward": lambda: sw_cuda.launches,
+                "sw_forward_i16": lambda: sw_cuda.launches_i16,
+                "sw_traceback": lambda: tb_cuda.launches,
+                "int16_probe": lambda: probe.launches}
+    runs, launches, dispatches = {}, {}, {}
+    for path, (sw16_value, flags) in paths.items():
+        # a cold probe cache, as on a host's first run: the prewarm of the
+        # path's first device run launches the probe kernel
+        for old in cache_dir().glob("int16_probe_*.json"):
+            old.unlink()
+        with sw16(sw16_value):
+            sw_cuda.launches = sw_cuda.launches_i16 = tb_cuda.launches = 0
+            probe.launches = px.calls = 0
+            for name, argv in reads.items():
+                runs[path, name] = map_run(main, f"{name}.{path}.cuda",
+                                           [*argv, *base, *flags[name], "--device", DEVICE])
+            torch.cuda.synchronize()
+            launches[path] = {k: read() for k, read in counters.items()}
+            dispatches[path] = px.calls
+        cached = probe.probe_cache_path(0)
+        check(cached.is_file(), f"{path}: no probe result at {cached}")
+        say(f"{path}: int16 probe result {cached.read_text().strip()} cached at {cached}")
+        if sw16_value is None:
+            for name, argv in reads.items():
+                runs[path, name, "host"] = map_run(main, f"{name}.{path}.host",
+                                                   [*argv, *base, *flags[name], "--no-tpu"])
+        say(f"{path}: device extend dispatches {dispatches[path]}, kernel launches "
+            f"{launches[path]}")
+        check(dispatches[path] > 0, f"{path}: no extend batch was dispatched to the device")
+        fwd = "sw_forward_i16" if sw16_value else "sw_forward"
+        unused = "sw_forward" if sw16_value else "sw_forward_i16"
+        check(all(launches[path][k] > 0 for k in (fwd, "sw_traceback", "int16_probe")),
+              f"{path}: a kernel of the path never launched: {launches[path]}")
+        check(launches[path][unused] == 0, f"{path}: {unused} launched: {launches[path]}")
+
+    for key, run in runs.items():
+        _, n, rate_log, rate_wall, wall, phases = run
+        say(f"{' '.join(key)}: {n} reads, mapping loop {rate_log} reads/s, whole CLI call "
+            f"{rate_wall:.1f} reads/s ({wall:.2f} s) [{card}]; {phases}")
+    same = [(("t1", "SE"), ("t1", "SE", "host")), (("t1", "PE"), ("t1", "PE", "host")),
+            (("t3", "SE"), ("t3", "SE", "host")), (("t3", "SE"), ("t1", "SE")),
+            (("t3", "PE"), ("t3", "PE", "host")),
+            (("t3-sw16", "SE"), ("t3", "SE")), (("t3-sw16", "PE"), ("t3", "PE"))]
+    for a, b in same:
+        check(runs[a][0] == runs[b][0],
+              f"SAM of {' '.join(a)} differs from {' '.join(b)}")
+        say(f"SAM {' '.join(a)} == {' '.join(b)} apart from @PG")
+    for name in reads:
+        say(f"{name} mapping loop, device: -t 1 {runs['t1', name][2]} reads/s, "
+            f"3 workers {runs['t3', name][2]} reads/s, 3 workers int16 "
+            f"{runs['t3-sw16', name][2]} reads/s [{card}]")
+    return {k: sum(launches[path][k] for path in paths) for k in counters}
 
 
 def main() -> int:
@@ -276,15 +395,11 @@ def main() -> int:
     build()
     err, times = kernels(torch, card)
     launches = main_path(torch, card)
-    sources = {"sw_forward": ("rabbitsalign_tpu_torch/csrc/sw_forward.cu",
-                              "rabbitsalign_tpu/ops/sw_pallas.py:464"),
-               "sw_traceback": ("rabbitsalign_tpu_torch/csrc/sw_traceback.cu",
-                                "rabbitsalign_tpu/ops/tb_pallas.py:254")}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,
          "launches": launches[name], "max_abs_err": err[name],
          "ms": times[name][0], "plain_ms": times[name][1]}
-        for name, (src, replaces) in sources.items()]}))
+        for name, (src, replaces) in KERNELS.items()]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -17,8 +17,7 @@ from . import version_string
 class CommandLineOptions:
     """reference src/cmdline.hpp:8-64"""
 
-    # one mapping thread: the threaded pipeline is not ported yet
-    n_threads: int = 1
+    n_threads: int = 3
     chunk_size: int = 10000
     output_file_name: str = ""
     write_to_stdout: bool = True
@@ -90,8 +89,7 @@ def parse_command_line_arguments(argv: Optional[List[str]] = None) -> CommandLin
     )
     p.add_argument("--version", action="version", version=version_string())
     p.add_argument("-t", "--threads", type=int, default=None, metavar="INT",
-                   help="Number of mapping threads [1]; more than one is "
-                        "not yet ported")
+                   help="Number of threads [3]")
     p.add_argument("--pin-workers", action="store_true",
                    help="Pin each mapping worker thread to one CPU "
                         "(round-robin over the allowed set) — the "

@@ -28,14 +28,33 @@
 //
 // Cells outside the valid region (q >= qlen or t >= tlen) are not
 // written: the traceback only walks valid cells.
+//
+// Two instantiations, picked per call by ops/sw_cuda.py:pick_dtype (the
+// rule of sw_pallas._pick_dtype, under RSB_SW16): Acc = int32_t, and
+// Acc = int16_t, which starts E and F at NEG16 = -(1 << 14) and keeps the
+// H and E row scratch in 16 bits, halving the row-scratch traffic (16 ->
+// 8 bytes per cell). Both compute in int and store Acc; the span bound that
+// admits int16 keeps every stored value in range, so wherever it holds
+// the int16 outputs equal the int32 ones byte for byte.
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kNeg = -(1 << 28);
 constexpr int kThreads = 128;
 
+template <typename Acc>
+struct NegInf;
+template <>
+struct NegInf<int32_t> {
+    static constexpr int value = -(1 << 28);
+};
+template <>
+struct NegInf<int16_t> {
+    static constexpr int value = -(1 << 14);
+};
+
+template <typename Acc>
 __global__ void __launch_bounds__(kThreads) sw_forward_kernel(
     const uint8_t* __restrict__ q_t,    // (Q, B) query codes 0..4
     const uint8_t* __restrict__ t_t,    // (T, B) target codes 0..4
@@ -43,11 +62,12 @@ __global__ void __launch_bounds__(kThreads) sw_forward_kernel(
     const int32_t* __restrict__ tlen,   // (B,)
     int Q, int T, int B, int A, int Bm, int O, int Eg,
     uint8_t* __restrict__ dirs,         // (Q, T, B) direction bytes
-    int32_t* __restrict__ h_row,        // (T, B) scratch: previous row's H
-    int32_t* __restrict__ e_row,        // (T, B) scratch: previous row's E
+    Acc* __restrict__ h_row,            // (T, B) scratch: previous row's H
+    Acc* __restrict__ e_row,            // (T, B) scratch: previous row's E
     int32_t* __restrict__ score,        // (B,)
     int32_t* __restrict__ t_end,        // (B,)
     int32_t* __restrict__ q_end) {      // (B,)
+    constexpr int kNeg = NegInf<Acc>::value;
     const int b = blockIdx.x * blockDim.x + threadIdx.x;
     if (b >= B) return;
     const int ql = max(0, min(qlen[b], Q));
@@ -57,7 +77,7 @@ __global__ void __launch_bounds__(kThreads) sw_forward_kernel(
     // row -1: H = 0, E = NEG
     for (int t = 0; t < tl; ++t) {
         h_row[t * sB + b] = 0;
-        e_row[t * sB + b] = kNeg;
+        e_row[t * sB + b] = (Acc)kNeg;
     }
 
     int best_h = 0, best_t = -1, best_q = 0;
@@ -98,8 +118,8 @@ __global__ void __launch_bounds__(kThreads) sw_forward_kernel(
                 row_t = t;
             }
             h_diag = h_up;
-            h_row[i] = H;
-            e_row[i] = E;
+            h_row[i] = (Acc)H;
+            e_row[i] = (Acc)E;
             h_left = H;
             f_left = F;
         }
@@ -115,21 +135,43 @@ __global__ void __launch_bounds__(kThreads) sw_forward_kernel(
     q_end[b] = best_q;
 }
 
+template <typename Acc>
+int launch(const void* q_t, const void* t_t, const void* qlen, const void* tlen,
+           int Q, int T, int B, int A, int Bm, int O, int Eg, void* dirs,
+           void* h_row, void* e_row, void* score, void* t_end, void* q_end,
+           void* stream) {
+    if (B > 0) {
+        const int blocks = (B + kThreads - 1) / kThreads;
+        sw_forward_kernel<Acc><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+            (const uint8_t*)q_t, (const uint8_t*)t_t, (const int32_t*)qlen,
+            (const int32_t*)tlen, Q, T, B, A, Bm, O, Eg, (uint8_t*)dirs,
+            (Acc*)h_row, (Acc*)e_row, (int32_t*)score, (int32_t*)t_end,
+            (int32_t*)q_end);
+    }
+    return (int)cudaGetLastError();
+}
+
 }  // namespace
 
+// h_row and e_row are (T, B) int32 scratch
 extern "C" int sw_forward_launch(const void* q_t, const void* t_t,
                                  const void* qlen, const void* tlen, int Q,
                                  int T, int B, int A, int Bm, int O, int Eg,
                                  void* dirs, void* h_row, void* e_row,
                                  void* score, void* t_end, void* q_end,
                                  void* stream) {
-    if (B > 0) {
-        const int blocks = (B + kThreads - 1) / kThreads;
-        sw_forward_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-            (const uint8_t*)q_t, (const uint8_t*)t_t, (const int32_t*)qlen,
-            (const int32_t*)tlen, Q, T, B, A, Bm, O, Eg, (uint8_t*)dirs,
-            (int32_t*)h_row, (int32_t*)e_row, (int32_t*)score,
-            (int32_t*)t_end, (int32_t*)q_end);
-    }
-    return (int)cudaGetLastError();
+    return launch<int32_t>(q_t, t_t, qlen, tlen, Q, T, B, A, Bm, O, Eg, dirs,
+                           h_row, e_row, score, t_end, q_end, stream);
+}
+
+// h_row and e_row are (T, B) int16 scratch; only for shapes and scores
+// within the span bound of pick_dtype
+extern "C" int sw_forward_i16_launch(const void* q_t, const void* t_t,
+                                     const void* qlen, const void* tlen, int Q,
+                                     int T, int B, int A, int Bm, int O,
+                                     int Eg, void* dirs, void* h_row,
+                                     void* e_row, void* score, void* t_end,
+                                     void* q_end, void* stream) {
+    return launch<int16_t>(q_t, t_t, qlen, tlen, Q, T, B, A, Bm, O, Eg, dirs,
+                           h_row, e_row, score, t_end, q_end, stream);
 }

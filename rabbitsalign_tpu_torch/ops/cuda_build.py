@@ -3,7 +3,8 @@
 The kernels have a plain C interface (one ``*_launch`` function per
 kernel, returning the ``cudaGetLastError()`` after its launch) and are
 compiled by ``nvcc`` for ``sm_90a`` into one shared library, loaded with
-ctypes. The build runs on first use, never at import, into
+ctypes: one ``nvcc -c`` per source, all started together, then one link.
+The build runs on first use, never at import, into
 ``rabbitsalign_tpu_torch/build/`` (git-ignored), and is redone when a
 source is newer than the library. Concurrent builds write private
 temporary files and rename them into place.
@@ -22,11 +23,11 @@ from typing import Optional
 
 PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PKG_DIR / "csrc"
-SOURCES = ("sw_forward.cu", "sw_traceback.cu")
+SOURCES = ("sw_forward.cu", "sw_traceback.cu", "int16_probe.cu")
 BUILD_DIR = PKG_DIR / "build"
 LIB_PATH = BUILD_DIR / "libsw_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 
 _lib: Optional[ctypes.CDLL] = None
 _lock = threading.Lock()
@@ -47,23 +48,39 @@ def nvcc_path() -> str:
 
 
 def build_kernels(extra_flags=()) -> Path:
-    """Compile csrc/*.cu into LIB_PATH if it is missing or stale."""
+    """Compile csrc/*.cu into LIB_PATH if it is missing or stale: every
+    source to an object at once, then one shared library."""
     global build_log, build_seconds
     srcs = [CSRC_DIR / s for s in SOURCES]
     newest = max(s.stat().st_mtime for s in srcs)
     if LIB_PATH.exists() and LIB_PATH.stat().st_mtime >= newest and not extra_flags:
         return LIB_PATH
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = LIB_PATH.with_name(f"{LIB_PATH.stem}.{os.getpid()}.{threading.get_ident()}.so")
-    cmd = [nvcc_path(), *NVCC_FLAGS, *extra_flags, "-o", str(tmp), *map(str, srcs)]
+    tag = f"{os.getpid()}.{threading.get_ident()}"
+    objs = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in srcs]
+    tmp = LIB_PATH.with_name(f"{LIB_PATH.stem}.{tag}.so")
+    nvcc = nvcc_path()
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    build_seconds = time.perf_counter() - t0
-    build_log = res.stdout + res.stderr
-    if res.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"CUDA kernel build failed ({' '.join(cmd)}):\n{build_log[-4000:]}")
-    os.replace(tmp, LIB_PATH)
+    try:
+        procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True))
+                 for cmd in ([nvcc, *NVCC_FLAGS, *extra_flags, "-c", str(src), "-o", str(obj)]
+                             for src, obj in zip(srcs, objs))]
+        logs = [(cmd, p.communicate()[0], p.returncode) for cmd, p in procs]
+        link = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]
+        if all(rc == 0 for _, _, rc in logs):
+            res = subprocess.run(link, capture_output=True, text=True)
+            logs.append((link, res.stdout + res.stderr, res.returncode))
+        build_seconds = time.perf_counter() - t0
+        build_log = "".join(out for _, out, _ in logs)
+        for cmd, out, rc in logs:
+            if rc != 0:
+                tmp.unlink(missing_ok=True)
+                raise RuntimeError(f"CUDA kernel build failed ({' '.join(cmd)}):\n{out[-4000:]}")
+        os.replace(tmp, LIB_PATH)
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     return LIB_PATH
 
 
@@ -74,10 +91,12 @@ def load_kernels() -> ctypes.CDLL:
         if _lib is None:
             lib = ctypes.CDLL(str(build_kernels()))
             p, i = ctypes.c_void_p, ctypes.c_int
-            lib.sw_forward_launch.restype = i
-            lib.sw_forward_launch.argtypes = [p, p, p, p, i, i, i, i, i, i, i,
-                                              p, p, p, p, p, p, p]
+            for fn in (lib.sw_forward_launch, lib.sw_forward_i16_launch):
+                fn.restype = i
+                fn.argtypes = [p, p, p, p, i, i, i, i, i, i, i, p, p, p, p, p, p, p]
             lib.sw_traceback_launch.restype = i
             lib.sw_traceback_launch.argtypes = [p, p, p, p, i, i, i, p, p, p, p]
+            lib.int16_probe_launch.restype = i
+            lib.int16_probe_launch.argtypes = [p, p, i, i, p]
             _lib = lib
         return _lib

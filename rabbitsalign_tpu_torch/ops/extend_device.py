@@ -26,6 +26,8 @@ tests).
 
 from __future__ import annotations
 
+import threading
+
 import numpy as np
 import torch
 
@@ -38,8 +40,11 @@ REF_PAGE_BITS = 30  # the JAX package's 1 GiB reference pages
 REF_PAGE_SIZE = 1 << REF_PAGE_BITS
 REF_PAGE_OVERLAP = 4096  # >= max target window (T caps at 2048)
 
-# calls of extend_batch_packed_resident_q2 (one per dispatched batch)
+# calls of extend_batch_packed_resident_q2 (one per dispatched batch);
+# mapping workers call it from several threads, so updates hold
+# _count_lock
 calls = 0
+_count_lock = threading.Lock()
 
 
 def pack_ref_pages(codes: np.ndarray) -> np.ndarray:
@@ -141,7 +146,8 @@ def extend_batch_packed_resident_q2(buf: torch.Tensor, ref_codes: torch.Tensor,
     signature; pairs are independent and the kernels take the whole B
     at once, so the output does not depend on it."""
     global calls
-    calls += 1
+    with _count_lock:
+        calls += 1
     q_t, t_t, qlen, tlen = unpack_q2(buf, ref_codes, Q, T)
     score, t_end, q_end, dirs = sw_forward(q_t, t_t, qlen, tlen, params)
     runs_op, runs_len, meta = sw_traceback(dirs, score, t_end, q_end)

@@ -23,19 +23,30 @@ Layout: inputs (Q, B) / (T, B) with the pair index innermost, as the
 Pallas core takes them; dirs are (Q, T, B). Lengths past Q or T are
 clamped to the bucket. Only cells inside the valid region are defined in
 the kernel's dirs (the plain version writes 0 elsewhere).
+
+Accumulator: int32, or int16 under ``RSB_SW16`` where the span bound of
+`pick_dtype` holds (the rule of sw_pallas._pick_dtype). The int16
+configuration starts E and F at NEG16 and keeps the H and E row scratch
+in 16 bits; wherever the bound holds its outputs equal the int32 ones.
 """
 
 from __future__ import annotations
 
+import os
+import threading
 from typing import NamedTuple, Tuple
 
 import torch
 
 NEG = -(1 << 28)
+NEG16 = -(1 << 14)
 
-# launches of the CUDA kernel by sw_forward; calls that take the plain
-# version (CPU tensors) are not counted
+# launches of the int32 and int16 CUDA kernels by sw_forward; calls that
+# take the plain version (CPU tensors) are not counted. Mapping workers
+# launch from several threads, so updates hold _count_lock.
 launches = 0
+launches_i16 = 0
+_count_lock = threading.Lock()
 
 
 class SwParams(NamedTuple):
@@ -43,6 +54,23 @@ class SwParams(NamedTuple):
     mismatch: int
     gap_open: int
     gap_extend: int
+
+
+def pick_dtype(Q: int, T: int, params: SwParams) -> torch.dtype:
+    """DP accumulator dtype for a (Q, T) bucket, read per call:
+    torch.int32 unless ``RSB_SW16`` is set to something other than ""
+    or "0", and then torch.int16 only while every value and every
+    compared difference stays under 2**15 (the span bound of
+    rabbitsalign_tpu/ops/sw_pallas.py:_pick_dtype, verbatim)."""
+    if os.environ.get("RSB_SW16", "") in ("", "0"):
+        return torch.int32
+    worst_h = params.match * min(Q, T)
+    D = Q + T - 1
+    span = (worst_h + (1 << 14) + params.gap_extend * D
+            + params.gap_open + params.mismatch + 64)
+    if span < (1 << 15):
+        return torch.int16
+    return torch.int32
 
 
 def _check_inputs(q_t, t_t, qlen, tlen) -> None:
@@ -65,12 +93,16 @@ def sw_forward(q_t: torch.Tensor, t_t: torch.Tensor, qlen: torch.Tensor,
                tlen: torch.Tensor, params: SwParams
                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """q_t (Q, B) u8, t_t (T, B) u8, qlen/tlen (B,) i32 -> (score, t_end,
-    q_end (B,) i32, dirs (Q, T, B) u8). CPU tensors take the plain
-    version; CUDA tensors launch the kernel."""
-    global launches
+    q_end (B,) i32, dirs (Q, T, B) u8), in the accumulator dtype of
+    `pick_dtype`. CPU tensors take the plain version; CUDA tensors launch
+    the kernel of that dtype."""
+    global launches, launches_i16
     _check_inputs(q_t, t_t, qlen, tlen)
+    Q, B = q_t.shape
+    T = t_t.shape[0]
+    acc = pick_dtype(Q, T, params)
     if q_t.device.type == "cpu":
-        return sw_forward_plain(q_t, t_t, qlen, tlen, params)
+        return sw_forward_plain(q_t, t_t, qlen, tlen, params, acc)
     if q_t.device.type != "cuda":
         raise ValueError(f"sw_forward: unsupported device {q_t.device}")
     from .cuda_build import load_kernels
@@ -78,16 +110,15 @@ def sw_forward(q_t: torch.Tensor, t_t: torch.Tensor, qlen: torch.Tensor,
     lib = load_kernels()
     q_t, t_t = q_t.contiguous(), t_t.contiguous()
     qlen, tlen = qlen.contiguous(), tlen.contiguous()
-    Q, B = q_t.shape
-    T = t_t.shape[0]
     dev = q_t.device
     dirs = torch.empty((Q, T, B), dtype=torch.uint8, device=dev)
-    h_row = torch.empty((T, B), dtype=torch.int32, device=dev)
-    e_row = torch.empty((T, B), dtype=torch.int32, device=dev)
+    h_row = torch.empty((T, B), dtype=acc, device=dev)
+    e_row = torch.empty((T, B), dtype=acc, device=dev)
     out = torch.empty((3, B), dtype=torch.int32, device=dev)
     score, t_end, q_end = out[0], out[1], out[2]
+    launch = lib.sw_forward_i16_launch if acc == torch.int16 else lib.sw_forward_launch
     with torch.cuda.device(dev):
-        err = lib.sw_forward_launch(
+        err = launch(
             q_t.data_ptr(), t_t.data_ptr(), qlen.data_ptr(), tlen.data_ptr(),
             Q, T, B, params.match, params.mismatch, params.gap_open,
             params.gap_extend, dirs.data_ptr(), h_row.data_ptr(),
@@ -95,7 +126,11 @@ def sw_forward(q_t: torch.Tensor, t_t: torch.Tensor, qlen: torch.Tensor,
             q_end.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"sw_forward kernel launch failed (CUDA error {err})")
-    launches += 1
+    with _count_lock:
+        if acc == torch.int16:
+            launches_i16 += 1
+        else:
+            launches += 1
     return score, t_end, q_end, dirs
 
 
@@ -105,37 +140,41 @@ def _shift_down(x: torch.Tensor, fill: int) -> torch.Tensor:
 
 
 def sw_forward_plain(q_t: torch.Tensor, t_t: torch.Tensor, qlen: torch.Tensor,
-                     tlen: torch.Tensor, params: SwParams
+                     tlen: torch.Tensor, params: SwParams, acc: torch.dtype = torch.int32
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """The same function in plain torch ops: one step per anti-diagonal d
-    over the (Q, B) plane of cells (q, t = d - q), as sw_jax.sw_forward."""
+    over the (Q, B) plane of cells (q, t = d - q), as sw_jax.sw_forward.
+    The DP planes are kept in `acc` (torch.int32, or torch.int16 with E
+    and F starting at NEG16); the outputs are int32 either way."""
+    if acc not in (torch.int32, torch.int16):
+        raise TypeError(f"acc must be torch.int32 or torch.int16, not {acc}")
     Q, B = q_t.shape
     T = t_t.shape[0]
     D = Q + T - 1
     dev = q_t.device
-    i32 = torch.int32
+    neg = NEG16 if acc == torch.int16 else NEG
     A, Bm, O, Eg = params
-    qlen = qlen.to(i32).clamp(0, Q)
-    tlen = tlen.to(i32).clamp(0, T)
-    q = q_t.to(i32)
+    qlen = qlen.clamp(0, Q).to(acc)
+    tlen = tlen.clamp(0, T).to(acc)
+    q = q_t.to(acc)
     # target rows past T (reached only by invalid cells) read as 'N'
-    t_pad = torch.cat([t_t.to(i32), torch.full((Q - 1, B), 4, dtype=i32, device=dev)])
-    q_idx = torch.arange(Q, dtype=i32, device=dev)[:, None]
+    t_pad = torch.cat([t_t.to(acc), torch.full((Q - 1, B), 4, dtype=acc, device=dev)])
+    q_idx = torch.arange(Q, dtype=acc, device=dev)[:, None]
     q_valid = q_idx < qlen[None, :]
     q_scores = q < 4
     dirs = torch.zeros((Q, T, B), dtype=torch.uint8, device=dev)
 
-    zeros = torch.zeros((Q, B), dtype=i32, device=dev)
+    zeros = torch.zeros((Q, B), dtype=acc, device=dev)
     H1, H2 = zeros, zeros  # H on diagonals d-1 and d-2
-    E1 = torch.full((Q, B), NEG, dtype=i32, device=dev)
+    E1 = torch.full((Q, B), neg, dtype=acc, device=dev)
     F1 = E1
-    revt = torch.full((Q, B), 4, dtype=i32, device=dev)  # revt[q] = t code at d - q
+    revt = torch.full((Q, B), 4, dtype=acc, device=dev)  # revt[q] = t code at d - q
     best_h = zeros
-    best_t = torch.full((Q, B), -1, dtype=i32, device=dev)
+    best_t = torch.full((Q, B), -1, dtype=acc, device=dev)
     for d in range(D):
         revt = torch.cat([t_pad[d : d + 1], revt[:-1]])
         e_open = _shift_down(H1, 0) - O
-        e_ext = _shift_down(E1, NEG) - Eg
+        e_ext = _shift_down(E1, neg) - Eg
         e_is_ext = e_open <= e_ext
         E = torch.maximum(e_open, e_ext)
         f_open = H1 - O
@@ -143,7 +182,7 @@ def sw_forward_plain(q_t: torch.Tensor, t_t: torch.Tensor, qlen: torch.Tensor,
         f_is_ext = f_open <= f_ext
         F = torch.maximum(f_open, f_ext)
         eq = q == revt
-        dsub = _shift_down(H2, 0) + torch.where(eq & q_scores, A, -Bm).to(i32)
+        dsub = _shift_down(H2, 0) + torch.where(eq & q_scores, A, -Bm).to(acc)
         e1 = E.clamp(min=0)
         f1 = F.clamp(min=0)
         gap1 = torch.maximum(e1, f1)
@@ -152,12 +191,12 @@ def sw_forward_plain(q_t: torch.Tensor, t_t: torch.Tensor, qlen: torch.Tensor,
         t_vec = d - q_idx
         valid = (t_vec >= 0) & (t_vec < tlen[None, :]) & q_valid
         H = torch.where(valid, H, 0)
-        E = torch.where(valid, E, NEG)
-        F = torch.where(valid, F, NEG)
+        E = torch.where(valid, E, neg)
+        F = torch.where(valid, F, neg)
         h_src = torch.where(H == 0, 0, torch.where(
             dsub >= gap1, 1, torch.where(e1 > f1, 2, 3)))
-        dv = (h_src | (e_is_ext.to(i32) << 2) | (f_is_ext.to(i32) << 3)
-              | (eq.to(i32) << 4))
+        dv = (h_src | (e_is_ext.to(torch.int32) << 2) | (f_is_ext.to(torch.int32) << 3)
+              | (eq.to(torch.int32) << 4))
         dv = torch.where(valid, dv, 0).to(torch.uint8)
         lo, hi = max(0, d - T + 1), min(Q - 1, d)
         rows = torch.arange(lo, hi + 1, device=dev)
@@ -168,6 +207,8 @@ def sw_forward_plain(q_t: torch.Tensor, t_t: torch.Tensor, qlen: torch.Tensor,
         best_t = torch.where(upd, t_vec.expand(Q, B), best_t)
         H2, H1, E1, F1 = H1, H, E, F
 
+    i32 = torch.int32
+    best_h, best_t = best_h.to(i32), best_t.to(i32)
     score = best_h.max(dim=0).values
     is_best = best_h == score[None, :]
     t_end = torch.where(is_best, best_t, 2**30).min(dim=0).values

@@ -21,6 +21,7 @@ kept and n_runs keeps counting.
 
 from __future__ import annotations
 
+import threading
 from typing import Tuple
 
 import torch
@@ -40,8 +41,10 @@ _F = 2
 _DONE = 3
 
 # launches of the CUDA kernel by sw_traceback; plain-version calls are
-# not counted
+# not counted. Mapping workers launch from several threads, so updates
+# hold _count_lock.
 launches = 0
+_count_lock = threading.Lock()
 
 
 def sw_traceback(dirs: torch.Tensor, score: torch.Tensor, t_end: torch.Tensor,
@@ -75,7 +78,8 @@ def sw_traceback(dirs: torch.Tensor, score: torch.Tensor, t_end: torch.Tensor,
             meta.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"sw_traceback kernel launch failed (CUDA error {err})")
-    launches += 1
+    with _count_lock:
+        launches += 1
     return runs[0], runs[1], meta
 
 

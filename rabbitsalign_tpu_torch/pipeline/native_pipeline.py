@@ -1,4 +1,6 @@
-"""Production chunk pipeline around the native engine, single-threaded.
+"""Production chunk pipeline around the native engine: one mapping
+thread (`NativePipeline`) or N workers (`ThreadedNativePipeline`), and
+the device prewarm.
 
 Drives the two-phase schedule of the reference's async workers
 (reference src/pc.cpp:1206-1510): C++ phase A of a chunk plans its
@@ -8,6 +10,8 @@ C++ phase B then finishes the chunk and writes its SAM/PAF bytes. Device
 work is queued on the current CUDA stream and its results are copied into
 pinned host memory behind a CUDA event, so phase A of the next chunks
 runs while the GPU extends this one; `finish_chunk` waits on the event.
+Each threaded worker enqueues on a CUDA stream of its own (the current
+stream is per thread), as GASAL2 gives each host thread its own streams.
 
 Without device extension (``--no-tpu``, or gap_extend >= gap_open) the
 engine's built-in SSW resolves every gapped job on the host.
@@ -15,8 +19,12 @@ engine's built-in SSW resolves every gapped job on the host.
 
 from __future__ import annotations
 
+import contextlib
+import os
+import queue
+import threading
 from collections import deque
-from typing import Callable, Iterable, Tuple
+from typing import Callable, Iterable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -25,6 +33,81 @@ from ..native.engine import NativeEngine, NativeReader
 from ..ops.extend_device import extend_batch_packed_resident_q2, resident_ref_codes
 from ..ops.sw_cuda import SwParams
 from ..utils.logger import logger
+
+
+def boost_mapping_thread(level: int = -5) -> bool:
+    """Renice the CALLING thread (Linux: setpriority with a tid applies
+    per-thread) so phase A outranks the in-process client threads
+    (here: the CUDA runtime's) under CFS when they contend for cores. A
+    -5 nice delta shifts the contended share toward the mapping threads
+    without starving the client (unlike SCHED_FIFO, which would stall
+    uploads of the previous chunk for the whole phase-A burst). No-op
+    without privileges or on non-Linux. ``RSB_RENICE=0`` disables,
+    ``RSB_RENICE=n`` overrides the level."""
+    env = os.environ.get("RSB_RENICE", "")
+    if env == "0":
+        return False
+    if env:
+        try:
+            level = int(env)
+        except ValueError:
+            pass
+    try:
+        tid = threading.get_native_id()
+        os.setpriority(os.PRIO_PROCESS, tid, level)
+        return True
+    except (AttributeError, PermissionError, OSError):
+        return False
+
+
+def pin_worker_thread(wid: int):
+    """Pin the CALLING thread to one allowed CPU, round-robin by worker
+    id — the analog of the reference's consumer-thread affinity
+    (reference src/pc.cpp:519-527 pins worker i to core i). Keeps each
+    worker's index/cache working set on one core. Returns the cpu id, or
+    None when pinning is unavailable (non-Linux, empty mask)."""
+    try:
+        allowed = sorted(os.sched_getaffinity(0))
+        if not allowed:
+            return None
+        cpu = allowed[wid % len(allowed)]
+        # pid 0 = the calling THREAD for sched_setaffinity on Linux
+        os.sched_setaffinity(0, {cpu})
+        return cpu
+    except (AttributeError, OSError):
+        return None
+
+
+def require_cuda(device: torch.device) -> None:
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "--device cuda: no CUDA device is available (use --device cpu "
+            "for the plain PyTorch extend, or --no-tpu for host alignment)")
+
+
+# one resident genome per run, shared by every worker's pipeline
+_RESIDENT_CACHE: dict = {}
+_RESIDENT_LOCK = threading.Lock()
+
+
+def _resident_ref_codes(references, engine, device: torch.device) -> torch.Tensor:
+    # the lock matters: threaded workers construct their pipelines
+    # concurrently, and an unlocked miss path would upload N genome
+    # copies and hold N x genome-size device memory for the whole run
+    key = (id(references), str(device))
+    with _RESIDENT_LOCK:
+        cached = _RESIDENT_CACHE.get(key)
+        if cached is not None:
+            return cached[1]
+        codes = resident_ref_codes(engine.ref_codes(), device)
+        if device.type == "cuda":
+            # the copy was queued on this thread's stream; the workers
+            # read the tensor from streams of their own
+            torch.cuda.synchronize(device)
+        _RESIDENT_CACHE.clear()  # one genome per run; no stale copies
+        # a strong ref to `references` keeps the id() key valid
+        _RESIDENT_CACHE[key] = (references, codes)
+        return codes
 
 
 class NativePipeline:
@@ -64,15 +147,11 @@ class NativePipeline:
         self.use_device = use_device
         self.device = torch.device(device)
         if use_device:
-            if self.device.type == "cuda" and not torch.cuda.is_available():
-                raise RuntimeError(
-                    "--device cuda: no CUDA device is available (use "
-                    "--device cpu for the plain PyTorch extend, or --no-tpu "
-                    "for host alignment)")
+            require_cuda(self.device)
             self._sw = SwParams(aln_params.match, aln_params.mismatch,
                                 aln_params.gap_open, aln_params.gap_extend)
             # the genome stays resident on the device for the whole run
-            self._ref_codes = resident_ref_codes(self.engine.ref_codes(), self.device)
+            self._ref_codes = _resident_ref_codes(references, self.engine, self.device)
 
     def _dispatch(self, buf: np.ndarray, Q: int, T: int, sub: int):
         """Upload one q2 batch, extend it on the device and start the copy
@@ -128,6 +207,7 @@ class NativePipeline:
         chunk i runs after phase A of chunks i+1..i+depth, so the
         insert-size estimator trails by `depth` chunks, as the
         reference's overlapped workers do."""
+        boost_mapping_thread()
         n_reads = 0
         in_flight = deque()
         for chunk_index, r1, r2, r3 in chunks:
@@ -145,6 +225,7 @@ class NativePipeline:
         consumes them zero-copy, the device extends, phase B writes
         output. Returns the number of reads mapped. `progress(n_reads)`
         is called after every chunk when given."""
+        boost_mapping_thread()
         reader = NativeReader(path1, path2, interleaved, chunk_size)
         n_reads = 0
         in_flight = deque()
@@ -168,3 +249,272 @@ class NativePipeline:
 
     def counters(self) -> dict:
         return self.engine.counters()
+
+    def timers(self) -> dict:
+        return self.engine.timers()
+
+    @contextlib.contextmanager
+    def stream_context(self):
+        """Enter on a mapping thread: a CUDA stream of its own when the
+        pipeline extends on a CUDA device (the current stream is per
+        thread, so workers that shared the default stream would serialize
+        their kernels); nothing otherwise."""
+        if not (self.use_device and self.device.type == "cuda"):
+            yield
+            return
+        with torch.cuda.device(self.device), torch.cuda.stream(torch.cuda.Stream(self.device)):
+            yield
+
+
+class DevicePrewarm(threading.Thread):
+    """The device prewarm of `prewarm_device`. It keeps its exception:
+    `result()` joins the thread and re-raises it, so a kernel library
+    that does not build, or a probe that does not launch, fails the run
+    before any output is written."""
+
+    def __init__(self, device: torch.device):
+        super().__init__(name="device-prewarm")
+        self.device = device
+        self.error: Optional[BaseException] = None
+        self.probe_ok: Optional[bool] = None
+
+    def run(self) -> None:
+        try:
+            self.probe_ok = _warm_device(self.device)
+        except Exception as e:  # re-raised by result() on the caller's thread
+            self.error = e
+
+    def result(self) -> Optional[bool]:
+        """Wait for the prewarm; the int16 probe's answer (None on the
+        CPU), or the prewarm's exception."""
+        self.join()
+        if self.error is not None:
+            raise self.error
+        return self.probe_ok
+
+
+def _warm_device(device: torch.device) -> Optional[bool]:
+    """Build or load the kernel library, create the CUDA context on the
+    device and run the int16 probe. The CPU has nothing to build or
+    probe."""
+    if device.type != "cuda":
+        return None
+    require_cuda(device)
+    from ..ops.cuda_build import load_kernels
+    from ..ops.int16_probe import probe_int16_lowering
+
+    load_kernels()
+    with torch.cuda.device(device):
+        torch.cuda.init()
+        return probe_int16_lowering(device)
+
+
+def prewarm_device(device) -> DevicePrewarm:
+    """Start the device prewarm in a background thread, so the one-off
+    kernel build, the CUDA context and the probe overlap reference and
+    index loading (the counterpart of rabbitsalign_tpu's
+    prewarm_extend_programs, which compiles the extend programs and runs
+    its probe there). Call `result()` before the first chunk is mapped."""
+    t = DevicePrewarm(torch.device(device))
+    t.start()
+    return t
+
+
+class ThreadedNativePipeline:
+    """N-worker chunk mapping — the reference's consumer-thread data
+    parallelism (reference src/main.cpp:453-592 worker spawn, src/pc.cpp
+    InputBuffer/OutputBuffer): the native reader feeds a bounded queue,
+    each worker owns a NativePipeline (its own engine, so its own
+    insert-size estimator and statistics, like the reference's per-thread
+    state) and processes whole chunks; output is reordered by chunk index
+    before writing. Engine calls, CUDA event waits and kernel launches
+    release the GIL, so workers scale on multicore hosts. Each worker
+    dispatches on a CUDA stream of its own and double-buffers: the device
+    extends its chunk i while it runs phase A of chunk i+1.
+
+    Like the reference, PE output depends on which worker handled which
+    chunk (insert-size history); SE output is identical for any worker
+    count. With ``deterministic=True`` chunks are handed out round-robin
+    (worker w gets chunk indices w, w+N, w+2N, ...) instead of
+    first-free-worker, which makes PE output a pure function of
+    (input, n_workers), at the cost of head-of-line blocking when chunk
+    costs are skewed.
+    """
+
+    def __init__(
+        self,
+        index,
+        index_parameters,
+        references,
+        aln_params,
+        map_param,
+        read_group_id: str = "",
+        use_device: bool = True,
+        batch_size: int = 1024,
+        n_workers: int = 3,
+        queue_depth: int = 8,
+        device="cuda",
+        deterministic: bool = False,
+        pin_workers: bool = False,
+    ):
+        self._mk = lambda: NativePipeline(
+            index, index_parameters, references, aln_params, map_param,
+            read_group_id, use_device=use_device, batch_size=batch_size,
+            device=device,
+        )
+        self.n_workers = max(1, n_workers)
+        self.queue_depth = queue_depth
+        self.deterministic = deterministic
+        self.pin_workers = pin_workers
+        self.pinned_cpus = []  # (wid, cpu) telemetry, filled by workers
+        self._counters = []
+        self._timers = []
+
+    def map_file(self, path1, path2, interleaved, chunk_size, write,
+                 progress=None) -> int:
+        # per-run telemetry: a reused pipeline object must not report
+        # the previous map_file call's counters twice
+        self._counters = []
+        self._timers = []
+
+        # deterministic mode: one queue per worker, chunks routed by
+        # index % n_workers; default: one shared queue, first free worker
+        if self.deterministic:
+            in_qs = [queue.Queue(maxsize=max(2, self.queue_depth // self.n_workers))
+                     for _ in range(self.n_workers)]
+        else:
+            in_qs = [queue.Queue(maxsize=self.queue_depth)]
+        out_lock = threading.Condition()
+        out_buf = {}
+        next_out = [0]
+        n_reads = 0
+        errors = []
+
+        def emit(ci, text):
+            with out_lock:
+                out_buf[ci] = text
+                while next_out[0] in out_buf:
+                    write(out_buf.pop(next_out[0]))
+                    next_out[0] += 1
+                out_lock.notify_all()
+
+        def worker(wid):
+            if self.pin_workers:
+                cpu = pin_worker_thread(wid)
+                if cpu is not None:
+                    self.pinned_cpus.append((wid, cpu))
+            boost_mapping_thread()
+            in_q = in_qs[wid % len(in_qs)]
+            pipe = None
+            prev = None  # (ci, state): per-worker double buffering
+            try:
+                # inside the try: a construction failure (device OOM,
+                # no device) must reach `errors`, or the producer's
+                # bounded put would retry forever against a dead worker
+                pipe = self._mk()
+                with pipe.stream_context():
+                    while True:
+                        item = in_q.get()
+                        if item is None:
+                            break
+                        ci, fx = item
+                        try:
+                            chunk = pipe.engine.chunk_a_fx(fx, ci)
+                        finally:
+                            reader.free_chunk(fx)
+                        state = (chunk, pipe._plan_and_dispatch(chunk))
+                        if prev is not None:
+                            emit(prev[0], pipe.finish_chunk(prev[1]))
+                        prev = (ci, state)
+                    if prev is not None:
+                        emit(prev[0], pipe.finish_chunk(prev[1]))
+            except Exception as e:  # propagated to the caller by map_file
+                errors.append(e)
+                with out_lock:
+                    out_lock.notify_all()
+            finally:
+                if pipe is not None:
+                    self._counters.append(pipe.counters())
+                    self._timers.append(pipe.timers())
+
+        reader = NativeReader(path1, path2, interleaved, chunk_size)
+        threads = [threading.Thread(target=worker, args=(w,), daemon=True,
+                                    name=f"mapping-worker-{w}")
+                   for w in range(self.n_workers)]
+        for t in threads:
+            t.start()
+        try:
+            for ci, fx, np_, ns in reader:
+                n_reads += 2 * np_ + ns
+                if progress is not None:
+                    progress(n_reads)
+                q_i = ci % len(in_qs)
+                # bounded put that cannot deadlock if all workers died
+                while True:
+                    if errors:
+                        reader.free_chunk(fx)
+                        break
+                    try:
+                        in_qs[q_i].put((ci, fx), timeout=1.0)
+                        break
+                    except queue.Full:
+                        continue
+                if errors:
+                    break
+        finally:
+            if self.deterministic:
+                # one private queue per worker: the sentinel can only be
+                # consumed by its owner, so a per-worker alive check is safe
+                for w in range(self.n_workers):
+                    while threads[w].is_alive():
+                        try:
+                            in_qs[w].put(None, timeout=1.0)
+                            break
+                        except queue.Full:
+                            continue
+            else:
+                # shared queue: ANY worker can consume ANY sentinel, so a
+                # per-worker alive check races (a worker that eats a
+                # sentinel posted "for" another one and exits leaves a
+                # live worker blocked in get() forever with its buffered
+                # chunk unflushed). Post as many sentinels as workers
+                # were alive at one snapshot.
+                n_alive = sum(t.is_alive() for t in threads)
+                posted = 0
+                while posted < n_alive:
+                    try:
+                        in_qs[0].put(None, timeout=1.0)
+                        posted += 1
+                    except queue.Full:
+                        if not any(t.is_alive() for t in threads):
+                            break
+            for t in threads:
+                if errors:
+                    # a failed run salvages what it can but must not hang
+                    t.join(timeout=60.0)
+                else:
+                    # healthy workers always exit once their sentinel
+                    # arrives; a bounded join would drop the last chunk
+                    # of a worker still waiting on its device results
+                    t.join()
+            reader.close()
+        if errors:
+            raise errors[0]
+        # flush any leftover ordered output (all chunks are in out_buf now)
+        for ci in sorted(out_buf):
+            write(out_buf.pop(ci))
+        return n_reads
+
+    def counters(self) -> dict:
+        total: dict = {}
+        for c in self._counters:
+            for k, v in c.items():
+                total[k] = total.get(k, 0) + v
+        return total
+
+    def timers(self) -> dict:
+        total: dict = {}
+        for t in self._timers:
+            for k, v in t.items():
+                total[k] = total.get(k, 0.0) + v
+        return total

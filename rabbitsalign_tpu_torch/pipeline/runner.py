@@ -1,11 +1,13 @@
 """Application entry: index build/load, the mapping loop, output.
 
-Plays the role of reference src/main.cpp run_rabbitsalign on one host
-with one mapping thread: the native pipeline (pipeline/native_pipeline.py)
-runs the C++ engine's phases with the extend batches on the device given
-by ``--device``. Options whose code paths are not ported yet are refused
-up front (`_reject_unported`) rather than silently running something
-else.
+Plays the role of reference src/main.cpp run_rabbitsalign on one host:
+the native pipeline (pipeline/native_pipeline.py) runs the C++ engine's
+phases with the extend batches on the device given by ``--device``, on
+one mapping thread (``-t 1``) or on ``-t`` workers (default 3). The
+device prewarm (kernel build, CUDA context, int16 probe) runs while the
+reference and index load. Options whose code paths are not ported yet are
+refused up front (`_reject_unported`) rather than silently running
+something else.
 """
 
 from __future__ import annotations
@@ -26,8 +28,6 @@ from ..utils.logger import logger
 
 def _reject_unported(opt: CommandLineOptions) -> None:
     unported = [
-        (opt.n_threads > 1 and not opt.only_gen_index,
-         "-t/--threads > 1 for mapping (the threaded pipeline)"),
         (opt.device_seed, "--device-seed"),
         (opt.shard_index, "--shard-index"),
         (opt.mmap_index, "--mmap-index"),
@@ -89,6 +89,17 @@ def run_aligner(opt: CommandLineOptions) -> int:
         f"({len(references)} contig{'s' if len(references) != 1 else ''})"
     )
 
+    prewarm = None
+    if (opt.use_tpu and not opt.only_gen_index
+            and aln_params.gap_extend < aln_params.gap_open):
+        # build the kernels, create the CUDA context and run the int16
+        # probe while the index is built or read. An -i run never maps;
+        # gap_extend >= gap_open mirrors NativePipeline's gate, which
+        # turns device extension off there
+        from .native_pipeline import prewarm_device
+
+        prewarm = prewarm_device(opt.device)
+
     index = StrobemerIndex(references, index_parameters, opt.bits)
     if opt.use_index:
         sti_path = opt.ref_filename + index_parameters.filename_extension()
@@ -127,6 +138,11 @@ def run_aligner(opt: CommandLineOptions) -> int:
     )
     logger.debug(f"Using rescue cutoff: {map_param.rescue_cutoff}")
 
+    if prewarm is not None:
+        # a kernel library that does not build, or a probe that does not
+        # launch, fails the run here, before any output is written
+        prewarm.result()
+
     # binary output end-to-end: the engine produces ASCII SAM/PAF bytes
     out = (
         sys.stdout.buffer if opt.write_to_stdout
@@ -164,18 +180,26 @@ def _make_progress(opt, t_start):
 
 def _map_reads(opt, out, references, index, index_parameters, map_param,
                aln_params) -> None:
-    from .native_pipeline import NativePipeline
+    from .native_pipeline import NativePipeline, ThreadedNativePipeline
 
     if map_param.is_sam_out:
         out.write(
             sam_header(references, opt.read_group_id, opt.read_group_fields,
                        " ".join(sys.argv)).encode()
         )
-    pipeline = NativePipeline(
-        index, index_parameters, references, aln_params, map_param,
-        opt.read_group_id, use_device=opt.use_tpu, batch_size=opt.tpu_batch,
-        device=opt.device,
-    )
+    if opt.n_threads > 1:
+        pipeline = ThreadedNativePipeline(
+            index, index_parameters, references, aln_params, map_param,
+            opt.read_group_id, use_device=opt.use_tpu, batch_size=opt.tpu_batch,
+            n_workers=opt.n_threads, device=opt.device,
+            deterministic=opt.deterministic, pin_workers=opt.pin_workers,
+        )
+    else:
+        pipeline = NativePipeline(
+            index, index_parameters, references, aln_params, map_param,
+            opt.read_group_id, use_device=opt.use_tpu, batch_size=opt.tpu_batch,
+            device=opt.device,
+        )
     t0 = time.perf_counter()
     # no retry-from-scratch fallback: map_file writes output
     # incrementally, so re-running after a mid-run failure would append
@@ -193,7 +217,8 @@ def _map_reads(opt, out, references, index, index_parameters, map_param,
     logger.info(f"Inconsistent NAM ends: {c['inconsistent_nams']}")
     logger.info(f"Tried NAM rescue: {c['nam_rescue']}")
     logger.info(f"Mates rescued by alignment: {c['tot_rescued']}")
-    tm = pipeline.engine.timers()
+    tm = pipeline.timers()
+    # summed over workers with -t > 1: thread-seconds, not wall time
     logger.info(
         "Phase times: seeding+NAMs %.2f s, phase A total %.2f s, "
         "host alignment %.2f s, pairing+output %.2f s"

@@ -1,20 +1,24 @@
 """The port's CUDA kernels against their plain PyTorch versions on the
-same GPU inputs, exact, at every engine bucket shape. Needs an NVIDIA GPU
-and nvcc; skips without one. This file imports neither jax nor
-rabbitsalign_tpu, so it also runs where JAX is absent:
+same GPU inputs, exact, at every engine bucket shape, and the 3-worker
+pipeline on the GPU against one worker. Needs an NVIDIA GPU and nvcc;
+skips without one. This file imports neither jax nor rabbitsalign_tpu,
+so it also runs where JAX is absent:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
 
+import numpy as np
 import pytest
 import torch
 
+from rabbitsalign_tpu_torch.cli import main as port_main
 from rabbitsalign_tpu_torch.native.engine import engine_buckets
 from rabbitsalign_tpu_torch.ops import extend_device as px
+from rabbitsalign_tpu_torch.ops import int16_probe as probe
 from rabbitsalign_tpu_torch.ops import sw_cuda, tb_cuda
 from rabbitsalign_tpu_torch.ops.sw_cuda import SwParams
 
-from .torch_extend_cases import mixed_pairs, q2_batch
+from .torch_extend_cases import READ_LEN, mixed_pairs, q2_batch, revcomp, sim_read, write_fastq
 
 
 @pytest.fixture
@@ -22,6 +26,12 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU and nvcc")
     return torch.device("cuda")
+
+
+def _valid(Q, T, qlen, tlen, device):
+    qi = torch.arange(Q, device=device)[:, None, None]
+    ti = torch.arange(T, device=device)[None, :, None]
+    return (qi < qlen[None, None, :]) & (ti < tlen[None, None, :])
 
 
 @pytest.mark.cuda
@@ -39,13 +49,78 @@ def test_kernels_match_plain_versions(cuda, Q, T, sw):
     plain = sw_cuda.sw_forward_plain(q_t, t_t, qlen, tlen, sw)
     for k, p in zip(kernel[:3], plain[:3]):
         assert torch.equal(k, p)
-    qi = torch.arange(Q, device=cuda)[:, None, None]
-    ti = torch.arange(T, device=cuda)[None, :, None]
-    valid = (qi < qlen[None, None, :]) & (ti < tlen[None, None, :])
-    assert torch.equal(torch.where(valid, kernel[3], 0), plain[3])
+    assert torch.equal(torch.where(_valid(Q, T, qlen, tlen, cuda), kernel[3], 0), plain[3])
 
     launches = tb_cuda.launches
     walk = tb_cuda.sw_traceback(kernel[3], *kernel[:3])
     assert tb_cuda.launches == launches + 1
     for k, p in zip(walk, tb_cuda.sw_traceback_plain(kernel[3], *kernel[:3])):
         assert torch.equal(k, p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Q,T", [(q, t) for q, t, _, _ in engine_buckets(150)])
+def test_int16_kernel_matches_plain_and_int32_kernel(cuda, monkeypatch, Q, T):
+    buf, genome = q2_batch(mixed_pairs(Q, T, 70, seed=Q), Q, seed=Q)
+    q_t, t_t, qlen, tlen = px.unpack_q2(
+        torch.from_numpy(buf).to(cuda), px.resident_ref_codes(genome, cuda), Q, T)
+    sw = SwParams(2, 8, 12, 1)
+    valid = _valid(Q, T, qlen, tlen, cuda)
+
+    monkeypatch.setenv("RSB_SW16", "1")
+    assert sw_cuda.pick_dtype(Q, T, sw) == torch.int16
+    launches, launches_i16 = sw_cuda.launches, sw_cuda.launches_i16
+    k16 = sw_cuda.sw_forward(q_t, t_t, qlen, tlen, sw)
+    assert (sw_cuda.launches, sw_cuda.launches_i16) == (launches, launches_i16 + 1)
+    plain16 = sw_cuda.sw_forward_plain(q_t, t_t, qlen, tlen, sw, torch.int16)
+    monkeypatch.delenv("RSB_SW16")
+    k32 = sw_cuda.sw_forward(q_t, t_t, qlen, tlen, sw)
+    assert sw_cuda.launches == launches + 1
+    for other in (plain16, k32):
+        for k, p in zip(k16[:3], other[:3]):
+            assert torch.equal(k, p)
+        assert torch.equal(torch.where(valid, k16[3], 0), torch.where(valid, other[3], 0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_probe_kernel_matches_plain(cuda, seed):
+    a = torch.from_numpy(probe.probe_input(seed)).to(cuda)
+    launches = probe.launches
+    got = probe.int16_probe(a)
+    assert probe.launches == launches + 1
+    assert torch.equal(got, probe.int16_probe_plain(a))
+
+
+@pytest.mark.cuda
+def test_probe_result_is_cached(cuda, monkeypatch, tmp_path):
+    monkeypatch.setenv("RABBITSALIGN_TPU_TORCH_CACHE", str(tmp_path))
+    launches = probe.launches
+    assert probe.probe_int16_lowering(cuda) is True
+    assert probe.probe_cache_path(cuda).parent == tmp_path
+    assert probe.launches == launches + 1
+    assert probe.probe_int16_lowering(cuda) is True  # from the cache
+    assert probe.launches == launches + 1
+
+
+@pytest.mark.cuda
+def test_three_workers_match_one_on_cuda(cuda, tmp_path):
+    """SE with the default 3 workers, each on its own CUDA stream, gives
+    the bytes of one worker, and both launch the kernels."""
+    rng = np.random.RandomState(5)
+    genome = rng.choice(np.frombuffer(b"ACGT", np.uint8), 200_000).tobytes()
+    (tmp_path / "ref.fa").write_bytes(b">chr1\n" + genome + b"\n")
+    reads = [sim_read(genome, rng.randint(len(genome) - 2 * READ_LEN), rng) for _ in range(3000)]
+    write_fastq(tmp_path / "se.fq", [revcomp(r) if i % 4 == 1 else r for i, r in enumerate(reads)],
+                b"s")
+    argv = [str(tmp_path / "ref.fa"), str(tmp_path / "se.fq"), "--chunk-size", "250",
+            "--tpu-batch", "128", "--device", "cuda"]
+    outs = []
+    for threads in ("1", "3"):
+        launches = sw_cuda.launches
+        assert port_main([*argv, "-t", threads, "-o", str(tmp_path / f"t{threads}.sam")]) == 0
+        assert sw_cuda.launches > launches
+        outs.append(b"".join(ln for ln in open(tmp_path / f"t{threads}.sam", "rb")
+                             if not ln.startswith(b"@PG")))
+    assert outs[0] == outs[1]
+    assert len(outs[0].splitlines()) > 3000

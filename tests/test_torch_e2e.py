@@ -9,37 +9,7 @@ from rabbitsalign_tpu.cli import main as jax_main
 from rabbitsalign_tpu_torch.cli import main as port_main
 from rabbitsalign_tpu_torch.ops import extend_device
 
-READ_LEN = 150
-_COMP = bytes.maketrans(b"ACGT", b"TGCA")
-
-
-def _revcomp(s: bytes) -> bytes:
-    return s.translate(_COMP)[::-1]
-
-
-def _read(genome: bytes, st: int, rng) -> bytes:
-    """A read at `st` with 0-2 SNPs, and in two of three reads an indel
-    (1-5 bp), so phase A leaves many gapped-extension jobs."""
-    kind = rng.randint(3)
-    if kind == 1:  # deletion
-        cut, g = rng.randint(40, 100), rng.randint(1, 6)
-        rd = genome[st:st + cut] + genome[st + cut + g:st + READ_LEN + g]
-    elif kind == 2:  # insertion
-        cut, g = rng.randint(40, 100), rng.randint(1, 5)
-        ins = rng.choice(np.frombuffer(b"ACGT", np.uint8), g).tobytes()
-        rd = genome[st:st + cut] + ins + genome[st + cut:st + READ_LEN - g]
-    else:
-        rd = genome[st:st + READ_LEN]
-    rd = bytearray(rd)
-    for _ in range(rng.randint(3)):
-        rd[rng.randint(READ_LEN)] = b"ACGT"[rng.randint(4)]
-    return bytes(rd)
-
-
-def _write_fastq(path, reads, prefix):
-    with open(path, "wb") as f:
-        for i, rd in enumerate(reads):
-            f.write(b"@%s%d\n%s\n+\n%s\n" % (prefix, i, rd, b"I" * len(rd)))
+from .torch_extend_cases import READ_LEN, revcomp, sim_read, write_fastq
 
 
 @pytest.fixture(scope="module")
@@ -53,18 +23,18 @@ def data(tmp_path_factory):
             f.write(genome[i:i + 80] + b"\n")
     se = []
     for i in range(600):
-        rd = _read(genome, rng.randint(len(genome) - 2 * READ_LEN), rng)
-        se.append(_revcomp(rd) if i % 4 == 2 else rd)
+        rd = sim_read(genome, rng.randint(len(genome) - 2 * READ_LEN), rng)
+        se.append(revcomp(rd) if i % 4 == 2 else rd)
     se[7] = rng.choice(np.frombuffer(b"ACGT", np.uint8), READ_LEN).tobytes()  # unmappable
-    _write_fastq(d / "se.fq", se, b"s")
+    write_fastq(d / "se.fq", se, b"s")
     r1, r2 = [], []
     for _ in range(300):
         st = rng.randint(len(genome) - 1000)
         insert = int(np.clip(rng.normal(300, 30), 200, 500))
-        r1.append(_read(genome, st, rng))
-        r2.append(_revcomp(_read(genome, st + insert - READ_LEN, rng)))
-    _write_fastq(d / "r1.fq", r1, b"p")
-    _write_fastq(d / "r2.fq", r2, b"p")
+        r1.append(sim_read(genome, st, rng))
+        r2.append(revcomp(sim_read(genome, st + insert - READ_LEN, rng)))
+    write_fastq(d / "r1.fq", r1, b"p")
+    write_fastq(d / "r2.fq", r2, b"p")
     return d
 
 
@@ -107,11 +77,32 @@ def test_prebuilt_index_matches_jax(data, tmp_path):
     assert _without_pg(tmp_path / "port.sam") == _without_pg(tmp_path / "jax.sam")
 
 
+THREAD_MODES = {
+    "se-default-t": (["se.fq"], []),
+    "pe-deterministic-t3": (["r1.fq", "r2.fq"], ["--deterministic", "-t", "3"]),
+}
+
+
+@pytest.mark.parametrize("mode", list(THREAD_MODES))
+def test_cli_threads_match_jax(data, mode):
+    """The default run (-t 3 workers) and deterministic 3-worker PE, with
+    the same flags on both CLIs."""
+    reads, extra = THREAD_MODES[mode]
+    argv = [str(data / "ref.fa"), *(str(data / r) for r in reads), "--tpu-batch", "64", *extra]
+    assert jax_main(argv + ["-o", str(data / f"{mode}.jax.out")]) == 0
+    calls = extend_device.calls
+    assert port_main(argv + ["--device", "cpu", "-o", str(data / f"{mode}.port.out")]) == 0
+    assert extend_device.calls > calls
+    port_out = _without_pg(data / f"{mode}.port.out")
+    assert port_out == _without_pg(data / f"{mode}.jax.out")
+    assert len(port_out.splitlines()) >= 600
+
+
 @pytest.mark.parametrize("flags", [
-    ["-t", "2"], ["--device-seed"], ["--shard-index"],
+    ["--device-seed"], ["--shard-index"],
     ["--use-index", "--mmap-index"], ["--num-nodes", "2", "-o", "out.sam"],
     ["--profile", "trace"],
-], ids=["threads", "device-seed", "shard-index", "mmap-index", "num-nodes", "profile"])
+], ids=["device-seed", "shard-index", "mmap-index", "num-nodes", "profile"])
 def test_unported_options_are_refused(data, flags, capsys):
     assert port_main([str(data / "ref.fa"), str(data / "se.fq"), *flags]) == 1
     assert "not yet ported" in capsys.readouterr().err

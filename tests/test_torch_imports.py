@@ -17,7 +17,8 @@ def _modules():
 
 def test_every_module_imports_with_jax_blocked():
     mods = _modules()
-    assert "rabbitsalign_tpu_torch.ops.sw_cuda" in mods
+    for m in ("ops.sw_cuda", "ops.int16_probe", "ops.cuda_build", "pipeline.native_pipeline"):
+        assert f"rabbitsalign_tpu_torch.{m}" in mods
     code = (
         "import sys, importlib\n"
         "sys.modules['jax'] = None\n"

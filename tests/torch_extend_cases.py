@@ -1,5 +1,6 @@
-"""Synthetic extend batches shared by the port's tests and chip_smoke.py:
-numpy only (no jax, no torch), so they also run where JAX is absent."""
+"""Synthetic extend batches and mapping inputs shared by the port's tests
+and chip_smoke.py: numpy only (no jax, no torch), so they also run where
+JAX is absent."""
 
 import numpy as np
 
@@ -74,3 +75,36 @@ def mixed_pairs(Q, T, B, seed=0):
             q = np.zeros(0, np.uint8)
         pairs.append((q[:Q], t[:T]))
     return pairs
+
+
+READ_LEN = 150
+_COMP = bytes.maketrans(b"ACGT", b"TGCA")
+
+
+def revcomp(s: bytes) -> bytes:
+    return s.translate(_COMP)[::-1]
+
+
+def sim_read(genome: bytes, st: int, rng) -> bytes:
+    """A read at `st` with 0-2 SNPs, and in two of three reads an indel
+    (1-5 bp), so phase A leaves many gapped-extension jobs."""
+    kind = rng.randint(3)
+    if kind == 1:  # deletion
+        cut, g = rng.randint(40, 100), rng.randint(1, 6)
+        rd = genome[st:st + cut] + genome[st + cut + g:st + READ_LEN + g]
+    elif kind == 2:  # insertion
+        cut, g = rng.randint(40, 100), rng.randint(1, 5)
+        ins = rng.choice(np.frombuffer(b"ACGT", np.uint8), g).tobytes()
+        rd = genome[st:st + cut] + ins + genome[st + cut:st + READ_LEN - g]
+    else:
+        rd = genome[st:st + READ_LEN]
+    rd = bytearray(rd)
+    for _ in range(rng.randint(3)):
+        rd[rng.randint(READ_LEN)] = b"ACGT"[rng.randint(4)]
+    return bytes(rd)
+
+
+def write_fastq(path, reads, prefix):
+    with open(path, "wb") as f:
+        for i, rd in enumerate(reads):
+            f.write(b"@%s%d\n%s\n+\n%s\n" % (prefix, i, rd, b"I" * len(rd)))
