@@ -21,26 +21,41 @@ Phases, in order; any failure exits non-zero without the result line:
    RSB_SW16 configuration) must equal its plain int16 version and the
    int32 kernel byte for byte at the same shapes; a span-violating
    scoring must stay on int32; the int16 probe kernel must equal its
-   plain version exactly on seeded tiles with the int16 extremes. Kernel
-   and plain times with CUDA events at the tight bucket.
+   plain version exactly on seeded tiles with the int16 extremes. The
+   cross-pair ILP forward (`sw_forward_split`, 2 and 4 pairs per thread)
+   must equal its plain version and the one-pair kernel byte for byte.
+   Kernel and plain times with CUDA events at the tight bucket, beside
+   each kernel's bound (the larger of its bytes over 3.35 TB/s and its
+   integer operations over the int32 rate) for this run's inputs.
+ILP. The ILP probe harness (tools/ilp_probe.py) as its user runs it, with
+   the launch counts set to 0 before it: the split kernels held bit-exact
+   against the one-pair kernel on the harness's inputs, then paired-slope
+   times at (152, 256) x 1024 for production, split2 and split4.
 4. The main path through the CLI at a size users run: a 40 Mbp simulated
    genome (bench.py's generator), 240k x 150 bp SE reads and 120k x 2x150 bp
    PE pairs (24 chunks each, so each of 3 workers maps several); the index
-   built once with `-i`, then three paths, each with
-   the launch counts set to 0 before it and read after it, and each from a
-   cold probe cache (so its prewarm runs the probe kernel):
+   built once with `-i` (which also writes the `--mmap-index` sidecar),
+   then five paths, each with the launch counts set to 0 before it and
+   read after it, and each from a cold probe cache (so its prewarm runs
+   the probe kernel):
    - `-t 1`: SE and PE, `--device cuda`;
    - the default run, 3 workers: SE with the default `-t` and PE with
      `--deterministic -t 3`;
-   - the same with RSB_SW16=1 (the int16 forward).
+   - the same with RSB_SW16=1 (the int16 forward);
+   - SE, 3 workers, `--mmap-index` (the index opened from the sidecar);
+   - SE, 3 workers, `--profile DIR`: the trace must hold both extend
+     kernels, and the device busy share (the union of kernel and copy
+     intervals over the trace's span) is printed.
    Each device SAM must equal, apart from @PG, the host-only SAM
    (`--no-tpu`) of the same threading, the `-t 1` device SAM (SE) and the
-   int32 device SAM (RSB_SW16); the device runs must have dispatched
-   extend batches, and every kernel of a path must have launched in it.
+   int32 device SAM (RSB_SW16); the mmap and profile SAMs must equal the
+   3-worker SE SAM; the device runs must have dispatched extend batches,
+   and every kernel of a path must have launched in it.
 
-The line before last is a JSON object with each kernel's launches in
-phase 4 and its phase-3 error and times; the last line is
-{"ok": true, "device": {...}}. Work files go to build/chip_smoke/.
+The line before last is a JSON object with each kernel's launches in its
+path (phase 4; the ILP phase for sw_forward_split), its phase-3 error,
+times and bound; the last line is {"ok": true, "device": {...}}. Work
+files go to build/chip_smoke/.
 """
 
 import contextlib
@@ -64,7 +79,7 @@ N_PE_PAIRS = 120_000
 REQUIRED = ("rabbitsalign_tpu_torch/__init__.py", "rabbitsalign_tpu_torch/csrc/sw_forward.cu",
             "rabbitsalign_tpu_torch/csrc/sw_traceback.cu",
             "rabbitsalign_tpu_torch/csrc/int16_probe.cu", "rabbitsalign_tpu/native/engine.cpp",
-            "bench.py", "tests/torch_extend_cases.py")
+            "rabbitsalign_tpu_torch/tools/ilp_probe.py", "bench.py", "tests/torch_extend_cases.py")
 # kernel name -> (source, the pallas_call it replaces)
 KERNELS = {
     "sw_forward": ("rabbitsalign_tpu_torch/csrc/sw_forward.cu",
@@ -75,7 +90,21 @@ KERNELS = {
                      "rabbitsalign_tpu/ops/tb_pallas.py:254"),
     "int16_probe": ("rabbitsalign_tpu_torch/csrc/int16_probe.cu",
                     "rabbitsalign_tpu/ops/sw_pallas.py:105"),
+    "sw_forward_split": ("rabbitsalign_tpu_torch/csrc/sw_forward.cu",
+                         "tests/sanitize/ilp_probe.py:162"),
 }
+# the card's peak rates for the bounds (H100 SXM): HBM3 bytes/s, and int32
+# operations/s = 132 SMs x 64 INT32 lanes x 1.98 GHz (Hopper white paper;
+# one operation per lane per cycle)
+HBM_BYTES_PER_S = 3.35e12
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+# integer operations per DP cell of the forward (sw_cell's 30 and 3 for
+# the row best, csrc/sw_forward.cu), per traceback step (load, two field
+# extracts, op select, run compare and update, two index steps), and per
+# probe element (compare, select)
+OPS_PER_CELL = 33
+OPS_PER_TB_STEP = 8
+OPS_PER_PROBE_ELEM = 2
 
 
 def fail(msg: str) -> None:
@@ -159,6 +188,31 @@ def time_ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def bound(nbytes: float, ops: float):
+    """(least ms the card could take, "bytes" or "operations")."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
+
+
+def forward_bound(q_t, t_t, qlen, tlen):
+    """The forward's bound on these inputs: its valid cells' operations,
+    against the codes and lengths read once, the valid cells' direction
+    bytes and the three (B,) int32 results written once."""
+    (Q, B), T = q_t.shape, t_t.shape[0]
+    cells = int((qlen.clamp(0, Q).long() * tlen.clamp(0, T).long()).sum())
+    return bound((Q + T) * B + 8 * B + cells + 12 * B, OPS_PER_CELL * cells)
+
+
+def traceback_bound(score, t_end, q_end, meta):
+    """The traceback's bound: each aligned pair walks at least
+    max(query span, target span) cells; it reads those direction bytes and
+    the three (B,) inputs, and writes the (32, B) x 2 runs and (8, B) meta."""
+    B = score.shape[0]
+    span = (t_end - meta[0]).maximum(q_end - meta[1]) + 1
+    steps = int(span.where(score > 0, 0).clamp(min=0).sum())
+    return bound(steps + 12 * B + (2 * 32 + 8) * 4 * B, OPS_PER_TB_STEP * steps)
+
+
 def max_abs_err(torch, pairs) -> int:
     return max(int((a.to(torch.int64) - b.to(torch.int64)).abs().max()) if a.numel() else 0
                for a, b in pairs)
@@ -189,7 +243,7 @@ def kernels(torch, card):
     dev = torch.device(DEVICE)
     sw = sw_cuda.SwParams(2, 8, 12, 1)
     err = {name: 0 for name in KERNELS}
-    times = {}
+    times, bounds = {}, {}
     for i, (Q, T, bcap, groups) in enumerate(engine_buckets(150)):
         B = bcap * groups  # the widest dispatch the planner makes
         buf, genome = q2_batch(mixed_pairs(Q, T, B, seed=Q * T), Q, seed=Q)
@@ -225,13 +279,28 @@ def kernels(torch, card):
         say(f"bucket ({Q}, {T}) B={B}: forward max_abs_err {e_f}, traceback max_abs_err {e_t}, "
             f"fused output byte-equal {same}, int16 forward against plain int16 and int32 kernel "
             f"max_abs_err {e_16}, {n_aligned} pairs aligned, {n_overflow} over 32 runs")
-        check(e_f == 0 and e_t == 0 and same and e_16 == 0,
+        # the cross-pair ILP forward: against its plain version and the
+        # one-pair int32 kernel
+        e_s = 0
+        for split in sw_cuda.SPLITS:
+            ks = sw_cuda.sw_forward_split(q_t, t_t, qlen, tlen, sw, split)
+            ps = sw_cuda.sw_forward_split_plain(q_t, t_t, qlen, tlen, sw, split)
+            e_s = max(e_s, max_abs_err(torch, list(zip(ks[:3], ps[:3])) + list(zip(ks[:3], k[:3])) + [
+                (torch.where(valid, ks[3], 0), ps[3]), (torch.where(valid, ks[3], 0),
+                                                        torch.where(valid, k[3], 0))]))
+        say(f"bucket ({Q}, {T}) B={B}: split forward (2 and 4 pairs per thread) against its "
+            f"plain version and the one-pair kernel max_abs_err {e_s}")
+        check(e_f == 0 and e_t == 0 and same and e_16 == 0 and e_s == 0,
               f"kernel and plain version disagree at ({Q}, {T})")
         check(n_overflow > 0 and n_aligned > B // 2, f"degenerate test batch at ({Q}, {T})")
         err["sw_forward"] = max(err["sw_forward"], e_f)
         err["sw_traceback"] = max(err["sw_traceback"], e_t)
         err["sw_forward_i16"] = max(err["sw_forward_i16"], e_16)
+        err["sw_forward_split"] = max(err["sw_forward_split"], e_s)
         if i == 0:  # the tight, high-volume bucket
+            bounds.update(dict.fromkeys(("sw_forward", "sw_forward_i16", "sw_forward_split"),
+                                        forward_bound(q_t, t_t, qlen, tlen)))
+            bounds["sw_traceback"] = traceback_bound(*k[:3], kt[2])
             with sw16(None):
                 times["sw_forward"] = (
                     time_ms(torch, lambda: sw_cuda.sw_forward(q_t, t_t, qlen, tlen, sw), 20),
@@ -244,12 +313,19 @@ def kernels(torch, card):
             times["sw_traceback"] = (
                 time_ms(torch, lambda: tb_cuda.sw_traceback(k[3], *k[:3]), 20),
                 time_ms(torch, lambda: tb_cuda.sw_traceback_plain(k[3], *k[:3]), 3))
+            split_ms = {split: time_ms(torch, lambda: sw_cuda.sw_forward_split(
+                q_t, t_t, qlen, tlen, sw, split), 20) for split in sw_cuda.SPLITS}
+            times["sw_forward_split"] = (split_ms[2], time_ms(
+                torch, lambda: sw_cuda.sw_forward_split_plain(q_t, t_t, qlen, tlen, sw, 2), 3))
+            say(f"sw_forward_split at ({Q}, {T}) B={B}: 4 pairs per thread {split_ms[4]:.4f} ms "
+                f"({split_ms[4] * 1e3 / B:.4f} us/pair) [{card}]")
             with sw16(None):
                 fused_ms = time_ms(torch, lambda: px.extend_batch_packed_resident_q2(
                     buf, ref, Q, T, sw, bcap), 20)
             for name, (ms, plain_ms) in times.items():
                 say(f"{name} at ({Q}, {T}) B={B}: kernel {ms:.4f} ms ({ms * 1e3 / B:.4f} us/pair), "
-                    f"plain {plain_ms:.4f} ms ({plain_ms * 1e3 / B:.4f} us/pair) [{card}]")
+                    f"plain {plain_ms:.4f} ms ({plain_ms * 1e3 / B:.4f} us/pair), bound "
+                    f"{bounds[name][0]:.6f} ms ({bounds[name][1]}) [{card}]")
             say(f"fused extend (unpack + both kernels + pack) at ({Q}, {T}) B={B}: "
                 f"{fused_ms:.4f} ms ({fused_ms * 1e3 / B:.4f} us/pair) [{card}]")
     with sw16("1"):
@@ -265,14 +341,36 @@ def kernels(torch, card):
         err["int16_probe"] = max(err["int16_probe"], e_p)
     times["int16_probe"] = (time_ms(torch, lambda: probe.int16_probe(a), 100),
                             time_ms(torch, lambda: probe.int16_probe_plain(a), 100))
+    bounds["int16_probe"] = bound(2 * a.numel() * a.element_size(),
+                                  OPS_PER_PROBE_ELEM * a.numel())
     say(f"int16 probe {tuple(a.shape)}: kernel equals plain (max_abs_err 0) on 3 seeded tiles; "
-        f"kernel {times['int16_probe'][0]:.4f} ms, plain {times['int16_probe'][1]:.4f} ms [{card}]")
-    return err, times
+        f"kernel {times['int16_probe'][0]:.4f} ms, plain {times['int16_probe'][1]:.4f} ms, "
+        f"bound {bounds['int16_probe'][0]:.6f} ms [{card}]")
+    return err, times, bounds
+
+
+def ilp(torch, card):
+    """The ILP probe harness on its own path: counts set to 0 before it."""
+    say("== phase ILP: cross-pair ILP probe (tools/ilp_probe.py)")
+    from rabbitsalign_tpu_torch.ops import sw_cuda
+    from rabbitsalign_tpu_torch.tools import ilp_probe
+
+    with sw16(None):
+        sw_cuda.launches_split = 0
+        medians = ilp_probe.run(card, tuple(x.to(DEVICE) for x in ilp_probe.probe_inputs()))
+        torch.cuda.synchronize()
+        launches = sw_cuda.launches_split
+    check(launches > 0, "the ILP probe never launched the split kernel")
+    say(f"ILP probe: sw_forward_split launched {launches} times; split2 / production "
+        f"{medians['split2'] / medians['production']:.3f}, split4 / production "
+        f"{medians['split4'] / medians['production']:.3f} [{card}]")
+    return launches
 
 
 def map_run(main, tag, argv):
     """One CLI call; returns (sha256 of its SAM without @PG, reads,
-    mapping-loop reads/s, whole-call reads/s, wall s, phase times)."""
+    mapping-loop reads/s, whole-call reads/s, wall s, phase times, index
+    read s)."""
     out = WORK / f"{tag}.sam"
     log = io.StringIO()
     t0 = time.perf_counter()
@@ -285,6 +383,7 @@ def map_run(main, tag, argv):
     check(m is not None, f"{tag}: no 'Mapped' line in the log")
     n_reads = int(m.group(1))
     phases = re.search(r"Phase times: (.*)", text)
+    index_s = re.search(r"Total time reading index: ([0-9.]+) s", text)
     digest = hashlib.sha256()
     with open(out, "rb") as f:
         for line in f:
@@ -292,7 +391,29 @@ def map_run(main, tag, argv):
                 digest.update(line)
     out.unlink()
     return digest.hexdigest(), n_reads, int(m.group(3)), n_reads / wall, wall, \
-        phases.group(1) if phases else ""
+        phases.group(1) if phases else "", float(index_s.group(1)) if index_s else None
+
+
+def device_busy(trace_dir: Path):
+    """(busy share, span ms, kernel names, device events) of the one
+    torch.profiler trace in trace_dir: the union of the card's kernel,
+    memcpy and memset intervals over the span of all timed events."""
+    traces = list(trace_dir.glob("*.pt.trace.json"))
+    check(len(traces) == 1, f"expected one trace in {trace_dir}, found {traces}")
+    events = [e for e in json.loads(traces[0].read_text())["traceEvents"]
+              if e.get("ph") == "X" and "dur" in e]
+    check(events, f"{traces[0]} holds no timed events")
+    dev = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"])) for e in events
+                 if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    t0 = min(float(e["ts"]) for e in events)
+    t1 = max(float(e["ts"]) + float(e["dur"]) for e in events)
+    busy, end = 0.0, -float("inf")
+    for a, b in dev:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    names = {e["name"] for e in events if e.get("cat") == "kernel"}
+    return busy / (t1 - t0), (t1 - t0) / 1e3, names, len(dev)
 
 
 def main_path(torch, card):
@@ -326,16 +447,23 @@ def main_path(torch, card):
         rc = main([str(ref), "-i", "-r", "150", "-t", "8"])
     check(rc == 0, f"index build failed:\n{log.getvalue()[-3000:]}")
     say(f"index built with -i in {time.perf_counter() - t0:.1f} s")
+    sidecar = Path(f"{ref}.r150.sti.cols")
+    check((sidecar / "header.json").is_file(), f"-i wrote no sidecar at {sidecar}")
+    say(f"-i wrote the mmap sidecar {sidecar.relative_to(ROOT)}")
 
     reads = {"SE": [str(ref), str(se)], "PE": [str(ref), str(pe[0]), str(pe[1])]}
     base = ["--use-index", "--no-progress"]
+    trace_dir = WORK / "trace"
     # path -> (RSB_SW16, {SE/PE: extra flags}); the SE runs of the
     # default paths leave -t at its default (3 workers)
     paths = {
         "t1": (None, {"SE": ["-t", "1"], "PE": ["-t", "1"]}),
         "t3": (None, {"SE": [], "PE": ["--deterministic", "-t", "3"]}),
         "t3-sw16": ("1", {"SE": [], "PE": ["--deterministic", "-t", "3"]}),
+        "t3-mmap": (None, {"SE": ["--mmap-index"]}),
+        "t3-profile": (None, {"SE": ["--profile", str(trace_dir)]}),
     }
+    host_paths = ("t1", "t3")  # each also run with --no-tpu
     counters = {"sw_forward": lambda: sw_cuda.launches,
                 "sw_forward_i16": lambda: sw_cuda.launches_i16,
                 "sw_traceback": lambda: tb_cuda.launches,
@@ -349,19 +477,19 @@ def main_path(torch, card):
         with sw16(sw16_value):
             sw_cuda.launches = sw_cuda.launches_i16 = tb_cuda.launches = 0
             probe.launches = px.calls = 0
-            for name, argv in reads.items():
+            for name, extra in flags.items():
                 runs[path, name] = map_run(main, f"{name}.{path}.cuda",
-                                           [*argv, *base, *flags[name], "--device", DEVICE])
+                                           [*reads[name], *base, *extra, "--device", DEVICE])
             torch.cuda.synchronize()
             launches[path] = {k: read() for k, read in counters.items()}
             dispatches[path] = px.calls
         cached = probe.probe_cache_path(0)
         check(cached.is_file(), f"{path}: no probe result at {cached}")
         say(f"{path}: int16 probe result {cached.read_text().strip()} cached at {cached}")
-        if sw16_value is None:
-            for name, argv in reads.items():
+        if path in host_paths:
+            for name, extra in flags.items():
                 runs[path, name, "host"] = map_run(main, f"{name}.{path}.host",
-                                                   [*argv, *base, *flags[name], "--no-tpu"])
+                                                   [*reads[name], *base, *extra, "--no-tpu"])
         say(f"{path}: device extend dispatches {dispatches[path]}, kernel launches "
             f"{launches[path]}")
         check(dispatches[path] > 0, f"{path}: no extend batch was dispatched to the device")
@@ -372,13 +500,14 @@ def main_path(torch, card):
         check(launches[path][unused] == 0, f"{path}: {unused} launched: {launches[path]}")
 
     for key, run in runs.items():
-        _, n, rate_log, rate_wall, wall, phases = run
+        _, n, rate_log, rate_wall, wall, phases, index_s = run
         say(f"{' '.join(key)}: {n} reads, mapping loop {rate_log} reads/s, whole CLI call "
-            f"{rate_wall:.1f} reads/s ({wall:.2f} s) [{card}]; {phases}")
+            f"{rate_wall:.1f} reads/s ({wall:.2f} s), index read {index_s} s [{card}]; {phases}")
     same = [(("t1", "SE"), ("t1", "SE", "host")), (("t1", "PE"), ("t1", "PE", "host")),
             (("t3", "SE"), ("t3", "SE", "host")), (("t3", "SE"), ("t1", "SE")),
             (("t3", "PE"), ("t3", "PE", "host")),
-            (("t3-sw16", "SE"), ("t3", "SE")), (("t3-sw16", "PE"), ("t3", "PE"))]
+            (("t3-sw16", "SE"), ("t3", "SE")), (("t3-sw16", "PE"), ("t3", "PE")),
+            (("t3-mmap", "SE"), ("t3", "SE")), (("t3-profile", "SE"), ("t3", "SE"))]
     for a, b in same:
         check(runs[a][0] == runs[b][0],
               f"SAM of {' '.join(a)} differs from {' '.join(b)}")
@@ -387,18 +516,33 @@ def main_path(torch, card):
         say(f"{name} mapping loop, device: -t 1 {runs['t1', name][2]} reads/s, "
             f"3 workers {runs['t3', name][2]} reads/s, 3 workers int16 "
             f"{runs['t3-sw16', name][2]} reads/s [{card}]")
+    say(f"SE index open, 3 workers: 'Total time reading index' {runs['t3', 'SE'][6]} s from the "
+        f".sti, {runs['t3-mmap', 'SE'][6]} s with --mmap-index [{card}]")
+
+    share, span_ms, names, n_dev = device_busy(trace_dir)
+    for kernel in ("sw_forward_kernel", "sw_traceback_kernel"):
+        check(any(kernel in n for n in names), f"the --profile trace has no {kernel} event: {names}")
+    say(f"--profile SE 3 workers: {n_dev} kernel/copy events, both extend kernels present; "
+        f"device busy {share:.6f} (idle {1 - share:.6f}) of the {span_ms:.1f} ms traced mapping "
+        f"run; mapping loop {runs['t3-profile', 'SE'][2]} reads/s traced against "
+        f"{runs['t3', 'SE'][2]} untraced [{card}]")
     return {k: sum(launches[path][k] for path in paths) for k in counters}
 
 
 def main() -> int:
     torch, card = environment()
     build()
-    err, times = kernels(torch, card)
+    err, times, bounds = kernels(torch, card)
+    split_launches = ilp(torch, card)
     launches = main_path(torch, card)
+    launches["sw_forward_split"] = split_launches
+    # no single PyTorch call computes an affine-gap Smith-Waterman pass,
+    # its traceback or the probe's compare: library_ms is null
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,
          "launches": launches[name], "max_abs_err": err[name],
-         "ms": times[name][0], "plain_ms": times[name][1]}
+         "ms": times[name][0], "plain_ms": times[name][1], "bound_ms": bounds[name][0],
+         "bound_by": bounds[name][1], "library_ms": None}
         for name, (src, replaces) in KERNELS.items()]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -126,11 +126,12 @@ def parse_command_line_arguments(argv: Optional[List[str]] = None) -> CommandLin
                    help="With --use-index: memory-map the index via a "
                         "columnar sidecar (built on first use) instead of "
                         "loading it up front — O(1) open, pages stream in "
-                        "while mapping runs (not yet ported)")
+                        "while mapping runs")
     p.add_argument("--no-sidecar", action="store_true",
                    help="With -i/--create-index: skip writing the columnar "
-                        "mmap sidecar (no sidecar is written until "
-                        "--mmap-index is ported)")
+                        "mmap sidecar (a second full copy of the index "
+                        "arrays on disk); the sidecar is then built lazily "
+                        "on the first --mmap-index run")
     # Seeding
     p.add_argument("-r", dest="r", type=int, default=None, metavar="INT",
                    help="Mean read length; index parameters are chosen from it")
@@ -188,8 +189,8 @@ def parse_command_line_arguments(argv: Optional[List[str]] = None) -> CommandLin
                    help="Device of the extend kernels [cuda]; cpu runs their "
                         "plain PyTorch versions")
     p.add_argument("--profile", metavar="DIR", default=None,
-                   help="Write a profiler trace of the mapping run to DIR "
-                        "(not yet ported)")
+                   help="Write a torch.profiler trace of the mapping run to "
+                        "DIR (view with TensorBoard / Perfetto)")
     # multi-host pod scale-out (requires -o on a shared fs; not yet ported)
     p.add_argument("--num-nodes", type=int, default=1, metavar="INT",
                    help="Number of hosts in the pod [1]; more than one is "

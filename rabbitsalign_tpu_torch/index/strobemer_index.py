@@ -11,7 +11,9 @@ in place (zero-copy pointers).
 Binary `.sti` v2 file interop: write()/read() are byte-compatible with
 the reference (src/index.cpp:73-132), so indexes are
 interchangeable with RabbitSAlign/strobealign and with rabbitsalign_tpu.
-Construction runs in the native engine (native/__init__.py).
+Construction runs in the native engine (native/__init__.py). The columnar
+sidecar of ``--mmap-index`` (`write_columns` / `read_mmap`) is
+rabbitsalign_tpu's, file for file.
 """
 
 from __future__ import annotations
@@ -331,3 +333,276 @@ class StrobemerIndex:
             if got != 8 * m:
                 raise InvalidIndexFile(
                     f"{filename}: truncated start-index vector")
+
+    # --- columnar mmap sidecar (--mmap-index) --------------------------
+    #
+    # The .sti interleaves 16-byte records, so loading it means a full
+    # sequential read + de-interleave: a 12 GB GRCh38-class index costs
+    # minutes of startup on a ~140 MB/s cloud disk (the reference's
+    # fread load, src/index.cpp:91-132, pays the same). The sidecar
+    # stores each column CONTIGUOUSLY so the index can be np.memmap'd:
+    # open is O(1), pages fault in on demand, and a background warmer
+    # thread streams the files through the page cache at sequential
+    # disk speed so mapping overlaps IO instead of stalling behind it.
+    # The engine's zero-copy pointers work on memmap'd columns
+    # unchanged. The .sti stays the byte-interchange format; the
+    # sidecar is a pure cache, keyed on the .sti's (size, mtime). Its
+    # files are byte-identical to rabbitsalign_tpu's, so either package
+    # opens the sidecar the other wrote.
+
+    COLS_VERSION = 1
+
+    def _cols_dir(self, filename: str) -> str:
+        return filename + ".cols"
+
+    @staticmethod
+    def _sti_fingerprint(filename: str, probes: int = 3) -> str:
+        """Cheap content fingerprint of the .sti: size + sha1 over
+        `probes` uniformly-spread 64 KiB windows (k=3 = head, middle,
+        tail — byte-compatible with the original 3-probe layout).
+        Size+mtime alone misses a cp -p'd stale .sti (same size,
+        preserved mtime, different bytes); hashing all 12 GB would cost
+        the sidecar's whole point. Validation uses the dense k=64
+        variant when the .sti's mtime changed since the sidecar was
+        built (a same-size in-place rewrite is exactly when sampling
+        sparsely is risky)."""
+        import hashlib
+        import os
+
+        h = hashlib.sha1()
+        size = os.path.getsize(filename)
+        h.update(str(size).encode())
+        span = max(0, size - 65536)
+        offs = sorted({max(0, span * i // max(1, probes - 1))
+                       for i in range(probes)})
+        with open(filename, "rb") as f:
+            for off in offs:
+                f.seek(off)
+                h.update(f.read(65536))
+        return h.hexdigest()
+
+    def write_columns(self, filename: str) -> None:
+        """Write the columnar sidecar next to `filename` (the .sti)."""
+        import json
+        import os
+
+        d = self._cols_dir(filename)
+        # per-process tmp name: every pod host (and a concurrent bench /
+        # CLI run) may build the sidecar for the same .sti at once; a
+        # shared ".tmp" would be renamed away under a slower writer
+        tmp = f"{d}.tmp.{os.getpid()}"
+        os.makedirs(tmp, exist_ok=True)
+        for name, arr in (("hashes", self.hashes),
+                          ("positions", self.positions),
+                          ("packed", self.packed),
+                          ("buckets", self.randstrobe_start_indices)):
+            with open(os.path.join(tmp, name + ".bin"), "wb") as f:
+                f.write(memoryview(np.ascontiguousarray(arr)))
+        st = os.stat(filename)
+        hdr = {
+            "version": self.COLS_VERSION,
+            "n": int(self.hashes.shape[0]),
+            "bits": int(self.bits),
+            "filter_cutoff": int(self.filter_cutoff),
+            "sti_size": st.st_size,
+            "sti_mtime_ns": st.st_mtime_ns,
+            "sti_sha": self._sti_fingerprint(filename),
+            # dense variant, checked instead of sti_sha whenever the
+            # .sti's mtime no longer matches (see read_mmap)
+            "sti_sha64": self._sti_fingerprint(filename, probes=64),
+        }
+        with open(os.path.join(tmp, "header.json"), "w") as f:
+            json.dump(hdr, f)
+        import shutil
+
+        if os.path.isdir(d):
+            # two processes rebuilding the same stale sidecar can both
+            # enter the rmtree; the loser must not crash mid-walk
+            shutil.rmtree(d, ignore_errors=True)
+        try:
+            os.replace(tmp, d)
+        except OSError:
+            # another process published between the rmtree and the
+            # rename (os.replace onto a non-empty dir raises); their
+            # sidecar is equivalent — drop ours
+            shutil.rmtree(tmp, ignore_errors=True)
+
+    def read_mmap(self, filename: str, warm: bool = True) -> bool:
+        """Open `filename`'s columnar sidecar as read-only memmaps.
+
+        Returns False (caller falls back to `read`) when the sidecar is
+        missing or stale. On success the header fields are set, the
+        column arrays are memmaps, and (with `warm`) a daemon thread
+        streams the files sequentially through the page cache so random
+        faults during mapping hit already-resident pages."""
+        import json
+        import os
+
+        d = self._cols_dir(filename)
+        try:
+            with open(os.path.join(d, "header.json")) as f:
+                hdr = json.load(f)
+            st = os.stat(filename)
+            if (hdr.get("version") != self.COLS_VERSION
+                    or hdr.get("sti_size") != st.st_size):
+                return False
+            if "sti_sha" in hdr:
+                # content fingerprint: catches a same-size .sti swap even
+                # when mtime was preserved (cp -p). When the mtime STILL
+                # matches the manifest, the sparse 3-probe check
+                # suffices; an mtime change means the .sti was rewritten
+                # in place — exactly when sparse sampling could miss a
+                # same-size content change — so use the dense 64-probe
+                # fingerprint then (4 MB of reads, still O(1) vs 12 GB)
+                if (hdr.get("sti_mtime_ns") == st.st_mtime_ns
+                        or "sti_sha64" not in hdr):
+                    if hdr["sti_sha"] != self._sti_fingerprint(filename):
+                        return False
+                elif hdr["sti_sha64"] != self._sti_fingerprint(filename,
+                                                               probes=64):
+                    return False
+            elif hdr.get("sti_mtime_ns") != st.st_mtime_ns:
+                # sidecars written before the fingerprint existed
+                return False
+            # the parameter check read() performs must still happen:
+            # parse just the .sti header (a few hundred bytes)
+            with open(filename, "rb") as f:
+                if f.read(4) != STI_MAGIC:
+                    return False
+                (version,) = struct.unpack("<I", f.read(4))
+                if version != STI_FILE_FORMAT_VERSION:
+                    return False
+                (reserved_size,) = struct.unpack("<Q", f.read(8))
+                f.seek(reserved_size, 1)
+                f.seek(8, 1)  # filter_cutoff + bits (sidecar header wins)
+                if IndexParameters.read(f) != self.parameters:
+                    raise InvalidIndexFile(
+                        "Index parameters in .sti file and those specified "
+                        "on command line differ")
+            n = int(hdr["n"])
+            self.bits = int(hdr["bits"])
+            self.filter_cutoff = int(hdr["filter_cutoff"])
+            self.hashes = np.memmap(
+                os.path.join(d, "hashes.bin"), dtype=np.uint64, mode="r",
+                shape=(n,))
+            self.positions = np.memmap(
+                os.path.join(d, "positions.bin"), dtype=np.uint32, mode="r",
+                shape=(n,))
+            self.packed = np.memmap(
+                os.path.join(d, "packed.bin"), dtype=np.uint32, mode="r",
+                shape=(n,))
+            self.randstrobe_start_indices = np.memmap(
+                os.path.join(d, "buckets.bin"), dtype=np.uint64, mode="r",
+                shape=((1 << self.bits) + 1,))
+        except (OSError, ValueError, KeyError):
+            return False
+        for arr in (self.hashes, self.positions, self.packed,
+                    self.randstrobe_start_indices):
+            _madvise_willneed(arr)
+        if warm:
+            import threading
+
+            files = [os.path.join(d, x + ".bin")
+                     for x in ("buckets", "hashes", "positions", "packed")]
+            t = threading.Thread(
+                target=_warm_page_cache,
+                args=(files, (self.hashes, self.positions,
+                              self.randstrobe_start_indices)),
+                daemon=True)
+            t.start()
+            # exposed so benchmarks/probes can wait for full residency
+            # + the random-access warm before timing (production never
+            # joins it — mapping overlaps the stream)
+            self._warmer = t
+        return True
+
+
+def _madvise_willneed(arr) -> None:
+    """Hint the kernel to schedule readahead for a memmap'd column."""
+    import ctypes
+    import mmap as _mmap
+
+    try:
+        libc = ctypes.CDLL(None, use_errno=True)
+        libc.madvise(ctypes.c_void_p(arr.ctypes.data),
+                     ctypes.c_size_t(arr.nbytes),
+                     ctypes.c_int(_mmap.MADV_WILLNEED))
+    except Exception:  # pragma: no cover - hint only
+        pass
+
+
+def _warm_page_cache(files, arrays=None) -> None:
+    """Stream files sequentially through the page cache (separate fds;
+    the GIL is released during readinto, so this overlaps compute on a
+    single core — IO wait costs no CPU). Bucket table first: every
+    lookup starts there. Once streaming completes, run the random-
+    access warm pass over the index arrays (see
+    warm_index_random_access) — pages are resident by then, so the
+    burst targets exactly the freshly-faulted state the pass0 penalty
+    attaches to."""
+    import time
+
+    from ..utils.logger import logger
+
+    t0 = time.perf_counter()
+    buf = bytearray(32 << 20)
+    for path in files:
+        try:
+            with open(path, "rb", buffering=0) as f:
+                while f.readinto(buf):
+                    pass
+        except OSError:  # pragma: no cover - cache warming only
+            return
+    logger.debug(f"index warmer: streamed in {time.perf_counter()-t0:.1f}s")
+    if arrays is not None:
+        t0 = time.perf_counter()
+        warm_index_random_access(*arrays)
+        logger.debug(
+            f"index warmer: random-access warm {time.perf_counter()-t0:.1f}s")
+
+
+def warm_index_random_access(hashes, positions, buckets,
+                             budget_s: float = None) -> None:
+    """Burn off the first-pass page-mapping penalty on a freshly-loaded
+    big index with a short adaptive random-access burst.
+
+    Measured at the 3 Gbp config (tests/sanitize/pass0_probe.py and
+    docs/PERF.md §4b): the first ~2 s of mapping work after the 12 GB
+    index is freshly faulted runs 2-10x slow — the excess is user CPU
+    in the mapping thread itself at constant frequency with zero
+    guest-visible fault/THP/migration counters moving, i.e. the host
+    maps freshly-allocated guest frames small and random access pays
+    double page walks until the host collapses/warms them. The penalty
+    burns off with random-access WORK (a sleep does not re-arm or cure
+    it), so this burst absorbs it outside the mapping path: one
+    controlled cold-start A/B cut the first timed pass from 6.8 s to
+    1.3 s (48 k reads). Rounds self-terminate when a round stops
+    getting faster (<20% improvement), so a warm index pays ~2 cheap
+    rounds. RSB_INDEX_WARM_S overrides the budget; 0 disables."""
+    import os
+    import time
+
+    if budget_s is None:
+        budget_s = float(os.environ.get("RSB_INDEX_WARM_S", "8"))
+    n = len(hashes)
+    if budget_s <= 0 or n == 0:
+        return
+    rng = np.random.RandomState(0xC0FFEE)
+    t_end = time.perf_counter() + budget_s
+    prev = None
+    sink = 0
+    while time.perf_counter() < t_end:
+        t0 = time.perf_counter()
+        # realistic access mix: random hash gathers double as warm-up
+        # and as searchsorted probes; positions/buckets gathers mirror
+        # the NAM-building loads
+        keys = hashes[rng.randint(0, n, 500_000)]
+        sink += int(np.searchsorted(hashes, keys).sum())
+        sink += int(positions[rng.randint(0, n, 1_000_000)].sum())
+        if buckets is not None and len(buckets):
+            sink += int(buckets[rng.randint(0, len(buckets),
+                                            500_000)].sum())
+        dt = time.perf_counter() - t0
+        if prev is not None and dt > 0.8 * prev:
+            break  # <20% improvement left — warm
+        prev = dt

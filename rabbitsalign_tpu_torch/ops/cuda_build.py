@@ -5,14 +5,17 @@ kernel, returning the ``cudaGetLastError()`` after its launch) and are
 compiled by ``nvcc`` for ``sm_90a`` into one shared library, loaded with
 ctypes: one ``nvcc -c`` per source, all started together, then one link.
 The build runs on first use, never at import, into
-``rabbitsalign_tpu_torch/build/`` (git-ignored), and is redone when a
-source is newer than the library. Concurrent builds write private
+``rabbitsalign_tpu_torch/build/`` (git-ignored), and is redone unless the
+stamp beside the library holds the digest of the current source list,
+their contents and the nvcc flags (mtimes cannot be trusted: an unpacked
+archive carries its commit's times). Concurrent builds write private
 temporary files and rename them into place.
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
 import shutil
 import subprocess
@@ -47,13 +50,25 @@ def nvcc_path() -> str:
     return found
 
 
+def sources_digest() -> str:
+    """sha256 over the names and contents of SOURCES and NVCC_FLAGS."""
+    h = hashlib.sha256(repr(NVCC_FLAGS).encode())
+    for name in SOURCES:
+        h.update(name.encode() + b"\0" + (CSRC_DIR / name).read_bytes() + b"\0")
+    return h.hexdigest()
+
+
 def build_kernels(extra_flags=()) -> Path:
-    """Compile csrc/*.cu into LIB_PATH if it is missing or stale: every
-    source to an object at once, then one shared library."""
+    """Compile csrc/*.cu into LIB_PATH unless the library's stamp matches
+    `sources_digest()`: every source to an object at once, then one shared
+    library. `extra_flags` (diagnostics such as ``-Xptxas -v``) force a
+    build and do not enter the digest."""
     global build_log, build_seconds
     srcs = [CSRC_DIR / s for s in SOURCES]
-    newest = max(s.stat().st_mtime for s in srcs)
-    if LIB_PATH.exists() and LIB_PATH.stat().st_mtime >= newest and not extra_flags:
+    digest = sources_digest()
+    stamp = LIB_PATH.with_name(LIB_PATH.name + ".sha256")
+    if (not extra_flags and LIB_PATH.exists() and stamp.exists()
+            and stamp.read_text() == digest):
         return LIB_PATH
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tag = f"{os.getpid()}.{threading.get_ident()}"
@@ -78,6 +93,8 @@ def build_kernels(extra_flags=()) -> Path:
                 tmp.unlink(missing_ok=True)
                 raise RuntimeError(f"CUDA kernel build failed ({' '.join(cmd)}):\n{out[-4000:]}")
         os.replace(tmp, LIB_PATH)
+        tmp.with_suffix(".sha256").write_text(digest)
+        os.replace(tmp.with_suffix(".sha256"), stamp)
     finally:
         for obj in objs:
             obj.unlink(missing_ok=True)
@@ -94,6 +111,9 @@ def load_kernels() -> ctypes.CDLL:
             for fn in (lib.sw_forward_launch, lib.sw_forward_i16_launch):
                 fn.restype = i
                 fn.argtypes = [p, p, p, p, i, i, i, i, i, i, i, p, p, p, p, p, p, p]
+            lib.sw_forward_split_launch.restype = i
+            lib.sw_forward_split_launch.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i,
+                                                    p, p, p, p, p, p, p]
             lib.sw_traceback_launch.restype = i
             lib.sw_traceback_launch.argtypes = [p, p, p, p, i, i, i, p, p, p, p]
             lib.int16_probe_launch.restype = i

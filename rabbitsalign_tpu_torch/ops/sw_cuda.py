@@ -28,6 +28,10 @@ Accumulator: int32, or int16 under ``RSB_SW16`` where the span bound of
 `pick_dtype` holds (the rule of sw_pallas._pick_dtype). The int16
 configuration starts E and F at NEG16 and keeps the H and E row scratch
 in 16 bits; wherever the bound holds its outputs equal the int32 ones.
+
+`sw_forward_split` is the cross-pair ILP variant (2 or 4 pairs per CUDA
+thread, int32), the counterpart of tests/sanitize/ilp_probe.py's
+`_kernel_split`; only the ILP probe (tools/ilp_probe.py) runs it.
 """
 
 from __future__ import annotations
@@ -41,11 +45,14 @@ import torch
 NEG = -(1 << 28)
 NEG16 = -(1 << 14)
 
-# launches of the int32 and int16 CUDA kernels by sw_forward; calls that
-# take the plain version (CPU tensors) are not counted. Mapping workers
-# launch from several threads, so updates hold _count_lock.
+# launches of the int32 and int16 CUDA kernels by sw_forward, and of the
+# split kernel by sw_forward_split; calls that take the plain version (CPU
+# tensors) are not counted. Mapping workers launch from several threads,
+# so updates hold _count_lock.
 launches = 0
 launches_i16 = 0
+launches_split = 0
+SPLITS = (2, 4)  # pairs per thread of sw_forward_split
 _count_lock = threading.Lock()
 
 
@@ -98,16 +105,64 @@ def sw_forward(q_t: torch.Tensor, t_t: torch.Tensor, qlen: torch.Tensor,
     the kernel of that dtype."""
     global launches, launches_i16
     _check_inputs(q_t, t_t, qlen, tlen)
-    Q, B = q_t.shape
-    T = t_t.shape[0]
-    acc = pick_dtype(Q, T, params)
+    acc = pick_dtype(q_t.shape[0], t_t.shape[0], params)
     if q_t.device.type == "cpu":
         return sw_forward_plain(q_t, t_t, qlen, tlen, params, acc)
+    lib = _cuda_lib(q_t, "sw_forward")
+    i16 = acc == torch.int16
+    out = _launch_forward(lib.sw_forward_i16_launch if i16 else lib.sw_forward_launch,
+                          "sw_forward", q_t, t_t, qlen, tlen, params, acc)
+    with _count_lock:
+        if i16:
+            launches_i16 += 1
+        else:
+            launches += 1
+    return out
+
+
+def sw_forward_split(q_t: torch.Tensor, t_t: torch.Tensor, qlen: torch.Tensor,
+                     tlen: torch.Tensor, params: SwParams, split: int
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The int32 forward with `split` (2 or 4) pairs per CUDA thread: pair
+    b belongs to column group b // (B / split), as the lane groups of
+    `_kernel_split`. Same arguments and outputs as `sw_forward`, whose
+    int32 kernel it equals byte for byte on valid cells. CPU tensors take
+    `sw_forward_split_plain`; CUDA tensors launch the split kernel."""
+    global launches_split
+    _check_inputs(q_t, t_t, qlen, tlen)
+    _check_split(q_t.shape[1], split)
+    if q_t.device.type == "cpu":
+        return sw_forward_split_plain(q_t, t_t, qlen, tlen, params, split)
+    lib = _cuda_lib(q_t, "sw_forward_split")
+    out = _launch_forward(lib.sw_forward_split_launch, "sw_forward_split", q_t, t_t, qlen,
+                          tlen, params, torch.int32, split)
+    with _count_lock:
+        launches_split += 1
+    return out
+
+
+def _check_split(B: int, split: int) -> None:
+    if split not in SPLITS:
+        raise ValueError(f"split must be one of {SPLITS}, not {split}")
+    if B % split:
+        raise ValueError(f"the batch width {B} is not a multiple of split={split}")
+
+
+def _cuda_lib(q_t: torch.Tensor, name: str):
     if q_t.device.type != "cuda":
-        raise ValueError(f"sw_forward: unsupported device {q_t.device}")
+        raise ValueError(f"{name}: unsupported device {q_t.device}")
     from .cuda_build import load_kernels
 
-    lib = load_kernels()
+    return load_kernels()
+
+
+def _launch_forward(launch, name: str, q_t, t_t, qlen, tlen, params: SwParams,
+                    acc: torch.dtype, *extra):
+    """Allocate the outputs and the (T, B) row scratch in `acc`, launch
+    `launch` on the current stream of q_t's device (`extra` goes after the
+    scoring arguments) and raise if the launch was refused."""
+    Q, B = q_t.shape
+    T = t_t.shape[0]
     q_t, t_t = q_t.contiguous(), t_t.contiguous()
     qlen, tlen = qlen.contiguous(), tlen.contiguous()
     dev = q_t.device
@@ -116,21 +171,15 @@ def sw_forward(q_t: torch.Tensor, t_t: torch.Tensor, qlen: torch.Tensor,
     e_row = torch.empty((T, B), dtype=acc, device=dev)
     out = torch.empty((3, B), dtype=torch.int32, device=dev)
     score, t_end, q_end = out[0], out[1], out[2]
-    launch = lib.sw_forward_i16_launch if acc == torch.int16 else lib.sw_forward_launch
     with torch.cuda.device(dev):
         err = launch(
             q_t.data_ptr(), t_t.data_ptr(), qlen.data_ptr(), tlen.data_ptr(),
             Q, T, B, params.match, params.mismatch, params.gap_open,
-            params.gap_extend, dirs.data_ptr(), h_row.data_ptr(),
+            params.gap_extend, *extra, dirs.data_ptr(), h_row.data_ptr(),
             e_row.data_ptr(), score.data_ptr(), t_end.data_ptr(),
             q_end.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     if err:
-        raise RuntimeError(f"sw_forward kernel launch failed (CUDA error {err})")
-    with _count_lock:
-        if acc == torch.int16:
-            launches_i16 += 1
-        else:
-            launches += 1
+        raise RuntimeError(f"{name} kernel launch failed (CUDA error {err})")
     return score, t_end, q_end, dirs
 
 
@@ -214,3 +263,15 @@ def sw_forward_plain(q_t: torch.Tensor, t_t: torch.Tensor, qlen: torch.Tensor,
     t_end = torch.where(is_best, best_t, 2**30).min(dim=0).values
     q_end = (is_best & (best_t == t_end[None, :])).to(i32).argmax(dim=0).to(i32)
     return score, t_end, q_end, dirs
+
+
+def sw_forward_split_plain(q_t: torch.Tensor, t_t: torch.Tensor, qlen: torch.Tensor,
+                           tlen: torch.Tensor, params: SwParams, split: int
+                           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """`sw_forward_plain` (int32) on each of the `split` column groups,
+    concatenated: the lane groups of `_kernel_split`."""
+    _check_split(q_t.shape[1], split)
+    parts = [sw_forward_plain(*(x.chunk(split, dim=-1)[s] for x in (q_t, t_t, qlen, tlen)),
+                              params)
+             for s in range(split)]
+    return tuple(torch.cat(xs, dim=-1) for xs in zip(*parts))

@@ -5,14 +5,18 @@ the native pipeline (pipeline/native_pipeline.py) runs the C++ engine's
 phases with the extend batches on the device given by ``--device``, on
 one mapping thread (``-t 1``) or on ``-t`` workers (default 3). The
 device prewarm (kernel build, CUDA context, int16 probe) runs while the
-reference and index load. Options whose code paths are not ported yet are
-refused up front (`_reject_unported`) rather than silently running
-something else.
+reference and index load. ``--mmap-index`` opens the index through its
+columnar sidecar, which ``-i`` writes beside the ``.sti``; ``--profile``
+wraps the mapping run in one torch.profiler trace. Options whose code
+paths are not ported yet are refused up front (`_reject_unported`) rather
+than silently running something else.
 """
 
 from __future__ import annotations
 
+import contextlib
 import sys
+import threading
 import time
 
 from ..align.aligner import AlignmentParameters
@@ -30,9 +34,7 @@ def _reject_unported(opt: CommandLineOptions) -> None:
     unported = [
         (opt.device_seed, "--device-seed"),
         (opt.shard_index, "--shard-index"),
-        (opt.mmap_index, "--mmap-index"),
         (opt.num_nodes > 1, "--num-nodes > 1 (multi-host)"),
-        (opt.profile_dir is not None, "--profile"),
     ]
     for given, name in unported:
         if given:
@@ -101,11 +103,24 @@ def run_aligner(opt: CommandLineOptions) -> int:
         prewarm = prewarm_device(opt.device)
 
     index = StrobemerIndex(references, index_parameters, opt.bits)
+    mmap_ok = False  # opened from the sidecar, whose warmer thread runs
     if opt.use_index:
         sti_path = opt.ref_filename + index_parameters.filename_extension()
         logger.info(f"Reading index from {sti_path}")
         t0 = time.perf_counter()
-        index.read(sti_path)
+        if opt.mmap_index:
+            # O(1) open of the columnar sidecar; pages fault in while a
+            # warmer thread streams the files through the page cache. A
+            # missing or stale sidecar means a plain read, then the sidecar
+            mmap_ok = index.read_mmap(sti_path)
+            if mmap_ok:
+                logger.info("Index mapped from columnar sidecar")
+            else:
+                index.read(sti_path)
+                logger.info("Building mmap sidecar (one-time) ...")
+                index.write_columns(sti_path)
+        else:
+            index.read(sti_path)
         logger.info(f"Total time reading index: {time.perf_counter() - t0:.2f} s")
     else:
         logger.info("Indexing ...")
@@ -129,7 +144,27 @@ def run_aligner(opt: CommandLineOptions) -> int:
             sti_path = opt.ref_filename + index_parameters.filename_extension()
             logger.info(f"Writing index to {sti_path}")
             index.write(sti_path)
+            # the sidecar is a second full copy of the arrays: --no-sidecar
+            # skips it, and a failed write only warns, since the .sti is
+            # the real artifact and --mmap-index builds a missing sidecar
+            if not opt.no_sidecar:
+                logger.info("Writing mmap sidecar (columnar)")
+                try:
+                    index.write_columns(sti_path)
+                except OSError as e:
+                    logger.warning(f"sidecar write failed ({e}); the .sti is intact "
+                                   f"and the first --mmap-index run builds the sidecar")
             return 0
+
+    if not mmap_ok and index.hashes.nbytes > (1 << 30):
+        # a big freshly read or built index pays a first-pass page-mapping
+        # penalty; a short random-access burst absorbs it while mapping
+        # starts (the sidecar's warmer does this itself)
+        from ..index.strobemer_index import warm_index_random_access
+
+        threading.Thread(target=warm_index_random_access,
+                         args=(index.hashes, index.positions, index.randstrobe_start_indices),
+                         daemon=True).start()
 
     map_param.rescue_cutoff = (
         map_param.rescue_level * index.filter_cutoff
@@ -149,8 +184,9 @@ def run_aligner(opt: CommandLineOptions) -> int:
         else open(opt.output_file_name, "wb")
     )
     try:
-        _map_reads(opt, out, references, index, index_parameters, map_param,
-                   aln_params)
+        with _profiler(opt):
+            _map_reads(opt, out, references, index, index_parameters, map_param,
+                       aln_params)
         out.flush()
     finally:
         if not opt.write_to_stdout:
@@ -158,6 +194,27 @@ def run_aligner(opt: CommandLineOptions) -> int:
     logger.info("Done!")
     logger.info(f"Total time mapping: {time.perf_counter() - t_start:.2f} s.")
     return 0
+
+
+def _profiler(opt):
+    """``--profile DIR``: one torch.profiler trace of the mapping run, the
+    counterpart of the JAX runner's jax.profiler.trace. CPU ops of every
+    thread (the mapping workers dispatch from their own), and with the
+    device path on CUDA the card's kernels and copies. On exit the trace
+    is written to DIR as ``<host>_<pid>.<ns>.pt.trace.json``, which
+    TensorBoard and Perfetto read. Nothing catches the profiler's errors:
+    one raised when it starts or when it writes the trace fails the run."""
+    if opt.profile_dir is None:
+        return contextlib.nullcontext()
+    from torch._C._profiler import _ExperimentalConfig
+    from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+
+    activities = [ProfilerActivity.CPU]
+    if opt.use_tpu and opt.device == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    return profile(activities=activities,
+                   on_trace_ready=tensorboard_trace_handler(opt.profile_dir),
+                   experimental_config=_ExperimentalConfig(profile_all_threads=True))
 
 
 def _make_progress(opt, t_start):

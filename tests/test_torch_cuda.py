@@ -83,6 +83,29 @@ def test_int16_kernel_matches_plain_and_int32_kernel(cuda, monkeypatch, Q, T):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("Q,T", [(q, t) for q, t, _, _ in engine_buckets(150)])
+@pytest.mark.parametrize("split", sw_cuda.SPLITS)
+def test_split_kernel_matches_plain_and_one_pair_kernel(cuda, monkeypatch, Q, T, split):
+    monkeypatch.delenv("RSB_SW16", raising=False)
+    buf, genome = q2_batch(mixed_pairs(Q, T, 72, seed=Q + split), Q, seed=Q)
+    q_t, t_t, qlen, tlen = px.unpack_q2(
+        torch.from_numpy(buf).to(cuda), px.resident_ref_codes(genome, cuda), Q, T)
+    sw = SwParams(2, 8, 12, 1)
+    valid = _valid(Q, T, qlen, tlen, cuda)
+    launches = sw_cuda.launches_split
+    got = sw_cuda.sw_forward_split(q_t, t_t, qlen, tlen, sw, split)
+    assert sw_cuda.launches_split == launches + 1
+    for other in (sw_cuda.sw_forward_split_plain(q_t, t_t, qlen, tlen, sw, split),
+                  sw_cuda.sw_forward(q_t, t_t, qlen, tlen, sw)):
+        for k, p in zip(got[:3], other[:3]):
+            assert torch.equal(k, p)
+        assert torch.equal(torch.where(valid, got[3], 0), torch.where(valid, other[3], 0))
+    with pytest.raises(ValueError):
+        sw_cuda.sw_forward_split(q_t[:, :70], t_t[:, :70], qlen[:70], tlen[:70], sw, 4)
+    assert sw_cuda.launches_split == launches + 1
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("seed", [0, 1, 2])
 def test_probe_kernel_matches_plain(cuda, seed):
     a = torch.from_numpy(probe.probe_input(seed)).to(cuda)

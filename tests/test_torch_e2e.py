@@ -98,11 +98,46 @@ def test_cli_threads_match_jax(data, mode):
     assert len(port_out.splitlines()) >= 600
 
 
+@pytest.mark.parametrize("mmap", [False, True], ids=["first-run-builds", "sidecar-from-i"])
+def test_mmap_index_matches_jax(data, tmp_path, mmap):
+    """--use-index --mmap-index: the first run without a sidecar reads the
+    .sti and builds the sidecar; with the sidecar -i wrote, the index opens
+    as memmaps. Either way the SAM equals the JAX CLI's."""
+    ref = tmp_path / "ref.fa"
+    ref.write_bytes((data / "ref.fa").read_bytes())
+    assert port_main([str(ref), "-i", "-r", "150", *([] if mmap else ["--no-sidecar"])]) == 0
+    cols = tmp_path / "ref.fa.r150.sti.cols"
+    assert cols.is_dir() == mmap
+    argv = [str(ref), str(data / "se.fq"), "--use-index", "-t", "1", "--tpu-batch", "64"]
+    assert jax_main(argv + ["-o", str(tmp_path / "jax.sam")]) == 0
+    assert port_main(argv + ["--mmap-index", "--device", "cpu", "-o",
+                             str(tmp_path / "port.sam")]) == 0
+    assert (cols / "header.json").is_file()
+    assert _without_pg(tmp_path / "port.sam") == _without_pg(tmp_path / "jax.sam")
+
+
+def test_profile_writes_a_trace(data, tmp_path):
+    """--profile DIR on --device cpu with the default 3 workers: a Chrome
+    trace in DIR holding the workers' torch ops, and the same SAM as the
+    run without it."""
+    import json
+    import os
+
+    argv = [str(data / "ref.fa"), str(data / "se.fq"), "--tpu-batch", "64", "--device", "cpu"]
+    assert port_main(argv + ["-o", str(tmp_path / "plain.sam")]) == 0
+    assert port_main(argv + ["--profile", str(tmp_path / "trace"), "-o",
+                             str(tmp_path / "prof.sam")]) == 0
+    assert _without_pg(tmp_path / "prof.sam") == _without_pg(tmp_path / "plain.sam")
+    traces = list((tmp_path / "trace").glob("*.pt.trace.json"))
+    assert len(traces) == 1
+    events = json.loads(traces[0].read_text())["traceEvents"]
+    op_threads = {e["tid"] for e in events if str(e.get("name", "")).startswith("aten::")}
+    assert op_threads - {os.getpid()}  # ops from the worker threads
+
+
 @pytest.mark.parametrize("flags", [
-    ["--device-seed"], ["--shard-index"],
-    ["--use-index", "--mmap-index"], ["--num-nodes", "2", "-o", "out.sam"],
-    ["--profile", "trace"],
-], ids=["device-seed", "shard-index", "mmap-index", "num-nodes", "profile"])
+    ["--device-seed"], ["--shard-index"], ["--num-nodes", "2", "-o", "out.sam"],
+], ids=["device-seed", "shard-index", "num-nodes"])
 def test_unported_options_are_refused(data, flags, capsys):
     assert port_main([str(data / "ref.fa"), str(data / "se.fq"), *flags]) == 1
     assert "not yet ported" in capsys.readouterr().err
