@@ -10,8 +10,9 @@ Phases, in order; any failure exits non-zero without the result line:
    limit (nvidia-smi), torch, CUDA and nvcc versions; g++ links -lz (the
    native engine needs zlib).
 2. Build: the CUDA kernels (csrc/, one nvcc per source, all started
-   together, for sm_90a; ptxas register and spill lines) and the native
-   engine (g++), from the checkout's sources; build times.
+   together, for sm_90a; ptxas register, shared memory and spill lines;
+   any spill fails) and the native engine (g++), from the checkout's
+   sources; build times.
 3. Kernels against their plain PyTorch versions on the card, at each
    engine bucket shape at its production batch width, on planted, indel,
    N-run, tandem-repeat, junk, empty and >32-run pairs: forward outputs
@@ -22,14 +23,16 @@ Phases, in order; any failure exits non-zero without the result line:
    int32 kernel byte for byte at the same shapes; a span-violating
    scoring must stay on int32; the int16 probe kernel must equal its
    plain version exactly on seeded tiles with the int16 extremes. The
-   cross-pair ILP forward (`sw_forward_split`, 2 and 4 pairs per thread)
-   must equal its plain version and the one-pair kernel byte for byte.
+   cross-pair ILP forward (`sw_forward_split`, 2 and 4 pairs per thread,
+   (Q, T, B) dirs) must equal its plain version and the production forward
+   (one warp per pair, (B, Q, T) dirs, read through `permute_dirs`) byte
+   for byte.
    Kernel and plain times with CUDA events at the tight bucket, beside
    each kernel's bound (the larger of its bytes over 3.35 TB/s and its
    integer operations over the int32 rate) for this run's inputs.
 ILP. The ILP probe harness (tools/ilp_probe.py) as its user runs it, with
    the launch counts set to 0 before it: the split kernels held bit-exact
-   against the one-pair kernel on the harness's inputs, then paired-slope
+   against the production kernel on the harness's inputs, then paired-slope
    times at (152, 256) x 1024 for production, split2 and split4.
 4. The main path through the CLI at a size users run: a 40 Mbp simulated
    genome (bench.py's generator), 240k x 150 bp SE reads and 120k x 2x150 bp
@@ -161,9 +164,12 @@ def build():
     cuda_build.build_kernels(extra_flags=("-Xptxas", "-v"))
     say(f"CUDA kernels built in {cuda_build.build_seconds:.2f} s -> "
         f"{cuda_build.LIB_PATH.relative_to(ROOT)}")
+    spills = []
     for line in cuda_build.build_log.splitlines():
         if "registers" in line or "Compiling entry" in line or "spill" in line:
             say("  " + line.strip())
+        spills += [int(n) for n in re.findall(r"(\d+) bytes spill", line)]
+    check(not any(spills), "ptxas reports register spills")
     # a fresh engine cache inside the checkout: always built from its sources
     os.environ["RABBITSALIGN_TPU_TORCH_CACHE"] = str(WORK / "engine_cache")
     from rabbitsalign_tpu_torch.native import build_engine
@@ -213,6 +219,16 @@ def traceback_bound(score, t_end, q_end, meta):
     return bound(steps + 12 * B + (2 * 32 + 8) * 4 * B, OPS_PER_TB_STEP * steps)
 
 
+def forward_geometry(Q: int, T: int):
+    """(rows per lane R, dynamic shared memory of one 4-warp block in
+    bytes) of the forward kernel at (Q, T), as csrc/sw_forward.cu picks
+    them: the smallest R of 1, 2, 4, 5, 8, 16 with 32 R >= Q; per warp
+    a ring of 32 x (64 R + 32) bytes and the T target codes rounded up
+    to 16."""
+    R = next(r for r in (1, 2, 4, 5, 8, 16) if 32 * r >= Q)
+    return R, 4 * (32 * (64 * R + 32) + (T + 15) // 16 * 16)
+
+
 def max_abs_err(torch, pairs) -> int:
     return max(int((a.to(torch.int64) - b.to(torch.int64)).abs().max()) if a.numel() else 0
                for a, b in pairs)
@@ -253,9 +269,7 @@ def kernels(torch, card):
         with sw16(None):
             k = sw_cuda.sw_forward(q_t, t_t, qlen, tlen, sw)
         p = sw_cuda.sw_forward_plain(q_t, t_t, qlen, tlen, sw)
-        qi = torch.arange(Q, device=dev)[:, None, None]
-        ti = torch.arange(T, device=dev)[None, :, None]
-        valid = (qi < qlen[None, None, :]) & (ti < tlen[None, None, :])
+        valid = sw_cuda.valid_cells(qlen, tlen, Q, T)  # (B, Q, T), the forward's layout
         e_f = max_abs_err(torch, list(zip(k[:3], p[:3])) + [(torch.where(valid, k[3], 0), p[3])])
         kt = tb_cuda.sw_traceback(k[3], *k[:3])
         e_t = max_abs_err(torch, zip(kt, tb_cuda.sw_traceback_plain(k[3], *k[:3])))
@@ -276,20 +290,24 @@ def kernels(torch, card):
         same = torch.equal(fused, plain)
         fields = px.unpack_output(fused.cpu().numpy())
         n_overflow, n_aligned = int((fields[2] == 0xFFFF).sum()), int((fields[3] > 0).sum())
-        say(f"bucket ({Q}, {T}) B={B}: forward max_abs_err {e_f}, traceback max_abs_err {e_t}, "
+        R, smem = forward_geometry(Q, T)
+        say(f"bucket ({Q}, {T}) B={B}: forward (R = {R} rows per lane, {smem} B shared memory "
+            f"per 4-warp block) max_abs_err {e_f}, traceback max_abs_err {e_t}, "
             f"fused output byte-equal {same}, int16 forward against plain int16 and int32 kernel "
             f"max_abs_err {e_16}, {n_aligned} pairs aligned, {n_overflow} over 32 runs")
-        # the cross-pair ILP forward: against its plain version and the
-        # one-pair int32 kernel
+        # the cross-pair ILP forward ((Q, T, B) dirs): against its plain
+        # version and the production int32 kernel through permute_dirs
         e_s = 0
+        valid_qtb = sw_cuda.permute_dirs(valid, "qtb")
+        k_qtb = torch.where(valid_qtb, sw_cuda.permute_dirs(k[3], "qtb"), 0)
         for split in sw_cuda.SPLITS:
             ks = sw_cuda.sw_forward_split(q_t, t_t, qlen, tlen, sw, split)
             ps = sw_cuda.sw_forward_split_plain(q_t, t_t, qlen, tlen, sw, split)
             e_s = max(e_s, max_abs_err(torch, list(zip(ks[:3], ps[:3])) + list(zip(ks[:3], k[:3])) + [
-                (torch.where(valid, ks[3], 0), ps[3]), (torch.where(valid, ks[3], 0),
-                                                        torch.where(valid, k[3], 0))]))
+                (torch.where(valid_qtb, ks[3], 0), ps[3]), (torch.where(valid_qtb, ks[3], 0),
+                                                            k_qtb)]))
         say(f"bucket ({Q}, {T}) B={B}: split forward (2 and 4 pairs per thread) against its "
-            f"plain version and the one-pair kernel max_abs_err {e_s}")
+            f"plain version and the production kernel max_abs_err {e_s}")
         check(e_f == 0 and e_t == 0 and same and e_16 == 0 and e_s == 0,
               f"kernel and plain version disagree at ({Q}, {T})")
         check(n_overflow > 0 and n_aligned > B // 2, f"degenerate test batch at ({Q}, {T})")
@@ -520,7 +538,7 @@ def main_path(torch, card):
         f".sti, {runs['t3-mmap', 'SE'][6]} s with --mmap-index [{card}]")
 
     share, span_ms, names, n_dev = device_busy(trace_dir)
-    for kernel in ("sw_forward_kernel", "sw_traceback_kernel"):
+    for kernel in ("sw_forward_warp_kernel", "sw_traceback_kernel"):
         check(any(kernel in n for n in names), f"the --profile trace has no {kernel} event: {names}")
     say(f"--profile SE 3 workers: {n_dev} kernel/copy events, both extend kernels present; "
         f"device busy {share:.6f} (idle {1 - share:.6f}) of the {span_ms:.1f} ms traced mapping "

@@ -6,7 +6,8 @@
 // rabbitsalign_tpu/ops/extend_portable.py:traceback_rle.
 //
 // Design: one thread per pair walks from (t_end, q_end) over the
-// (Q, T, B) direction bytes of sw_forward.cu until it reaches a stop cell
+// (B, Q, T) direction bytes of sw_forward.cu (its pair's own contiguous
+// Q x T plane) until it reaches a stop cell
 // or leaves the matrix. The walk keeps its current (op, length) run in
 // registers; each completed run goes to slot RLE_M-1-n (descending), so
 // ascending slots hold the cigar in forward order. Past RLE_M runs the
@@ -29,7 +30,7 @@ constexpr int kOpEq = 1, kOpX = 2, kOpI = 3, kOpD = 4;
 constexpr int kLayerH = 0, kLayerE = 1, kLayerF = 2;
 
 __global__ void __launch_bounds__(kThreads) sw_traceback_kernel(
-    const uint8_t* __restrict__ dirs,     // (Q, T, B)
+    const uint8_t* __restrict__ dirs,     // (B, Q, T)
     const int32_t* __restrict__ score,    // (B,)
     const int32_t* __restrict__ t_end,    // (B,)
     const int32_t* __restrict__ q_end,    // (B,)
@@ -49,7 +50,7 @@ __global__ void __launch_bounds__(kThreads) sw_traceback_kernel(
         int t = t_end[b], q = q_end[b], layer = kLayerH;
         int cur_op = 0, cur_len = 0;
         for (;;) {
-            const int cell = dirs[((size_t)q * T + t) * sB + b];
+            const int cell = dirs[((size_t)b * Q + q) * T + t];
             const int src = cell & 3;
             int op;
             if (layer == kLayerH) {

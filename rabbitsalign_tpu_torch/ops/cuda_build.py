@@ -110,7 +110,7 @@ def load_kernels() -> ctypes.CDLL:
             p, i = ctypes.c_void_p, ctypes.c_int
             for fn in (lib.sw_forward_launch, lib.sw_forward_i16_launch):
                 fn.restype = i
-                fn.argtypes = [p, p, p, p, i, i, i, i, i, i, i, p, p, p, p, p, p, p]
+                fn.argtypes = [p, p, p, p, i, i, i, i, i, i, i, p, p, p, p, p]
             lib.sw_forward_split_launch.restype = i
             lib.sw_forward_split_launch.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i,
                                                     p, p, p, p, p, p, p]

@@ -20,18 +20,24 @@ the pair's end is max score, then min t, then min q. A score-0 pair has
 t_end = -1 and q_end = 0.
 
 Layout: inputs (Q, B) / (T, B) with the pair index innermost, as the
-Pallas core takes them; dirs are (Q, T, B). Lengths past Q or T are
-clamped to the bucket. Only cells inside the valid region are defined in
-the kernel's dirs (the plain version writes 0 elsewhere).
+Pallas core takes them; dirs are (B, Q, T), each pair's Q x T cells
+contiguous and row-major (the forward kernel is one warp per pair and
+writes them in whole 32-byte sectors). Lengths past Q or T are clamped to
+the bucket. Only cells inside the valid region are defined in the
+kernel's dirs (the plain version writes 0 elsewhere). `permute_dirs`
+turns them into the split kernels' (Q, T, B) and the Pallas kernel's
+(Dpad, Q, B) layouts for comparisons; the mapping path never calls it.
 
 Accumulator: int32, or int16 under ``RSB_SW16`` where the span bound of
 `pick_dtype` holds (the rule of sw_pallas._pick_dtype). The int16
-configuration starts E and F at NEG16 and keeps the H and E row scratch
-in 16 bits; wherever the bound holds its outputs equal the int32 ones.
+configuration starts E and F at NEG16 and passes the H and E of a lane's
+bottom row to the next lane as two int16 halves of one shuffle; wherever
+the bound holds its outputs equal the int32 ones.
 
 `sw_forward_split` is the cross-pair ILP variant (2 or 4 pairs per CUDA
-thread, int32), the counterpart of tests/sanitize/ilp_probe.py's
-`_kernel_split`; only the ILP probe (tools/ilp_probe.py) runs it.
+thread, int32, (Q, T, B) dirs, row scratch in device memory), the
+counterpart of tests/sanitize/ilp_probe.py's `_kernel_split`; only the
+ILP probe (tools/ilp_probe.py) runs it.
 """
 
 from __future__ import annotations
@@ -53,6 +59,7 @@ launches = 0
 launches_i16 = 0
 launches_split = 0
 SPLITS = (2, 4)  # pairs per thread of sw_forward_split
+MAX_Q = 512  # the forward kernel's rows: 32 lanes x 16
 _count_lock = threading.Lock()
 
 
@@ -100,18 +107,22 @@ def sw_forward(q_t: torch.Tensor, t_t: torch.Tensor, qlen: torch.Tensor,
                tlen: torch.Tensor, params: SwParams
                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """q_t (Q, B) u8, t_t (T, B) u8, qlen/tlen (B,) i32 -> (score, t_end,
-    q_end (B,) i32, dirs (Q, T, B) u8), in the accumulator dtype of
+    q_end (B,) i32, dirs (B, Q, T) u8), in the accumulator dtype of
     `pick_dtype`. CPU tensors take the plain version; CUDA tensors launch
-    the kernel of that dtype."""
+    the kernel of that dtype (Q at most MAX_Q)."""
     global launches, launches_i16
     _check_inputs(q_t, t_t, qlen, tlen)
-    acc = pick_dtype(q_t.shape[0], t_t.shape[0], params)
+    Q, B = q_t.shape
+    T = t_t.shape[0]
+    acc = pick_dtype(Q, T, params)
     if q_t.device.type == "cpu":
         return sw_forward_plain(q_t, t_t, qlen, tlen, params, acc)
     lib = _cuda_lib(q_t, "sw_forward")
+    if Q > MAX_Q:
+        raise ValueError(f"sw_forward: the kernel takes Q <= {MAX_Q}, not {Q}")
     i16 = acc == torch.int16
     out = _launch_forward(lib.sw_forward_i16_launch if i16 else lib.sw_forward_launch,
-                          "sw_forward", q_t, t_t, qlen, tlen, params, acc)
+                          "sw_forward", q_t, t_t, qlen, tlen, params, (B, Q, T))
     with _count_lock:
         if i16:
             launches_i16 += 1
@@ -125,17 +136,24 @@ def sw_forward_split(q_t: torch.Tensor, t_t: torch.Tensor, qlen: torch.Tensor,
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """The int32 forward with `split` (2 or 4) pairs per CUDA thread: pair
     b belongs to column group b // (B / split), as the lane groups of
-    `_kernel_split`. Same arguments and outputs as `sw_forward`, whose
-    int32 kernel it equals byte for byte on valid cells. CPU tensors take
-    `sw_forward_split_plain`; CUDA tensors launch the split kernel."""
+    `_kernel_split`. Same arguments as `sw_forward`; dirs are (Q, T, B).
+    It equals the int32 `sw_forward` byte for byte on valid cells, whose
+    dirs `permute_dirs(dirs, "qtb")` puts in this layout. CPU tensors take
+    `sw_forward_split_plain`; CUDA tensors launch the split kernel, with
+    (T, B) int32 row scratch for H and E."""
     global launches_split
     _check_inputs(q_t, t_t, qlen, tlen)
     _check_split(q_t.shape[1], split)
     if q_t.device.type == "cpu":
         return sw_forward_split_plain(q_t, t_t, qlen, tlen, params, split)
     lib = _cuda_lib(q_t, "sw_forward_split")
+    Q, B = q_t.shape
+    T = t_t.shape[0]
+    h_row = torch.empty((T, B), dtype=torch.int32, device=q_t.device)
+    e_row = torch.empty_like(h_row)
     out = _launch_forward(lib.sw_forward_split_launch, "sw_forward_split", q_t, t_t, qlen,
-                          tlen, params, torch.int32, split)
+                          tlen, params, (Q, T, B), before=(split,),
+                          after=(h_row.data_ptr(), e_row.data_ptr()))
     with _count_lock:
         launches_split += 1
     return out
@@ -157,30 +175,52 @@ def _cuda_lib(q_t: torch.Tensor, name: str):
 
 
 def _launch_forward(launch, name: str, q_t, t_t, qlen, tlen, params: SwParams,
-                    acc: torch.dtype, *extra):
-    """Allocate the outputs and the (T, B) row scratch in `acc`, launch
-    `launch` on the current stream of q_t's device (`extra` goes after the
-    scoring arguments) and raise if the launch was refused."""
+                    dirs_shape, before=(), after=()):
+    """Allocate the outputs (dirs of `dirs_shape`), launch `launch` on the
+    current stream of q_t's device and raise if the launch was refused.
+    `before` goes between the scoring arguments and dirs, `after` between
+    dirs and the results."""
     Q, B = q_t.shape
     T = t_t.shape[0]
     q_t, t_t = q_t.contiguous(), t_t.contiguous()
     qlen, tlen = qlen.contiguous(), tlen.contiguous()
     dev = q_t.device
-    dirs = torch.empty((Q, T, B), dtype=torch.uint8, device=dev)
-    h_row = torch.empty((T, B), dtype=acc, device=dev)
-    e_row = torch.empty((T, B), dtype=acc, device=dev)
+    dirs = torch.empty(dirs_shape, dtype=torch.uint8, device=dev)
     out = torch.empty((3, B), dtype=torch.int32, device=dev)
     score, t_end, q_end = out[0], out[1], out[2]
     with torch.cuda.device(dev):
         err = launch(
             q_t.data_ptr(), t_t.data_ptr(), qlen.data_ptr(), tlen.data_ptr(),
             Q, T, B, params.match, params.mismatch, params.gap_open,
-            params.gap_extend, *extra, dirs.data_ptr(), h_row.data_ptr(),
-            e_row.data_ptr(), score.data_ptr(), t_end.data_ptr(),
-            q_end.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+            params.gap_extend, *before, dirs.data_ptr(), *after, score.data_ptr(),
+            t_end.data_ptr(), q_end.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"{name} kernel launch failed (CUDA error {err})")
     return score, t_end, q_end, dirs
+
+
+def permute_dirs(dirs: torch.Tensor, layout: str) -> torch.Tensor:
+    """The forward's (B, Q, T) dirs in another layout, for comparisons:
+    "qtb", the split kernels' (Q, T, B) (a view); "dqb", the Pallas
+    kernel's (Dpad, Q, B) with cell (q, t) at [q + t, q, b], Dpad = Q + T
+    - 1 rounded up to 8, and 0 where t = d - q is outside [0, T)."""
+    B, Q, T = dirs.shape
+    if layout == "qtb":
+        return dirs.permute(1, 2, 0)
+    if layout != "dqb":
+        raise ValueError(f"layout must be 'qtb' or 'dqb', not {layout!r}")
+    out = torch.zeros(((Q + T - 1 + 7) // 8 * 8, Q, B), dtype=dirs.dtype, device=dirs.device)
+    for q in range(Q):
+        out[q:q + T, q, :] = dirs[:, q, :].T
+    return out
+
+
+def valid_cells(qlen: torch.Tensor, tlen: torch.Tensor, Q: int, T: int) -> torch.Tensor:
+    """(B, Q, T) bool: the cells of the forward's dirs that are defined
+    (q < qlen, t < tlen)."""
+    qi = torch.arange(Q, device=qlen.device)[None, :, None]
+    ti = torch.arange(T, device=qlen.device)[None, None, :]
+    return (qi < qlen[:, None, None]) & (ti < tlen[:, None, None])
 
 
 def _shift_down(x: torch.Tensor, fill: int) -> torch.Tensor:
@@ -211,7 +251,7 @@ def sw_forward_plain(q_t: torch.Tensor, t_t: torch.Tensor, qlen: torch.Tensor,
     q_idx = torch.arange(Q, dtype=acc, device=dev)[:, None]
     q_valid = q_idx < qlen[None, :]
     q_scores = q < 4
-    dirs = torch.zeros((Q, T, B), dtype=torch.uint8, device=dev)
+    dirs = torch.zeros((B, Q, T), dtype=torch.uint8, device=dev)
 
     zeros = torch.zeros((Q, B), dtype=acc, device=dev)
     H1, H2 = zeros, zeros  # H on diagonals d-1 and d-2
@@ -249,7 +289,7 @@ def sw_forward_plain(q_t: torch.Tensor, t_t: torch.Tensor, qlen: torch.Tensor,
         dv = torch.where(valid, dv, 0).to(torch.uint8)
         lo, hi = max(0, d - T + 1), min(Q - 1, d)
         rows = torch.arange(lo, hi + 1, device=dev)
-        dirs[rows, d - rows] = dv[lo : hi + 1]
+        dirs[:, rows, d - rows] = dv[lo : hi + 1].T
 
         upd = H > best_h  # strict: the first (smallest t) best per row
         best_h = torch.where(upd, H, best_h)
@@ -269,9 +309,11 @@ def sw_forward_split_plain(q_t: torch.Tensor, t_t: torch.Tensor, qlen: torch.Ten
                            tlen: torch.Tensor, params: SwParams, split: int
                            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """`sw_forward_plain` (int32) on each of the `split` column groups,
-    concatenated: the lane groups of `_kernel_split`."""
+    concatenated: the lane groups of `_kernel_split`; dirs (Q, T, B), as
+    the split kernel writes them."""
     _check_split(q_t.shape[1], split)
     parts = [sw_forward_plain(*(x.chunk(split, dim=-1)[s] for x in (q_t, t_t, qlen, tlen)),
                               params)
              for s in range(split)]
-    return tuple(torch.cat(xs, dim=-1) for xs in zip(*parts))
+    score, t_end, q_end, dirs = (torch.cat(xs, dim=0) for xs in zip(*parts))
+    return score, t_end, q_end, permute_dirs(dirs, "qtb").contiguous()

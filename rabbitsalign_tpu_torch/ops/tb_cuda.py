@@ -3,7 +3,8 @@
 
 Counterpart of rabbitsalign_tpu/ops/tb_pallas.py; the plain version is
 the twin of rabbitsalign_tpu/ops/extend_portable.py:traceback_rle, over
-this port's (Q, T, B) dirs layout (ops/sw_cuda.py).
+this port's (B, Q, T) dirs layout (ops/sw_cuda.py): each pair's walk reads
+its own contiguous Q x T plane.
 
 Each pair's walker starts at (t_end, q_end) in layer H when score > 0.
 In layer H the cell's source decides: 0 stops (begin = cell + 1), 1 emits
@@ -49,13 +50,13 @@ _count_lock = threading.Lock()
 
 def sw_traceback(dirs: torch.Tensor, score: torch.Tensor, t_end: torch.Tensor,
                  q_end: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """dirs (Q, T, B) u8 and score/t_end/q_end (B,) i32 -> (runs_op,
+    """dirs (B, Q, T) u8 and score/t_end/q_end (B,) i32 -> (runs_op,
     runs_len (RLE_M, B) i32, meta (8, B) i32). CPU tensors take the plain
     version; CUDA tensors launch the kernel."""
     global launches
     if dirs.dim() != 3 or dirs.dtype != torch.uint8:
-        raise ValueError("dirs must be a (Q, T, B) uint8 tensor")
-    Q, T, B = dirs.shape
+        raise ValueError("dirs must be a (B, Q, T) uint8 tensor")
+    B, Q, T = dirs.shape
     for x in (score, t_end, q_end):
         if x.shape != (B,) or x.dtype != torch.int32 or x.device != dirs.device:
             raise ValueError("score, t_end, q_end must be (B,) int32 on the dirs device")
@@ -87,10 +88,10 @@ def sw_traceback_plain(dirs: torch.Tensor, score: torch.Tensor, t_end: torch.Ten
                        q_end: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The same walk in plain torch ops, every live walker one step per
     iteration (a walk takes at most Q+T-1 steps)."""
-    Q, T, B = dirs.shape
+    B, Q, T = dirs.shape
     dev = dirs.device
     i32 = torch.int32
-    flat = dirs.reshape(Q * T, B)
+    flat = dirs.reshape(B, Q * T)
     cols = torch.arange(B, device=dev)
     slot = torch.arange(RLE_M, dtype=i32, device=dev)[:, None]
     zero = torch.zeros(B, dtype=i32, device=dev)
@@ -107,7 +108,7 @@ def sw_traceback_plain(dirs: torch.Tensor, score: torch.Tensor, t_end: torch.Ten
             break
         live = layer != _DONE
         cell_idx = q.clamp(0, Q - 1).long() * T + t.clamp(0, T - 1).long()
-        cell = flat[cell_idx, cols].to(i32)
+        cell = flat[cols, cell_idx].to(i32)
         h_src = cell & 3
         e_ext = (cell >> 2) & 1
         f_ext = (cell >> 3) & 1

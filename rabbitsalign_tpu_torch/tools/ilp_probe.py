@@ -1,16 +1,18 @@
 """Cross-pair ILP probe of the forward kernel on an NVIDIA GPU: the
 counterpart of tests/sanitize/ilp_probe.py.
 
-Hypothesis: the one-pair forward kernel (csrc/sw_forward.cu) runs each
-pair as one chain of dependent cells whose scratch loads wait on memory.
-Giving each thread 2 or 4 independent chains, interleaved cell by cell
+Hypothesis: a forward that gives each pair one thread runs it as one
+chain of dependent cells whose scratch loads wait on memory. Giving each
+thread 2 or 4 independent chains, interleaved cell by cell
 (`sw_cuda.sw_forward_split`), lets one chain's loads and arithmetic fill
-the others' stalls, at the price of fewer threads on the card.
+the others' stalls, at the price of fewer threads on the card. The
+production variant is the mapping path's forward (`sw_forward`, one warp
+per pair), so the timings set the split kernels beside it.
 
 Method, as the TPU harness: the inputs of ilp_probe.py:216-227 (seed 7,
 (Q, T, B) = (152, 256, 1024), an alignment planted in every third pair,
 SwParams(2, 8, 12, 1)); the split kernels held bit-exact against the
-one-pair int32 kernel (score, t_end, q_end, and dirs on valid cells);
+production int32 kernel (score, t_end, q_end, and dirs on valid cells);
 then paired-slope timing: K = 2 and K = 10 chained launches on one stream,
 each writing (sum of the previous scores and t_ends) & 3 into q[0, 0] on
 the device so no launch can start before the previous one ends, timed with
@@ -68,22 +70,22 @@ def _variant(tag: str):
 
 def check_exact(inputs) -> None:
     """Raise unless sw_forward_split with 2 and 4 pairs per thread gives
-    the one-pair int32 kernel's score, t_end, q_end and valid-cell dirs."""
+    the production int32 kernel's score, t_end, q_end and valid-cell dirs
+    (its (B, Q, T) dirs read as (Q, T, B) through permute_dirs)."""
     q_t, t_t, qlen, tlen = inputs
     (Qi, _), Ti = q_t.shape, t_t.shape[0]
     if sw_cuda.pick_dtype(Qi, Ti, PARAMS) != torch.int32:
         raise RuntimeError("the production variant is the int32 kernel: unset RSB_SW16")
     ref = _variant("production")(*inputs)
-    qi = torch.arange(Qi, device=q_t.device)[:, None, None]
-    ti = torch.arange(Ti, device=q_t.device)[None, :, None]
-    valid = (qi < qlen[None, None, :]) & (ti < tlen[None, None, :])
+    valid = sw_cuda.permute_dirs(sw_cuda.valid_cells(qlen, tlen, Qi, Ti), "qtb")
+    ref_dirs = torch.where(valid, sw_cuda.permute_dirs(ref[3], "qtb"), 0)
     for tag in VARIANTS[1:]:
         got = _variant(tag)(*inputs)
         for name, a, b in zip(("score", "t_end", "q_end"), got[:3], ref[:3]):
             if not torch.equal(a, b):
-                raise AssertionError(f"{tag}: {name} differs from the one-pair kernel")
-        if not torch.equal(torch.where(valid, got[3], 0), torch.where(valid, ref[3], 0)):
-            raise AssertionError(f"{tag}: dirs differ from the one-pair kernel on valid cells")
+                raise AssertionError(f"{tag}: {name} differs from the production kernel")
+        if not torch.equal(torch.where(valid, got[3], 0), ref_dirs):
+            raise AssertionError(f"{tag}: dirs differ from the production kernel on valid cells")
 
 
 def _chain_ms(fn, inputs, K: int) -> float:

@@ -2,10 +2,13 @@
 the source list, the sources and the nvcc flags, so a library built from
 another list or other contents is rebuilt whatever the files' mtimes (an
 unpacked archive carries its commit's times). A stand-in nvcc records its
-calls; nothing is compiled."""
+calls; nothing is compiled. Also the test run's one build of the JAX
+package's engine (tests/torch_engine_cache.py), with a stand-in compiler."""
 
 import os
 import sys
+import threading
+import time
 
 import pytest
 
@@ -69,3 +72,68 @@ def test_library_is_rebuilt_when_the_sources_change(fake_build, monkeypatch):
     assert builds() == 4
     assert sorted(p.name for p in build.iterdir()) == ["libsw_kernels.so",
                                                         "libsw_kernels.so.sha256"]
+
+
+@pytest.fixture
+def jax_cache(monkeypatch, tmp_path):
+    """The JAX package's engine cache moved to an empty directory, and a
+    stand-in compiler that records its calls and writes through a private
+    temporary file, as native._compile does."""
+    import rabbitsalign_tpu.native as jax_native
+
+    from . import torch_engine_cache
+
+    monkeypatch.setattr(jax_native, "_CACHE", tmp_path / "cache")
+    monkeypatch.delenv("RABBITSALIGN_TPU_NO_NATIVE", raising=False)
+    calls = []
+
+    def fake_compile(src, out):
+        calls.append(src.name)
+        time.sleep(0.2)  # long enough for the other callers to queue on the lock
+        tmp = out.with_name(f"engine.{threading.get_ident()}.so")
+        tmp.write_bytes(b"library")
+        os.replace(tmp, out)
+        return out
+
+    return jax_native, torch_engine_cache, fake_compile, calls
+
+
+def test_jax_engine_is_built_once_for_concurrent_workers(jax_cache, monkeypatch):
+    """Four callers at once: one compile, and every caller returns with
+    the complete library in place; the JAX package's own loader then takes
+    it without compiling."""
+    jax_native, cache, fake_compile, calls = jax_cache
+    out = cache.jax_engine_path()
+    assert out == jax_native._CACHE / "engine.so"
+    results = []
+    workers = [threading.Thread(target=lambda: results.append(
+        (cache.prebuild_jax_engine(fake_compile), out.read_bytes()))) for _ in range(4)]
+    for w in workers:
+        w.start()
+    for w in workers:
+        w.join()
+    assert results == [(True, b"library")] * 4
+    assert calls == ["engine.cpp"]
+
+    def no_compiler(*args, **kwargs):
+        raise AssertionError("the JAX package compiled the engine again")
+
+    monkeypatch.setattr(jax_native.subprocess, "run", no_compiler)
+    assert jax_native._build("engine", deps=("seednam.cpp",)) == out
+
+
+def test_jax_engine_prebuild_rebuilds_stale_and_reports_failure(jax_cache, monkeypatch):
+    jax_native, cache, fake_compile, calls = jax_cache
+    out = cache.jax_engine_path()
+    assert cache.prebuild_jax_engine(fake_compile) and calls == ["engine.cpp"]
+    assert cache.prebuild_jax_engine(fake_compile) and len(calls) == 1  # fresh: kept
+    os.utime(out, (0, 0))  # older than the sources
+    assert cache.prebuild_jax_engine(fake_compile) and len(calls) == 2
+
+    def failing(src, out):
+        raise RuntimeError("native engine build failed")
+
+    os.utime(out, (0, 0))
+    assert cache.prebuild_jax_engine(failing) is False  # reported, not raised
+    monkeypatch.setenv("RABBITSALIGN_TPU_NO_NATIVE", "1")
+    assert cache.prebuild_jax_engine(fake_compile) is False and len(calls) == 2

@@ -29,9 +29,21 @@ def cuda():
 
 
 def _valid(Q, T, qlen, tlen, device):
-    qi = torch.arange(Q, device=device)[:, None, None]
-    ti = torch.arange(T, device=device)[None, :, None]
-    return (qi < qlen[None, None, :]) & (ti < tlen[None, None, :])
+    """(B, Q, T): the cells the forward's dirs define."""
+    return sw_cuda.valid_cells(qlen, tlen, Q, T)
+
+
+def _codes(Q, T, B, seed, device):
+    buf, genome = q2_batch(mixed_pairs(Q, T, B, seed=seed), Q, seed=seed)
+    return px.unpack_q2(torch.from_numpy(buf).to(device), px.resident_ref_codes(genome, device),
+                        Q, T)
+
+
+def _assert_forward_equal(got, want, valid):
+    for k, p in zip(got[:3], want[:3]):
+        assert torch.equal(k, p)
+    assert got[3].shape == want[3].shape
+    assert torch.equal(torch.where(valid, got[3], 0), torch.where(valid, want[3], 0))
 
 
 @pytest.mark.cuda
@@ -86,23 +98,101 @@ def test_int16_kernel_matches_plain_and_int32_kernel(cuda, monkeypatch, Q, T):
 @pytest.mark.parametrize("Q,T", [(q, t) for q, t, _, _ in engine_buckets(150)])
 @pytest.mark.parametrize("split", sw_cuda.SPLITS)
 def test_split_kernel_matches_plain_and_one_pair_kernel(cuda, monkeypatch, Q, T, split):
+    """The split kernels ((Q, T, B) dirs) against their plain version and
+    the production forward (one warp per pair) through permute_dirs."""
     monkeypatch.delenv("RSB_SW16", raising=False)
     buf, genome = q2_batch(mixed_pairs(Q, T, 72, seed=Q + split), Q, seed=Q)
     q_t, t_t, qlen, tlen = px.unpack_q2(
         torch.from_numpy(buf).to(cuda), px.resident_ref_codes(genome, cuda), Q, T)
     sw = SwParams(2, 8, 12, 1)
-    valid = _valid(Q, T, qlen, tlen, cuda)
+    valid = sw_cuda.permute_dirs(_valid(Q, T, qlen, tlen, cuda), "qtb")
     launches = sw_cuda.launches_split
     got = sw_cuda.sw_forward_split(q_t, t_t, qlen, tlen, sw, split)
     assert sw_cuda.launches_split == launches + 1
-    for other in (sw_cuda.sw_forward_split_plain(q_t, t_t, qlen, tlen, sw, split),
-                  sw_cuda.sw_forward(q_t, t_t, qlen, tlen, sw)):
-        for k, p in zip(got[:3], other[:3]):
-            assert torch.equal(k, p)
-        assert torch.equal(torch.where(valid, got[3], 0), torch.where(valid, other[3], 0))
+    # the production forward's (B, Q, T) dirs read as (Q, T, B)
+    production = sw_cuda.sw_forward(q_t, t_t, qlen, tlen, sw)
+    production = (*production[:3], sw_cuda.permute_dirs(production[3], "qtb"))
+    for other in (sw_cuda.sw_forward_split_plain(q_t, t_t, qlen, tlen, sw, split), production):
+        _assert_forward_equal(got, other, valid)
     with pytest.raises(ValueError):
         sw_cuda.sw_forward_split(q_t[:, :70], t_t[:, :70], qlen[:70], tlen[:70], sw, 4)
     assert sw_cuda.launches_split == launches + 1
+
+
+EDGE_SHAPES = [(q, t) for q, t, _, _ in engine_buckets(150)] + [(24, 40), (33, 47), (100, 130)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Q,T", EDGE_SHAPES)
+@pytest.mark.parametrize("acc", ["int32", "int16"])
+def test_forward_edges_match_plain_and_split(cuda, monkeypatch, Q, T, acc):
+    """The one-warp-per-pair forward at every bucket and at Q not a
+    multiple of 32 (and T not a multiple of 16), with qlen 0, tlen 0,
+    qlen = Q, tlen = T and lengths past them, in both configurations:
+    equal to its plain version and, for int32, to the split kernel
+    through permute_dirs."""
+    monkeypatch.setenv("RSB_SW16", "1" if acc == "int16" else "0")
+    q_t, t_t, qlen, tlen = _codes(Q, T, 96, seed=Q + T, device=cuda)
+    qlen[1], tlen[2], qlen[3], tlen[3], qlen[4], tlen[4] = 0, 0, Q, T, Q + 9, T + 2
+    qlen[5], tlen[5] = 0, 0
+    sw = SwParams(2, 8, 12, 1)
+    dtype = sw_cuda.pick_dtype(Q, T, sw)
+    assert dtype == (torch.int16 if acc == "int16" else torch.int32)
+    valid = _valid(Q, T, qlen, tlen, cuda)
+    got = sw_cuda.sw_forward(q_t, t_t, qlen, tlen, sw)
+    _assert_forward_equal(got, sw_cuda.sw_forward_plain(q_t, t_t, qlen, tlen, sw, dtype), valid)
+    assert [int(x[i]) for i in (1, 2, 5) for x in got[:3]] == [0, -1, 0] * 3
+    if acc == "int32":
+        split = sw_cuda.sw_forward_split(q_t, t_t, qlen, tlen, sw, 2)
+        assert torch.equal(torch.where(sw_cuda.permute_dirs(valid, "qtb"), split[3], 0),
+                           sw_cuda.permute_dirs(torch.where(valid, got[3], 0), "qtb"))
+        for k, p in zip(got[:3], split[:3]):
+            assert torch.equal(k, p)
+
+
+@pytest.mark.cuda
+def test_int16_forward_at_the_span_bound(cuda, monkeypatch):
+    """The largest match score pick_dtype admits to int16 at (40, 56), on
+    pairs whose query is the target's prefix: scores near 2**14, equal to
+    the plain int16 version and to the int32 kernel."""
+    Q, T = 40, 56
+    monkeypatch.setenv("RSB_SW16", "1")
+    A = max(a for a in range(1, 2000)
+            if sw_cuda.pick_dtype(Q, T, SwParams(a, 8, 12, 1)) == torch.int16)
+    sw = SwParams(A, 8, 12, 1)
+    q_t, t_t, qlen, tlen = _codes(Q, T, 64, seed=3, device=cuda)
+    for b in range(0, 64, 4):
+        q_t[:, b] = t_t[:Q, b]
+        qlen[b] = tlen[b] = Q
+    valid = _valid(Q, T, qlen, tlen, cuda)
+    k16 = sw_cuda.sw_forward(q_t, t_t, qlen, tlen, sw)
+    assert int(k16[0].max()) == A * Q > 16000
+    _assert_forward_equal(k16, sw_cuda.sw_forward_plain(q_t, t_t, qlen, tlen, sw, torch.int16),
+                          valid)
+    monkeypatch.setenv("RSB_SW16", "0")
+    _assert_forward_equal(k16, sw_cuda.sw_forward(q_t, t_t, qlen, tlen, sw), valid)
+
+
+@pytest.mark.cuda
+def test_forward_launch_refused_raises(cuda):
+    """No silent failure: a target so long that a block's shared memory
+    (4 warps x (ring + T target codes)) passes the card's limit is refused
+    at launch and raises; a Q past MAX_Q raises before any launch."""
+    sw = SwParams(2, 8, 12, 1)
+    Q, T, B = 152, 60_000, 4
+    q_t = torch.zeros((Q, B), dtype=torch.uint8, device=cuda)
+    t_t = torch.zeros((T, B), dtype=torch.uint8, device=cuda)
+    lens = torch.full((B,), 10, dtype=torch.int32, device=cuda)
+    launches = sw_cuda.launches
+    with pytest.raises(RuntimeError, match="launch failed"):
+        sw_cuda.sw_forward(q_t, t_t, lens, lens, sw)
+    with pytest.raises(ValueError, match="Q <= 512"):
+        sw_cuda.sw_forward(torch.zeros((513, B), dtype=torch.uint8, device=cuda), t_t[:64], lens,
+                           lens, sw)
+    assert sw_cuda.launches == launches
+    torch.cuda.synchronize()  # nothing was left running
+    ok = sw_cuda.sw_forward(q_t, t_t[:256], lens, lens, sw)  # the next launch runs
+    assert ok[3].shape == (B, Q, 256)
 
 
 @pytest.mark.cuda

@@ -219,7 +219,7 @@ def _small_pairs():
 
 def test_forward_plain_matches_sw_jax():
     """score, t_end and q_end equal; dirs equal on every valid cell
-    (sw_jax keeps (D, B, Q) planes, the port (Q, T, B))."""
+    (sw_jax keeps (D, B, Q) planes, the port (B, Q, T))."""
     pairs, Q, T = _small_pairs()
     qc, tc, ql, tl = _pack(pairs, Q, T)
     for sw in SW_PARAMS:
@@ -232,7 +232,7 @@ def test_forward_plain_matches_sw_jax():
         np.testing.assert_array_equal(pqe, jqe)
         for b in range(len(pairs)):
             qs, ts = np.meshgrid(np.arange(ql[b]), np.arange(tl[b]), indexing="ij")
-            np.testing.assert_array_equal(pd[qs, ts, b], jd[qs + ts, b, qs])
+            np.testing.assert_array_equal(pd[b, qs, ts], jd[qs + ts, b, qs])
     assert ps[len(pairs) - 2] == 0 and pte[len(pairs) - 2] == -1 and pqe[len(pairs) - 2] == 0
 
 
@@ -268,3 +268,52 @@ def test_wrappers_take_plain_version_on_cpu_only():
     with pytest.raises(ValueError):
         tb_cuda.sw_traceback(dirs.to("meta"), score.to("meta"),
                              t_end.to("meta"), q_end.to("meta"))
+
+
+@pytest.mark.parametrize("sw", SW_PARAMS, ids=["default", "flat", "free-extend"])
+def test_walk_plain_matches_traceback_rle_mixed(sw):
+    """The plain walk over the (B, Q, T) dirs of the plain forward gives
+    traceback_rle's runs and meta over sw_jax's (D, B, Q) dirs, on the
+    mixed pairs (>32-run, N-run, tandem, empty) with Q not a multiple of
+    32 and lengths of 0, Q and T, and past them."""
+    Q, T, B = 40, 72, 28
+    buf, genome = q2_batch(mixed_pairs(Q, T, B, seed=9), Q, seed=9)
+    q_t, t_t, qlen, tlen = px.unpack_q2(torch.from_numpy(buf), px.resident_ref_codes(genome, "cpu"),
+                                        Q, T)
+    qlen[1], tlen[2], qlen[3], tlen[3], qlen[4], tlen[4] = 0, 0, Q, T, Q + 7, T + 3
+    js, jte, jqe, jd = jax_sw_forward(q_t.numpy().T.copy(), t_t.numpy().T.copy(),
+                                      qlen.numpy(), tlen.numpy(), JaxSwParams(*sw))
+    j_walk = map(np.asarray, traceback_rle(jd, js, jte, jqe))
+    fwd = sw_cuda.sw_forward_plain(q_t, t_t, qlen, tlen, sw)
+    assert fwd[3].shape == (B, Q, T)
+    np.testing.assert_array_equal(fwd[0].numpy(), np.asarray(js))
+    for p, j in zip(tb_cuda.sw_traceback_plain(fwd[3], *fwd[:3]), j_walk):
+        np.testing.assert_array_equal(p.numpy(), j)
+
+
+def test_permute_dirs_and_valid_cells():
+    """permute_dirs puts cell (b, q, t) at [q, t, b] ("qtb", a view) and at
+    [q + t, q, b] ("dqb", Dpad = Q + T - 1 rounded up to 8, 0 elsewhere);
+    valid_cells marks q < qlen and t < tlen."""
+    rng = np.random.RandomState(2)
+    B, Q, T = 5, 13, 21
+    dirs = torch.from_numpy(rng.randint(1, 256, (B, Q, T)).astype(np.uint8))
+    qtb = sw_cuda.permute_dirs(dirs, "qtb")
+    assert qtb.shape == (Q, T, B) and qtb.data_ptr() == dirs.data_ptr()
+    dqb = sw_cuda.permute_dirs(dirs, "dqb").numpy()
+    assert dqb.shape == (40, Q, B)
+    d = dirs.numpy()
+    seen = np.zeros(dqb.shape, bool)
+    for b in range(B):
+        for q in range(Q):
+            for t in range(T):
+                assert qtb[q, t, b] == d[b, q, t] and dqb[q + t, q, b] == d[b, q, t]
+                seen[q + t, q, b] = True
+    assert (dqb[~seen] == 0).all()
+    with pytest.raises(ValueError):
+        sw_cuda.permute_dirs(dirs, "tqb")
+    qlen = torch.tensor([0, 4, 13, 20, -1], dtype=torch.int32)
+    tlen = torch.tensor([5, 0, 21, 9, 3], dtype=torch.int32)
+    valid = sw_cuda.valid_cells(qlen, tlen, Q, T)
+    assert valid.shape == (B, Q, T)
+    assert [int(v.sum()) for v in valid] == [0, 0, Q * T, Q * 9, 0]

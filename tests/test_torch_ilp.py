@@ -70,9 +70,13 @@ def test_split_wrapper_on_cpu_runs_the_plain_version(split):
     assert sw_cuda.launches_split == launches
     for a, b in zip(got, sw_cuda.sw_forward_split_plain(q_t, t_t, qlen, tlen, SW, split)):
         assert torch.equal(a, b)
-    # column groups are independent: the split equals the one-pair forward
-    for a, b in zip(got, sw_cuda.sw_forward_plain(q_t, t_t, qlen, tlen, SW)):
+    # column groups are independent: the split equals the one-pair forward,
+    # whose (B, Q, T) dirs read as (Q, T, B) through permute_dirs
+    one = sw_cuda.sw_forward_plain(q_t, t_t, qlen, tlen, SW)
+    for a, b in zip(got[:3], one[:3]):
         assert torch.equal(a, b)
+    assert got[3].shape == (32, 48, 28)
+    assert torch.equal(got[3], sw_cuda.permute_dirs(one[3], "qtb"))
 
 
 @pytest.mark.parametrize("split,B", [(3, 24), (8, 24), (4, 30), (2, 27)],

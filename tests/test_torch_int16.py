@@ -113,15 +113,55 @@ def test_plain_forward_matches_pallas_kernel(monkeypatch, sw16):
     assert acc == (torch.int16 if sw16 == "1" else torch.int32)
     q_t, t_t, qlen, tlen = _codes(Q, T, B, seed=11)
     js, jte, jqe, jd = _pallas_forward(q_t, t_t, qlen, tlen, sw)
-    ps, pte, pqe, pd = (x.numpy() for x in sw_cuda.sw_forward_plain(q_t, t_t, qlen, tlen, sw, acc))
-    np.testing.assert_array_equal(ps, js)
-    np.testing.assert_array_equal(pte, jte)
-    np.testing.assert_array_equal(pqe, jqe)
+    ps, pte, pqe, pd = sw_cuda.sw_forward_plain(q_t, t_t, qlen, tlen, sw, acc)
+    np.testing.assert_array_equal(ps.numpy(), js)
+    np.testing.assert_array_equal(pte.numpy(), jte)
+    np.testing.assert_array_equal(pqe.numpy(), jqe)
     assert (ps > 0).sum() > B // 2
-    ql, tl = qlen.numpy(), tlen.numpy()
-    for b in range(B):
-        qs, ts = np.meshgrid(np.arange(ql[b]), np.arange(tl[b]), indexing="ij")
-        np.testing.assert_array_equal(pd[qs, ts, b], jd[qs + ts, qs, b])
+    _assert_dirs_equal_on_valid_cells(pd, jd, qlen, tlen)
+
+
+def _assert_dirs_equal_on_valid_cells(pd, jd, qlen, tlen):
+    """The port's (B, Q, T) dirs, through permute_dirs, against the Pallas
+    (Dpad, Q, B) dirs on the valid cells (the only ones either defines)."""
+    B, Q, T = pd.shape
+    valid = sw_cuda.permute_dirs(sw_cuda.valid_cells(qlen, tlen, Q, T).to(torch.uint8), "dqb")
+    valid = valid.numpy() == 1
+    assert jd.shape == valid.shape
+    np.testing.assert_array_equal(sw_cuda.permute_dirs(pd, "dqb").numpy()[valid], jd[valid])
+
+
+@pytest.mark.parametrize("case", ["int16", "int32", "int16-extreme"])
+def test_plain_forward_edges_match_pallas_kernel(monkeypatch, case):
+    """Q not a multiple of 32 and lengths of 0, Q and T (and past them), in
+    both configurations; "int16-extreme" takes the largest match score
+    that pick_dtype still admits to int16 at this shape, on pairs whose
+    query is the target (scores near 2**14), beside the mixed pairs."""
+    Q, T, B = 40, 56, 128
+    monkeypatch.setenv("RSB_SW16", "0" if case == "int32" else "1")
+    q_t, t_t, qlen, tlen = _codes(Q, T, B, seed=21)
+    qlen[1], tlen[2], qlen[3], tlen[3], qlen[4], tlen[4] = 0, 0, Q, T, Q + 9, T + 2
+    qlen[5], tlen[5] = 0, 0
+    sw = SwParams(2, 8, 12, 1)
+    if case == "int16-extreme":
+        A = max(a for a in range(1, 2000)
+                if sw_cuda.pick_dtype(Q, T, SwParams(a, 8, 12, 1)) == torch.int16)
+        assert sw_cuda.pick_dtype(Q, T, SwParams(A + 1, 8, 12, 1)) == torch.int32
+        sw = SwParams(A, 8, 12, 1)
+        for b in range(8, B, 4):  # the query is the target's prefix: score A * qlen
+            q_t[:, b] = t_t[:Q, b]
+            qlen[b] = tlen[b] = Q
+    acc = sw_cuda.pick_dtype(Q, T, sw)
+    assert acc == (torch.int32 if case == "int32" else torch.int16)
+    js, jte, jqe, jd = _pallas_forward(q_t, t_t, qlen, tlen, sw)
+    ps, pte, pqe, pd = sw_cuda.sw_forward_plain(q_t, t_t, qlen, tlen, sw, acc)
+    np.testing.assert_array_equal(ps.numpy(), js)
+    np.testing.assert_array_equal(pte.numpy(), jte)
+    np.testing.assert_array_equal(pqe.numpy(), jqe)
+    assert (ps[1], pte[1], pqe[1]) == (0, -1, 0) and (ps[2], pte[2], pqe[2]) == (0, -1, 0)
+    if case == "int16-extreme":
+        assert int(ps.max()) == sw.match * Q > 16000  # H near 2**14, E near NEG16 - D
+    _assert_dirs_equal_on_valid_cells(pd, jd, qlen, tlen)
 
 
 @pytest.mark.parametrize("Q,T", BUCKETS)
