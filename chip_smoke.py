@@ -16,9 +16,10 @@ Phases, in order; any failure exits non-zero without the result line:
 3. Kernels against their plain PyTorch versions on the card, at each
    engine bucket shape at its production batch width, on planted, indel,
    N-run, tandem-repeat, junk, empty and >32-run pairs: forward outputs
-   (score, t_end, q_end; dirs on valid cells), traceback outputs (runs,
-   meta) and the fused packed transfer buffer must be equal byte for
-   byte (tolerance 0: everything is integer). The int16 forward (the
+   (score, t_end, q_end; dirs on valid cells), both traceback epilogues
+   (runs and meta; the packed transfer buffer) and the fused packed
+   transfer buffer (written by the traceback kernel) must be equal byte
+   for byte (tolerance 0: everything is integer). The int16 forward (the
    RSB_SW16 configuration) must equal its plain int16 version and the
    int32 kernel byte for byte at the same shapes; a span-violating
    scoring must stay on int32; the int16 probe kernel must equal its
@@ -29,7 +30,16 @@ Phases, in order; any failure exits non-zero without the result line:
    for byte.
    Kernel and plain times with CUDA events at the tight bucket, beside
    each kernel's bound (the larger of its bytes over 3.35 TB/s and its
-   integer operations over the int32 rate) for this run's inputs.
+   integer operations over the int32 rate) for this run's inputs. A
+   kernel's time is its time on the card: its calls are queued behind a
+   sleep kernel, so the host's enqueue time is hidden (the traceback's
+   host-paced time, back-to-back calls, is printed beside it). Plain
+   versions are timed host-paced; the fused extend both ways. At the
+   tight bucket and at (512, 2048) the traceback's walks are replayed by
+   the numpy emulation of its tile schedule (tests/torch_tb_tiles.py),
+   which must give the kernel's runs and meta, for the longest and mean
+   walk, its rounds, tile loads and prefetch hits; both epilogues are
+   timed there, and ns per step of the longest walk is printed.
 ILP. The ILP probe harness (tools/ilp_probe.py) as its user runs it, with
    the launch counts set to 0 before it: the split kernels held bit-exact
    against the production kernel on the harness's inputs, then paired-slope
@@ -82,7 +92,8 @@ N_PE_PAIRS = 120_000
 REQUIRED = ("rabbitsalign_tpu_torch/__init__.py", "rabbitsalign_tpu_torch/csrc/sw_forward.cu",
             "rabbitsalign_tpu_torch/csrc/sw_traceback.cu",
             "rabbitsalign_tpu_torch/csrc/int16_probe.cu", "rabbitsalign_tpu/native/engine.cpp",
-            "rabbitsalign_tpu_torch/tools/ilp_probe.py", "bench.py", "tests/torch_extend_cases.py")
+            "rabbitsalign_tpu_torch/tools/ilp_probe.py", "bench.py", "tests/torch_extend_cases.py",
+            "tests/torch_tb_tiles.py")
 # kernel name -> (source, the pallas_call it replaces)
 KERNELS = {
     "sw_forward": ("rabbitsalign_tpu_torch/csrc/sw_forward.cu",
@@ -194,6 +205,30 @@ def time_ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_ms(torch, fn, reps: int) -> float:
+    """Mean milliseconds per call on the card, by CUDA events: after a
+    warm-up call, the calls are queued behind a sleep kernel, so the
+    events time the card's work and not the host's enqueueing. The sleep
+    grows until the host has queued every call before it ends."""
+    fn()
+    torch.cuda.synchronize()
+    cycles = 1 << 22
+    for _ in range(6):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        queued = not start.query()
+        end.synchronize()
+        if queued:
+            return start.elapsed_time(end) / reps
+        cycles *= 4
+    fail("the host could not queue the timed calls ahead of the card")
+
+
 def bound(nbytes: float, ops: float):
     """(least ms the card could take, "bytes" or "operations")."""
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S
@@ -210,13 +245,55 @@ def forward_bound(q_t, t_t, qlen, tlen):
 
 
 def traceback_bound(score, t_end, q_end, meta):
-    """The traceback's bound: each aligned pair walks at least
-    max(query span, target span) cells; it reads those direction bytes and
-    the three (B,) inputs, and writes the (32, B) x 2 runs and (8, B) meta."""
+    """The bound of the packed traceback, which the main path launches:
+    each aligned pair walks at least max(query span, target span) cells;
+    it reads those direction bytes and the three (B,) inputs, and writes
+    the (78, B) u8 transfer rows."""
     B = score.shape[0]
     span = (t_end - meta[0]).maximum(q_end - meta[1]) + 1
     steps = int(span.where(score > 0, 0).clamp(min=0).sum())
-    return bound(steps + 12 * B + (2 * 32 + 8) * 4 * B, OPS_PER_TB_STEP * steps)
+    return bound(steps + 12 * B + 78 * B, OPS_PER_TB_STEP * steps)
+
+
+def walk_stats(torch, card, tag, dirs, score, t_end, q_end, kernel_runs, B):
+    """Replay the batch's walks through the numpy emulation of the
+    traceback's tile schedule, hold it to the kernel's runs and meta, time
+    both epilogues on the card, and print the walks' lengths, rounds, tile
+    loads, prefetch hits and ns per step of the longest walk, and the
+    packed wrapper's host-paced time. Returns the packed epilogue's ms."""
+    from rabbitsalign_tpu_torch.ops import tb_cuda
+    from tests.torch_tb_tiles import K_KERNEL, tile_walk_batch
+
+    t0 = time.perf_counter()
+    got, st = tile_walk_batch(dirs.cpu().numpy(), *(x.cpu().numpy() for x in (score, t_end, q_end)),
+                              K_KERNEL)
+    emu_s = time.perf_counter() - t0
+    check(all((g == k.cpu().numpy()).all() for g, k in zip(got, kernel_runs)),
+          f"{tag}: the tile-schedule emulation disagrees with the kernel")
+    on = (score > 0).cpu().numpy()
+    steps, rounds, loads, hits = (st[k][on] for k in ("steps", "rounds", "loads", "hits"))
+    ms = {fn: device_ms(torch, lambda: getattr(tb_cuda, fn)(dirs, score, t_end, q_end), 50)
+          for fn in ("sw_traceback_packed", "sw_traceback")}
+    host = time_ms(torch, lambda: tb_cuda.sw_traceback_packed(dirs, score, t_end, q_end), 50)
+    # the fixed cost: every walk one cell long (from (0, 0)), so a call is
+    # the launch, the inputs' read, one tile's copy and the epilogue
+    zero = torch.zeros_like(t_end)
+    fixed = device_ms(torch, lambda: tb_cuda.sw_traceback_packed(dirs, score, zero, zero), 50)
+    longest = int(steps.max())
+    say(f"traceback walks at {tag} B={B} ({int(on.sum())} aligned, emulation equal to the kernel, "
+        f"{emu_s:.1f} s): longest {longest} steps in "
+        f"{int(rounds[steps.argmax()])} rounds, mean {steps.mean():.1f} steps in "
+        f"{rounds.mean():.2f} rounds (most rounds {int(rounds.max())}); per walk "
+        f"{loads.mean():.3f} synchronous tile loads and {hits.mean():.3f} prefetch hits "
+        f"({K_KERNEL}-row tiles)")
+    for fn, t in ms.items():
+        say(f"{fn} at {tag} B={B}: {t:.4f} ms on the card "
+            f"({t * 1e3 / B:.4f} us/pair), {t * 1e6 / longest:.1f} ns per step of the longest "
+            f"walk [{card}]")
+    say(f"sw_traceback_packed at {tag} B={B}: {host:.4f} ms a call host-paced (back-to-back "
+        f"calls through the wrapper); {fixed:.4f} ms on the card with every walk one cell long "
+        f"[{card}]")
+    return ms["sw_traceback_packed"]
 
 
 def forward_geometry(Q: int, T: int):
@@ -271,8 +348,12 @@ def kernels(torch, card):
         p = sw_cuda.sw_forward_plain(q_t, t_t, qlen, tlen, sw)
         valid = sw_cuda.valid_cells(qlen, tlen, Q, T)  # (B, Q, T), the forward's layout
         e_f = max_abs_err(torch, list(zip(k[:3], p[:3])) + [(torch.where(valid, k[3], 0), p[3])])
+        # both epilogues against the plain walk and pack
+        pt = tb_cuda.sw_traceback_plain(k[3], *k[:3])
+        pp = tb_cuda.pack_rle_output(pt[0], pt[1], *k[:3], pt[2])
         kt = tb_cuda.sw_traceback(k[3], *k[:3])
-        e_t = max_abs_err(torch, zip(kt, tb_cuda.sw_traceback_plain(k[3], *k[:3])))
+        kp = tb_cuda.sw_traceback_packed(k[3], *k[:3])
+        e_t = max_abs_err(torch, list(zip(kt, pt)) + [(kp, pp)])
         with sw16(None):
             fused = px.extend_batch_packed_resident_q2(buf, ref, Q, T, sw, bcap)
         runs_op, runs_len, meta = tb_cuda.sw_traceback_plain(p[3], *p[:3])
@@ -292,7 +373,7 @@ def kernels(torch, card):
         n_overflow, n_aligned = int((fields[2] == 0xFFFF).sum()), int((fields[3] > 0).sum())
         R, smem = forward_geometry(Q, T)
         say(f"bucket ({Q}, {T}) B={B}: forward (R = {R} rows per lane, {smem} B shared memory "
-            f"per 4-warp block) max_abs_err {e_f}, traceback max_abs_err {e_t}, "
+            f"per 4-warp block) max_abs_err {e_f}, traceback (both epilogues) max_abs_err {e_t}, "
             f"fused output byte-equal {same}, int16 forward against plain int16 and int32 kernel "
             f"max_abs_err {e_16}, {n_aligned} pairs aligned, {n_overflow} over 32 runs")
         # the cross-pair ILP forward ((Q, T, B) dirs): against its plain
@@ -315,37 +396,43 @@ def kernels(torch, card):
         err["sw_traceback"] = max(err["sw_traceback"], e_t)
         err["sw_forward_i16"] = max(err["sw_forward_i16"], e_16)
         err["sw_forward_split"] = max(err["sw_forward_split"], e_s)
+        if (Q, T) == (512, 2048):  # the widest bucket: the longest walks
+            walk_stats(torch, card, f"({Q}, {T})", k[3], *k[:3], pt, B)
         if i == 0:  # the tight, high-volume bucket
             bounds.update(dict.fromkeys(("sw_forward", "sw_forward_i16", "sw_forward_split"),
                                         forward_bound(q_t, t_t, qlen, tlen)))
-            bounds["sw_traceback"] = traceback_bound(*k[:3], kt[2])
+            bounds["sw_traceback"] = traceback_bound(*k[:3], pt[2])
             with sw16(None):
                 times["sw_forward"] = (
-                    time_ms(torch, lambda: sw_cuda.sw_forward(q_t, t_t, qlen, tlen, sw), 20),
+                    device_ms(torch, lambda: sw_cuda.sw_forward(q_t, t_t, qlen, tlen, sw), 20),
                     time_ms(torch, lambda: sw_cuda.sw_forward_plain(q_t, t_t, qlen, tlen, sw), 3))
             with sw16("1"):
                 times["sw_forward_i16"] = (
-                    time_ms(torch, lambda: sw_cuda.sw_forward(q_t, t_t, qlen, tlen, sw), 20),
+                    device_ms(torch, lambda: sw_cuda.sw_forward(q_t, t_t, qlen, tlen, sw), 20),
                     time_ms(torch, lambda: sw_cuda.sw_forward_plain(
                         q_t, t_t, qlen, tlen, sw, torch.int16), 3))
             times["sw_traceback"] = (
-                time_ms(torch, lambda: tb_cuda.sw_traceback(k[3], *k[:3]), 20),
-                time_ms(torch, lambda: tb_cuda.sw_traceback_plain(k[3], *k[:3]), 3))
-            split_ms = {split: time_ms(torch, lambda: sw_cuda.sw_forward_split(
+                walk_stats(torch, card, f"({Q}, {T})", k[3], *k[:3], pt, B),
+                time_ms(torch, lambda: tb_cuda.sw_traceback_packed_plain(k[3], *k[:3]), 3))
+            split_ms = {split: device_ms(torch, lambda: sw_cuda.sw_forward_split(
                 q_t, t_t, qlen, tlen, sw, split), 20) for split in sw_cuda.SPLITS}
             times["sw_forward_split"] = (split_ms[2], time_ms(
                 torch, lambda: sw_cuda.sw_forward_split_plain(q_t, t_t, qlen, tlen, sw, 2), 3))
             say(f"sw_forward_split at ({Q}, {T}) B={B}: 4 pairs per thread {split_ms[4]:.4f} ms "
                 f"({split_ms[4] * 1e3 / B:.4f} us/pair) [{card}]")
+            def fused_call():
+                return px.extend_batch_packed_resident_q2(buf, ref, Q, T, sw, bcap)
+
             with sw16(None):
-                fused_ms = time_ms(torch, lambda: px.extend_batch_packed_resident_q2(
-                    buf, ref, Q, T, sw, bcap), 20)
+                fused_ms = (time_ms(torch, fused_call, 20), device_ms(torch, fused_call, 20))
             for name, (ms, plain_ms) in times.items():
-                say(f"{name} at ({Q}, {T}) B={B}: kernel {ms:.4f} ms ({ms * 1e3 / B:.4f} us/pair), "
+                say(f"{name} at ({Q}, {T}) B={B}: kernel {ms:.4f} ms on the card "
+                    f"({ms * 1e3 / B:.4f} us/pair), "
                     f"plain {plain_ms:.4f} ms ({plain_ms * 1e3 / B:.4f} us/pair), bound "
                     f"{bounds[name][0]:.6f} ms ({bounds[name][1]}) [{card}]")
-            say(f"fused extend (unpack + both kernels + pack) at ({Q}, {T}) B={B}: "
-                f"{fused_ms:.4f} ms ({fused_ms * 1e3 / B:.4f} us/pair) [{card}]")
+            say(f"fused extend (unpack + forward + packed traceback) at ({Q}, {T}) B={B}: "
+                f"{fused_ms[0]:.4f} ms a call host-paced ({fused_ms[0] * 1e3 / B:.4f} us/pair), "
+                f"{fused_ms[1]:.4f} ms on the card [{card}]")
     with sw16("1"):
         wide = sw_cuda.pick_dtype(512, 2048, sw_cuda.SwParams(100, 8, 12, 1))
     check(wide == torch.int32, f"SwParams(100, 8, 12, 1) at (512, 2048) picked {wide}")
@@ -357,7 +444,7 @@ def kernels(torch, card):
         e_p = max_abs_err(torch, [(got, probe.int16_probe_plain(a))])
         check(e_p == 0, f"int16 probe kernel disagrees with its plain version (seed {seed})")
         err["int16_probe"] = max(err["int16_probe"], e_p)
-    times["int16_probe"] = (time_ms(torch, lambda: probe.int16_probe(a), 100),
+    times["int16_probe"] = (device_ms(torch, lambda: probe.int16_probe(a), 100),
                             time_ms(torch, lambda: probe.int16_probe_plain(a), 100))
     bounds["int16_probe"] = bound(2 * a.numel() * a.element_size(),
                                   OPS_PER_PROBE_ELEM * a.numel())

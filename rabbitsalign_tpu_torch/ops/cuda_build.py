@@ -116,6 +116,8 @@ def load_kernels() -> ctypes.CDLL:
                                                     p, p, p, p, p, p, p]
             lib.sw_traceback_launch.restype = i
             lib.sw_traceback_launch.argtypes = [p, p, p, p, i, i, i, p, p, p, p]
+            lib.sw_traceback_packed_launch.restype = i
+            lib.sw_traceback_packed_launch.argtypes = [p, p, p, p, i, i, i, p, p]
             lib.int16_probe_launch.restype = i
             lib.int16_probe_launch.argtypes = [p, p, i, i, p]
             _lib = lib

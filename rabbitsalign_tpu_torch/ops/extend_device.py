@@ -1,10 +1,12 @@
 """Fused device-side batched extension: unpack the q2 upload, run the
-Smith-Waterman forward kernel and the traceback kernel, pack the compact
-host output.
+Smith-Waterman forward kernel and the traceback kernel, which writes the
+compact host output itself.
 
-Counterpart of rabbitsalign_tpu/ops/extend_device.py; the glue around
-the two kernels (unpack_q2, _pack_rle_output) is torch ops, as it was
-XLA ops there. The transfer formats are the engine's and are unchanged:
+Counterpart of rabbitsalign_tpu/ops/extend_device.py; the glue before
+the two kernels (unpack_q2) is torch ops, as it was XLA ops there, and the
+pack after them (XLA ops there) is the traceback kernel's epilogue
+(ops/tb_cuda.py:sw_traceback_packed; `_pack_rle_output` is its plain
+version). The transfer formats are the engine's and are unchanged:
 
   input  q2 (ceil(Q/4) + ceil(Q/8) + 8, B) u8: 2-bit query codes
          (4 per byte), an N-mask bitmap, then qlen u16, tlen u16 and the
@@ -32,9 +34,8 @@ import numpy as np
 import torch
 
 from .sw_cuda import SwParams, sw_forward
-from .tb_cuda import RLE_M, sw_traceback
-
-OUT_ROWS = 2 * RLE_M + 14
+from .tb_cuda import OUT_ROWS, RLE_M, sw_traceback_packed
+from .tb_cuda import pack_rle_output as _pack_rle_output  # noqa: F401  (the name callers use)
 
 REF_PAGE_BITS = 30  # the JAX package's 1 GiB reference pages
 REF_PAGE_SIZE = 1 << REF_PAGE_BITS
@@ -96,30 +97,6 @@ def unpack_q2(buf: torch.Tensor, ref_codes: torch.Tensor, Q: int, T: int):
             tlen.to(torch.int32))
 
 
-def _pack_rle_output(runs_op, runs_len, score, t_end, q_end, meta) -> torch.Tensor:
-    """Pack the walker's runs and coordinates into the u8 transfer
-    buffer. Runs stay at their descending slots: rows [M - n_runs, M)
-    hold the forward-order cigar."""
-
-    def u16rows(v):
-        v = v.to(torch.int32)
-        return torch.stack([v & 0xFF, (v >> 8) & 0xFF])
-
-    n_runs = meta[3]
-    nr = torch.where(n_runs > RLE_M, 0xFFFF, n_runs)
-    return torch.cat([
-        runs_len & 0xFF,
-        (runs_op << 5) | ((runs_len >> 8) & 0x1F),
-        u16rows(score),
-        u16rows(t_end),
-        u16rows(q_end),
-        u16rows(meta[0]),  # t_begin
-        u16rows(meta[1]),  # q_begin
-        u16rows(meta[2]),  # edits
-        u16rows(nr),
-    ]).to(torch.uint8)
-
-
 def unpack_output(out: np.ndarray):
     """Host-side decode of the packed output: (op_runs (M, B), len_runs
     (M, B), n_runs, score, t_end, q_end, t_begin, q_begin, edits), each
@@ -150,5 +127,4 @@ def extend_batch_packed_resident_q2(buf: torch.Tensor, ref_codes: torch.Tensor,
         calls += 1
     q_t, t_t, qlen, tlen = unpack_q2(buf, ref_codes, Q, T)
     score, t_end, q_end, dirs = sw_forward(q_t, t_t, qlen, tlen, params)
-    runs_op, runs_len, meta = sw_traceback(dirs, score, t_end, q_end)
-    return _pack_rle_output(runs_op, runs_len, score, t_end, q_end, meta)
+    return sw_traceback_packed(dirs, score, t_end, q_end)

@@ -1,5 +1,5 @@
 """Traceback walk with in-walk run-length encoding: the CUDA kernel
-(csrc/sw_traceback.cu) and its plain PyTorch version.
+(csrc/sw_traceback.cu) and its plain PyTorch version, with two outputs.
 
 Counterpart of rabbitsalign_tpu/ops/tb_pallas.py; the plain version is
 the twin of rabbitsalign_tpu/ops/extend_portable.py:traceback_rle, over
@@ -13,11 +13,20 @@ in layer E while bit 2 is set), 3 emits D and steps t-1 (staying in F
 while bit 3 is set); layers E and F repeat I or D. Walking off the matrix
 ends the walk with begin = moved cell + 1. Edits = X + I + D.
 
-Outputs: runs_op / runs_len (RLE_M, B) i32 with the i-th completed run
-(counted from the cigar's end) at slot RLE_M-1-i, so ascending slots read
-in cigar order; meta (8, B) i32 rows [t_begin, q_begin, edits, n_runs,
-0, 0, 0, 0]. Past RLE_M runs only the first RLE_M completed runs are
-kept and n_runs keeps counting.
+`sw_traceback` returns the tb_pallas contract: runs_op / runs_len
+(RLE_M, B) i32 with the i-th completed run (counted from the cigar's end)
+at slot RLE_M-1-i, so ascending slots read in cigar order; meta (8, B) i32
+rows [t_begin, q_begin, edits, n_runs, 0, 0, 0, 0]. Past RLE_M runs only
+the first RLE_M completed runs are kept and n_runs keeps counting.
+
+`sw_traceback_packed` returns the engine's transfer buffer, (OUT_ROWS, B)
+u8 (engine.cpp chunk_set_device_results): rows [0, M) run length lo
+byte, rows [M, 2M) (op << 5) | (length >> 8), then score, t_end, q_end,
+t_begin, q_begin, edits and n_runs as u16 (lo, hi) row pairs of their
+two's complement (t_end -1 of a score-0 pair packs as 0xFF, 0xFF); n_runs
+0xFFFF marks a pair with more than RLE_M runs, which the host re-aligns.
+The kernel writes it itself; its plain version is `pack_rle_output` over
+`sw_traceback_plain`.
 """
 
 from __future__ import annotations
@@ -28,6 +37,7 @@ from typing import Tuple
 import torch
 
 RLE_M = 32  # run slots per pair; = engine.cpp chunk_set_device_results M
+OUT_ROWS = 2 * RLE_M + 14  # rows of the packed transfer buffer
 
 OP_NONE = 0
 OP_EQ = 1
@@ -41,11 +51,42 @@ _E = 1
 _F = 2
 _DONE = 3
 
-# launches of the CUDA kernel by sw_traceback; plain-version calls are
-# not counted. Mapping workers launch from several threads, so updates
-# hold _count_lock.
+# launches of the CUDA kernel by sw_traceback and sw_traceback_packed;
+# plain-version calls and B = 0 (nothing to launch) are not counted.
+# Mapping workers launch from several threads, so updates hold _count_lock.
 launches = 0
 _count_lock = threading.Lock()
+
+
+def _check_inputs(name, dirs, score, t_end, q_end) -> None:
+    if dirs.dim() != 3 or dirs.dtype != torch.uint8:
+        raise ValueError(f"{name}: dirs must be a (B, Q, T) uint8 tensor")
+    B = dirs.shape[0]
+    for x in (score, t_end, q_end):
+        if x.shape != (B,) or x.dtype != torch.int32 or x.device != dirs.device:
+            raise ValueError(f"{name}: score, t_end, q_end must be (B,) int32 on the dirs device")
+    if dirs.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {dirs.device}")
+
+
+def _launch(name, launch, dirs, score, t_end, q_end, outs) -> None:
+    """Launch `launch` on the current stream of dirs' device, writing the
+    preallocated `outs`; raise if the launch was refused."""
+    global launches
+    B, Q, T = dirs.shape
+    if B == 0:
+        return
+    dirs = dirs.contiguous()
+    score, t_end, q_end = score.contiguous(), t_end.contiguous(), q_end.contiguous()
+    dev = dirs.device
+    with torch.cuda.device(dev):
+        err = launch(dirs.data_ptr(), score.data_ptr(), t_end.data_ptr(), q_end.data_ptr(),
+                     Q, T, B, *(x.data_ptr() for x in outs),
+                     torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise RuntimeError(f"{name} kernel launch failed (CUDA error {err})")
+    with _count_lock:
+        launches += 1
 
 
 def sw_traceback(dirs: torch.Tensor, score: torch.Tensor, t_end: torch.Tensor,
@@ -53,35 +94,64 @@ def sw_traceback(dirs: torch.Tensor, score: torch.Tensor, t_end: torch.Tensor,
     """dirs (B, Q, T) u8 and score/t_end/q_end (B,) i32 -> (runs_op,
     runs_len (RLE_M, B) i32, meta (8, B) i32). CPU tensors take the plain
     version; CUDA tensors launch the kernel."""
-    global launches
-    if dirs.dim() != 3 or dirs.dtype != torch.uint8:
-        raise ValueError("dirs must be a (B, Q, T) uint8 tensor")
-    B, Q, T = dirs.shape
-    for x in (score, t_end, q_end):
-        if x.shape != (B,) or x.dtype != torch.int32 or x.device != dirs.device:
-            raise ValueError("score, t_end, q_end must be (B,) int32 on the dirs device")
+    _check_inputs("sw_traceback", dirs, score, t_end, q_end)
     if dirs.device.type == "cpu":
         return sw_traceback_plain(dirs, score, t_end, q_end)
-    if dirs.device.type != "cuda":
-        raise ValueError(f"sw_traceback: unsupported device {dirs.device}")
     from .cuda_build import load_kernels
 
-    lib = load_kernels()
-    dirs = dirs.contiguous()
-    score, t_end, q_end = score.contiguous(), t_end.contiguous(), q_end.contiguous()
-    dev = dirs.device
-    runs = torch.empty((2, RLE_M, B), dtype=torch.int32, device=dev)
-    meta = torch.empty((8, B), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        err = lib.sw_traceback_launch(
-            dirs.data_ptr(), score.data_ptr(), t_end.data_ptr(),
-            q_end.data_ptr(), Q, T, B, runs[0].data_ptr(), runs[1].data_ptr(),
-            meta.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
-    if err:
-        raise RuntimeError(f"sw_traceback kernel launch failed (CUDA error {err})")
-    with _count_lock:
-        launches += 1
+    B = dirs.shape[0]
+    runs = torch.empty((2, RLE_M, B), dtype=torch.int32, device=dirs.device)
+    meta = torch.empty((8, B), dtype=torch.int32, device=dirs.device)
+    _launch("sw_traceback", load_kernels().sw_traceback_launch, dirs, score, t_end, q_end,
+            (runs[0], runs[1], meta))
     return runs[0], runs[1], meta
+
+
+def sw_traceback_packed(dirs: torch.Tensor, score: torch.Tensor, t_end: torch.Tensor,
+                        q_end: torch.Tensor) -> torch.Tensor:
+    """The same walk -> the packed (OUT_ROWS, B) u8 transfer buffer. CPU
+    tensors take `sw_traceback_packed_plain`; CUDA tensors launch the
+    kernel's packed epilogue, and nothing runs after it."""
+    _check_inputs("sw_traceback_packed", dirs, score, t_end, q_end)
+    if dirs.device.type == "cpu":
+        return sw_traceback_packed_plain(dirs, score, t_end, q_end)
+    from .cuda_build import load_kernels
+
+    out = torch.empty((OUT_ROWS, dirs.shape[0]), dtype=torch.uint8, device=dirs.device)
+    _launch("sw_traceback_packed", load_kernels().sw_traceback_packed_launch, dirs, score,
+            t_end, q_end, (out,))
+    return out
+
+
+def pack_rle_output(runs_op, runs_len, score, t_end, q_end, meta) -> torch.Tensor:
+    """Pack the walker's runs and coordinates into the u8 transfer
+    buffer. Runs stay at their descending slots: rows [M - n_runs, M)
+    hold the forward-order cigar."""
+
+    def u16rows(v):
+        v = v.to(torch.int32)
+        return torch.stack([v & 0xFF, (v >> 8) & 0xFF])
+
+    n_runs = meta[3]
+    nr = torch.where(n_runs > RLE_M, 0xFFFF, n_runs)
+    return torch.cat([
+        runs_len & 0xFF,
+        (runs_op << 5) | ((runs_len >> 8) & 0x1F),
+        u16rows(score),
+        u16rows(t_end),
+        u16rows(q_end),
+        u16rows(meta[0]),  # t_begin
+        u16rows(meta[1]),  # q_begin
+        u16rows(meta[2]),  # edits
+        u16rows(nr),
+    ]).to(torch.uint8)
+
+
+def sw_traceback_packed_plain(dirs: torch.Tensor, score: torch.Tensor, t_end: torch.Tensor,
+                              q_end: torch.Tensor) -> torch.Tensor:
+    """`pack_rle_output` over `sw_traceback_plain`."""
+    runs_op, runs_len, meta = sw_traceback_plain(dirs, score, t_end, q_end)
+    return pack_rle_output(runs_op, runs_len, score, t_end, q_end, meta)
 
 
 def sw_traceback_plain(dirs: torch.Tensor, score: torch.Tensor, t_end: torch.Tensor,

@@ -18,7 +18,8 @@ from rabbitsalign_tpu_torch.ops import int16_probe as probe
 from rabbitsalign_tpu_torch.ops import sw_cuda, tb_cuda
 from rabbitsalign_tpu_torch.ops.sw_cuda import SwParams
 
-from .torch_extend_cases import READ_LEN, mixed_pairs, q2_batch, revcomp, sim_read, write_fastq
+from .torch_extend_cases import (READ_LEN, gap_pairs, mixed_pairs, q2_batch, revcomp, sim_read,
+                                 write_fastq)
 
 
 @pytest.fixture
@@ -68,6 +69,63 @@ def test_kernels_match_plain_versions(cuda, Q, T, sw):
     assert tb_cuda.launches == launches + 1
     for k, p in zip(walk, tb_cuda.sw_traceback_plain(kernel[3], *kernel[:3])):
         assert torch.equal(k, p)
+    packed = tb_cuda.sw_traceback_packed(kernel[3], *kernel[:3])
+    assert tb_cuda.launches == launches + 2
+    assert torch.equal(packed, tb_cuda.sw_traceback_packed_plain(kernel[3], *kernel[:3]))
+
+
+TB_SHAPES = [(q, t) for q, t, _, _ in engine_buckets(150)] + [(40, 72), (13, 21)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Q,T", TB_SHAPES)
+@pytest.mark.parametrize("B", [0, 1, 33])
+def test_traceback_edges_match_plain(cuda, Q, T, B):
+    """Both traceback epilogues at every bucket and at T not a multiple of
+    16 (the byte-copy path), at B = 0, 1 and 33 (a ragged last block, whose
+    packed rows go out a byte at a time), on pairs whose walks leave tiles
+    sideways (long insertion and deletion runs) and walk off at q = 0 and at
+    t = 0: equal to their plain versions, one launch a call (none for B = 0)."""
+    pairs = (gap_pairs(Q, T, seed=B) + mixed_pairs(Q, T, B, seed=Q))[:B]
+    buf, genome = q2_batch(pairs, Q, seed=Q)
+    q_t, t_t, qlen, tlen = px.unpack_q2(
+        torch.from_numpy(buf).to(cuda), px.resident_ref_codes(genome, cuda), Q, T)
+    score, t_end, q_end, dirs = sw_cuda.sw_forward(q_t, t_t, qlen, tlen, SwParams(2, 8, 12, 1))
+    launches = tb_cuda.launches
+    walk = tb_cuda.sw_traceback(dirs, score, t_end, q_end)
+    packed = tb_cuda.sw_traceback_packed(dirs, score, t_end, q_end)
+    assert tb_cuda.launches == launches + 2 * (B > 0)
+    for k, p in zip(walk, tb_cuda.sw_traceback_plain(dirs, score, t_end, q_end)):
+        assert torch.equal(k, p)
+    assert packed.shape == (tb_cuda.OUT_ROWS, B)
+    assert torch.equal(packed, tb_cuda.sw_traceback_packed_plain(dirs, score, t_end, q_end))
+    if B > 1:
+        assert int((score > 0).sum()) > B // 2
+
+
+@pytest.mark.cuda
+def test_fused_extend_packs_in_the_traceback_kernel(cuda, monkeypatch):
+    """The fused extend on the card equals its plain composition on the CPU
+    with every torch pack and plain walk made to raise: nothing runs after
+    the traceback kernel, which writes the transfer buffer itself."""
+    Q, T = 152, 256
+    sw = SwParams(2, 8, 12, 1)
+    buf, genome = q2_batch(mixed_pairs(Q, T, 70, seed=5) + gap_pairs(Q, T, 5), Q, seed=5)
+    B = buf.shape[1]
+    want = px.extend_batch_packed_resident_q2(
+        torch.from_numpy(buf), px.resident_ref_codes(genome, "cpu"), Q, T, sw, B)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the fused extend ran a plain pack or walk on the card")
+
+    for mod, name in ((px, "_pack_rle_output"), (tb_cuda, "pack_rle_output"),
+                      (tb_cuda, "sw_traceback_plain"), (tb_cuda, "sw_traceback_packed_plain")):
+        monkeypatch.setattr(mod, name, refuse)
+    launches = tb_cuda.launches
+    got = px.extend_batch_packed_resident_q2(torch.from_numpy(buf).to(cuda),
+                                             px.resident_ref_codes(genome, cuda), Q, T, sw, B)
+    assert tb_cuda.launches == launches + 1
+    assert torch.equal(got.cpu(), want)
 
 
 @pytest.mark.cuda

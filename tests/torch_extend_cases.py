@@ -77,6 +77,25 @@ def mixed_pairs(Q, T, B, seed=0):
     return pairs
 
 
+def gap_pairs(Q, T, seed):
+    """Pairs whose walks leave tiles sideways (long insertion and deletion
+    runs), walk off at q = 0 (the query's first base aligned) and at t = 0
+    (the target's first base aligned after a query prefix), end at the
+    (Q-1, T-1) corner, have more than 32 cigar runs from Q ~ 110 on (a
+    mismatch every sixth base), or score 0 (an all-N query)."""
+    rng = np.random.RandomState(seed)
+    t = rng.randint(0, 4, T).astype(np.uint8)
+    m = min(Q, T) // 3
+    ins = np.concatenate([t[5:5 + m], rng.randint(0, 4, m // 2), t[5 + m:5 + 2 * m]])
+    dele = np.concatenate([t[3:3 + m], t[3 + m + m // 2:3 + 2 * m + m // 2]])
+    off_t = np.concatenate([rng.randint(0, 4, 4), t[:Q - 4]])
+    over = t[T - Q:].copy()
+    over[3::6] = (over[3::6] + 1) % 4
+    pairs = [(ins[:Q].astype(np.uint8), t), (dele[:Q], t), (t[7:7 + Q], t), (off_t, t),
+             (t[T - Q:], t), (over, t), (np.full(Q, 4, np.uint8), t)]
+    return [(q.astype(np.uint8), tt) for q, tt in pairs]
+
+
 READ_LEN = 150
 _COMP = bytes.maketrans(b"ACGT", b"TGCA")
 
