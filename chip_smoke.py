@@ -44,13 +44,23 @@ ILP. The ILP probe harness (tools/ilp_probe.py) as its user runs it, with
    the launch counts set to 0 before it: the split kernels held bit-exact
    against the production kernel on the harness's inputs, then paired-slope
    times at (152, 256) x 1024 for production, split2 and split4.
-4. The main path through the CLI at a size users run: a 40 Mbp simulated
-   genome (bench.py's generator), 240k x 150 bp SE reads and 120k x 2x150 bp
-   PE pairs (24 chunks each, so each of 3 workers maps several); the index
-   built once with `-i` (which also writes the `--mmap-index` sidecar),
-   then five paths, each with the launch counts set to 0 before it and
-   read after it, and each from a cold probe cache (so its prewarm runs
-   the probe kernel):
+Data. A 40 Mbp simulated genome (bench.py's generator), 240k x 150 bp SE
+   reads and 120k x 2x150 bp PE pairs (24 chunks each, so each of 3 workers
+   maps several); the index built once with `-i` (which also writes the
+   `--mmap-index` sidecar).
+Seed. The seeding kernels of `--device-seed` against their plain PyTorch
+   versions on the card, tolerance 0 on every output: `seed_randstrobes` on
+   a chunk's shape (the first 10 000 SE reads x 256 codes) plus edge reads
+   (lengths 0, 11, 150, 256 and 300, all-N, N runs, tandem repeats that set
+   `tie`), and `index_find` against the 40 Mbp index (64 MB of hashes and a
+   17 MB bucket table, larger than the 50 MB L2) on that chunk's valid
+   strobes, the smallest hash (unreachable: -1) and random misses, and on an
+   index whose hashes are all equal. Times on the card, plain times, the
+   bound, and for the lookup one `torch.searchsorted` over the sign-flipped
+   hashes as the library call.
+4. The main path through the CLI on that data: seven paths, each with the
+   launch counts set to 0 before it and read after it, and each from a
+   cold probe cache (so its prewarm runs the probe kernel):
    - `-t 1`: SE and PE, `--device cuda`;
    - the default run, 3 workers: SE with the default `-t` and PE with
      `--deterministic -t 3`;
@@ -58,17 +68,22 @@ ILP. The ILP probe harness (tools/ilp_probe.py) as its user runs it, with
    - SE, 3 workers, `--mmap-index` (the index opened from the sidecar);
    - SE, 3 workers, `--profile DIR`: the trace must hold both extend
      kernels, and the device busy share (the union of kernel and copy
-     intervals over the trace's span) is printed.
+     intervals over the trace's span) is printed;
+   - `--device-seed` at `-t 1` (SE and PE) and with 3 workers (SE with the
+     default `-t`, PE with `--deterministic -t 3`).
    Each device SAM must equal, apart from @PG, the host-only SAM
    (`--no-tpu`) of the same threading, the `-t 1` device SAM (SE) and the
    int32 device SAM (RSB_SW16); the mmap and profile SAMs must equal the
-   3-worker SE SAM; the device runs must have dispatched extend batches,
-   and every kernel of a path must have launched in it.
+   3-worker SE SAM; the `--device-seed` SAMs the device SAMs of the same
+   threading; the device runs must have dispatched extend batches, every
+   kernel of a path must have launched in it, and the seeding kernels in
+   no other path. Each `--device-seed` run's device seeding time and its
+   tie-or-long reads are printed beside its phase times.
 
 The line before last is a JSON object with each kernel's launches in its
 path (phase 4; the ILP phase for sw_forward_split), its phase-3 error,
-times and bound; the last line is {"ok": true, "device": {...}}. Work
-files go to build/chip_smoke/.
+times, bound and library call; the last line is {"ok": true, "device":
+{...}}. Work files go to build/chip_smoke/.
 """
 
 import contextlib
@@ -91,10 +106,13 @@ N_SE_READS = 240_000
 N_PE_PAIRS = 120_000
 REQUIRED = ("rabbitsalign_tpu_torch/__init__.py", "rabbitsalign_tpu_torch/csrc/sw_forward.cu",
             "rabbitsalign_tpu_torch/csrc/sw_traceback.cu",
-            "rabbitsalign_tpu_torch/csrc/int16_probe.cu", "rabbitsalign_tpu/native/engine.cpp",
+            "rabbitsalign_tpu_torch/csrc/int16_probe.cu",
+            "rabbitsalign_tpu_torch/csrc/seed_randstrobes.cu",
+            "rabbitsalign_tpu_torch/csrc/index_find.cu", "rabbitsalign_tpu/native/engine.cpp",
             "rabbitsalign_tpu_torch/tools/ilp_probe.py", "bench.py", "tests/torch_extend_cases.py",
-            "tests/torch_tb_tiles.py")
-# kernel name -> (source, the pallas_call it replaces)
+            "tests/torch_tb_tiles.py", "tests/torch_seed_cases.py")
+# kernel name -> (source, the pallas_call or, for the seeding kernels, the
+# XLA function it replaces)
 KERNELS = {
     "sw_forward": ("rabbitsalign_tpu_torch/csrc/sw_forward.cu",
                    "rabbitsalign_tpu/ops/sw_pallas.py:464"),
@@ -106,7 +124,12 @@ KERNELS = {
                     "rabbitsalign_tpu/ops/sw_pallas.py:105"),
     "sw_forward_split": ("rabbitsalign_tpu_torch/csrc/sw_forward.cu",
                          "tests/sanitize/ilp_probe.py:162"),
+    "seed_randstrobes": ("rabbitsalign_tpu_torch/csrc/seed_randstrobes.cu",
+                         "rabbitsalign_tpu/ops/seed_device.py:432"),
+    "index_find": ("rabbitsalign_tpu_torch/csrc/index_find.cu",
+                   "rabbitsalign_tpu/ops/seed_device.py:239"),
 }
+SEED_PATHS = ("t1-dseed", "t3-dseed")  # the paths that run the seeding kernels
 # the card's peak rates for the bounds (H100 SXM): HBM3 bytes/s, and int32
 # operations/s = 132 SMs x 64 INT32 lanes x 1.98 GHz (Hopper white paper;
 # one operation per lane per cycle)
@@ -119,6 +142,21 @@ INT32_OPS_PER_S = 132 * 64 * 1.98e9
 OPS_PER_CELL = 33
 OPS_PER_TB_STEP = 8
 OPS_PER_PROBE_ELEM = 2
+# int32-equivalent operations of the seeding kernel (a 64-bit add, xor,
+# shift or compare as 2, a 64-bit multiply as 4): per s-mer of a read 80
+# (a rolled 2-bit pack of both strands 14, the canonical minimum 3, xxh64
+# 48, the window minimum 15); per syncmer 65 (its k-mer's pack and
+# canonical minimum 17, xxh64 48); per strobe-2 candidate of a valid slot
+# 12 (xor, mask, popcount, key, range check, compare-select). Its bytes:
+# codes and lengths read once, the (B, 2M) hash, start and end slots, the
+# counts and tie written once. The lookup: per search step 6 (the 64-bit
+# compare and the update of the bounds); its bytes: each query read and
+# each result written once, 16 bytes of bucket bounds and 8 bytes a probed
+# hash (one a step, and the final equality read) a query.
+OPS_PER_SMER = 80
+OPS_PER_SYNCMER = 65
+OPS_PER_LINK_CAND = 12
+OPS_PER_FIND_STEP = 6
 
 
 def fail(msg: str) -> None:
@@ -475,7 +513,7 @@ def ilp(torch, card):
 def map_run(main, tag, argv):
     """One CLI call; returns (sha256 of its SAM without @PG, reads,
     mapping-loop reads/s, whole-call reads/s, wall s, phase times, index
-    read s)."""
+    read s, the --device-seed line or "")."""
     out = WORK / f"{tag}.sam"
     log = io.StringIO()
     t0 = time.perf_counter()
@@ -489,6 +527,7 @@ def map_run(main, tag, argv):
     n_reads = int(m.group(1))
     phases = re.search(r"Phase times: (.*)", text)
     index_s = re.search(r"Total time reading index: ([0-9.]+) s", text)
+    dseed = re.search(r"Device seeding: (.*)", text)
     digest = hashlib.sha256()
     with open(out, "rb") as f:
         for line in f:
@@ -496,7 +535,8 @@ def map_run(main, tag, argv):
                 digest.update(line)
     out.unlink()
     return digest.hexdigest(), n_reads, int(m.group(3)), n_reads / wall, wall, \
-        phases.group(1) if phases else "", float(index_s.group(1)) if index_s else None
+        phases.group(1) if phases else "", float(index_s.group(1)) if index_s else None, \
+        dseed.group(1) if dseed else ""
 
 
 def device_busy(trace_dir: Path):
@@ -521,14 +561,13 @@ def device_busy(trace_dir: Path):
     return busy / (t1 - t0), (t1 - t0) / 1e3, names, len(dev)
 
 
-def main_path(torch, card):
-    say("== phase 4: main path")
+def make_data():
+    """The 40 Mbp genome, SE reads and PE pairs as FASTA/FASTQ under WORK,
+    and its index, built with -i. Returns (reference path, {"SE": argv,
+    "PE": argv})."""
+    say("== phase data: genome, reads and index")
     import bench
     from rabbitsalign_tpu_torch.cli import main
-    from rabbitsalign_tpu_torch.native import cache_dir
-    from rabbitsalign_tpu_torch.ops import extend_device as px
-    from rabbitsalign_tpu_torch.ops import int16_probe as probe
-    from rabbitsalign_tpu_torch.ops import sw_cuda, tb_cuda
 
     t0 = time.perf_counter()
     genome = bench.np_genome(GENOME_BP, 4321)
@@ -555,8 +594,148 @@ def main_path(torch, card):
     sidecar = Path(f"{ref}.r150.sti.cols")
     check((sidecar / "header.json").is_file(), f"-i wrote no sidecar at {sidecar}")
     say(f"-i wrote the mmap sidecar {sidecar.relative_to(ROOT)}")
+    return ref, {"SE": [str(ref), str(se)], "PE": [str(ref), str(pe[0]), str(pe[1])]}
 
-    reads = {"SE": [str(ref), str(se)], "PE": [str(ref), str(pe[0]), str(pe[1])]}
+
+def flush_l2(torch):
+    """A write over 128 MB, more than the 50 MB L2, between timed calls."""
+    buf = torch.empty(32 << 20, dtype=torch.int32, device=DEVICE)
+    return lambda: buf.fill_(1)
+
+
+def seed_kernels(torch, card, ref, se_fastq):
+    """Phase Seed: the seeding and lookup kernels against their plain
+    versions on the card, times, bounds and the library call."""
+    say("== phase Seed: the --device-seed kernels against their plain versions")
+    import numpy as np
+
+    from rabbitsalign_tpu_torch.index.params import IndexParameters
+    from rabbitsalign_tpu_torch.index.strobemer_index import StrobemerIndex
+    from rabbitsalign_tpu_torch.io.fasta import References
+    from rabbitsalign_tpu_torch.ops import seed_cuda, seed_device
+    from tests.torch_seed_cases import SEED_L, code_batch, edge_reads
+
+    dev = torch.device(DEVICE)
+    params = IndexParameters.from_read_length(150)
+    index = StrobemerIndex(References.from_fasta(str(ref)), params)
+    index.read(f"{ref}{params.filename_extension()}")
+    hashes, buckets = (torch.from_numpy(np.ascontiguousarray(a).view(np.int64)).to(dev)
+                       for a in (index.hashes, index.randstrobe_start_indices))
+    bits = index.bits
+    with open(se_fastq, "rb") as f:
+        chunk = [line.rstrip(b"\n") for i, line in zip(range(4 * 10_000), f) if i % 4 == 1]
+    edge = edge_reads(3)
+    codes, lens = (torch.from_numpy(a).to(dev) for a in code_batch(chunk + edge))
+    lens = lens.clamp(min=0)  # as seed_and_find passes them
+    sp, rp = params.syncmer, params.randstrobe
+    args = (sp.k, sp.s, sp.t_syncmer, rp.w_min, rp.w_max, rp.q, rp.max_dist, SEED_L)
+    got = seed_cuda.seed_randstrobes(codes, lens, *args)
+    want = seed_device.randstrobes_query_vec(codes, lens, *args)
+    torch.cuda.synchronize()
+    err = {"seed_randstrobes": max_abs_err(torch, zip(got, want))}
+    check(all(g.dtype == w.dtype and torch.equal(g, w) for g, w in zip(got, want)),
+          f"seed_randstrobes disagrees with its plain version (max_abs_err "
+          f"{err['seed_randstrobes']})")
+    h, st, en, nf, nr, tie = got
+    M = SEED_L
+    slot = torch.arange(2 * M, device=dev)[None, :]
+    valid = torch.where(slot < M, slot < nf[:, None], slot - M < nr[:, None])
+    n_edge = len(edge)
+    tie_edge = tie[-n_edge:].cpu().tolist()
+    check(any(tie_edge[-5:]) and not any(tie_edge[:2]) and int(nf[-n_edge]) == 0,
+          f"edge reads: tie {tie_edge}, n_fwd {nf[-n_edge:].tolist()}")
+    n_chunk = len(chunk)
+    say(f"seed_randstrobes on {n_chunk} reads + {n_edge} edge reads x {SEED_L}: equal to its "
+        f"plain version (max_abs_err 0 over hash, start, end, n_fwd, n_rc, tie); "
+        f"{int(valid[:n_chunk].sum())} valid strobes in the chunk "
+        f"({int(valid[:n_chunk].sum()) / n_chunk:.1f} a read), {int(tie[:n_chunk].sum())} tie "
+        f"rows; edge tie flags {tie_edge}")
+
+    chunk_q = h[:n_chunk][valid[:n_chunk]]  # what seed_and_find hands the lookup
+    misses = torch.from_numpy(np.random.RandomState(1).randint(
+        -(1 << 63), (1 << 63) - 1, 4096, dtype=np.int64)).to(dev)
+    queries = torch.cat([h[valid], hashes[:1], misses])
+    pos = seed_cuda.index_find(hashes, buckets, bits, queries)
+    pos_plain = seed_device.index_find_device(hashes, buckets, bits, queries)
+    err["index_find"] = max_abs_err(torch, [(pos, pos_plain)])
+    n_valid = int(valid.sum())
+    check(torch.equal(pos, pos_plain), f"index_find disagrees with its plain version "
+                                       f"(max_abs_err {err['index_find']})")
+    check(int(pos[n_valid]) == -1, "the smallest hash was found (bucket-table quirk)")
+    same = StrobemerIndex(index.references, params, bits)
+    same.hashes = np.full(9, index.hashes[1000], np.uint64)
+    same._build_buckets()
+    s_h, s_b = (torch.from_numpy(a.view(np.int64).copy()).to(dev)
+                for a in (same.hashes, same.randstrobe_start_indices))
+    s_q = torch.cat([s_h[:1], queries[:100]])
+    s_pos = seed_cuda.index_find(s_h, s_b, bits, s_q)
+    check(bool((s_pos == -1).all()) and torch.equal(
+        s_pos, seed_device.index_find_device(s_h, s_b, bits, s_q)),
+        "index_find on an all-equal index")
+    hits = int((pos[:n_valid] >= 0).sum())
+    say(f"index_find on {queries.numel()} queries against the {GENOME_BP} bp index "
+        f"({len(index)} hashes, bits {bits}): equal to its plain version, {hits} of {n_valid} "
+        f"strobes found, the smallest hash -1, an all-equal index finds nothing")
+
+    # times: the seeding kernel at the chunk's shape; the lookup on the
+    # chunk's valid strobes, an L2 flush before each call (timed alone and
+    # subtracted) and back to back
+    B = codes.shape[0]
+    times = {"seed_randstrobes": (
+        device_ms(torch, lambda: seed_cuda.seed_randstrobes(codes, lens, *args), 20),
+        time_ms(torch, lambda: seed_device.randstrobes_query_vec(codes, lens, *args), 3))}
+    flush = flush_l2(torch)
+    flush_ms = device_ms(torch, flush, 20)
+
+    def flushed(fn):
+        return lambda: (flush(), fn())
+
+    find_ms = device_ms(torch, flushed(lambda: seed_cuda.index_find(
+        hashes, buckets, bits, chunk_q)), 20) - flush_ms
+    warm_ms = device_ms(torch, lambda: seed_cuda.index_find(hashes, buckets, bits, chunk_q), 20)
+    times["index_find"] = (find_ms, time_ms(
+        torch, lambda: seed_device.index_find_device(hashes, buckets, bits, chunk_q), 3))
+    fh, fq = seed_device.flip(hashes), seed_device.flip(chunk_q)
+    library = {"index_find": device_ms(torch, flushed(lambda: torch.searchsorted(fh, fq)), 20)
+               - flush_ms, "seed_randstrobes": None}
+    library_warm = device_ms(torch, lambda: torch.searchsorted(fh, fq), 20)
+
+    # bounds for this run's inputs
+    n_smer = int((lens - sp.s + 1).clamp(min=0).sum())
+    # syncmers of the rows that link strobes (a row of n <= w_min syncmers
+    # is not counted: a lower bound), and candidates of every valid slot
+    n_sync = int((nf + rp.w_min).where(nf > 0, 0).sum())
+    n_cand = int(valid.sum()) * (rp.w_max - rp.w_min + 1)
+    seed_bytes = B * SEED_L + 4 * B + B * 2 * M * 16 + 9 * B
+    tops = seed_device.lsr(chunk_q, 64 - bits)
+    width = (buckets[tops + 1] - buckets[tops]).clamp(min=0).double()
+    steps = int(torch.ceil(torch.log2(width + 1)).sum())
+    nq = chunk_q.numel()
+    seed_ops = OPS_PER_SMER * n_smer + OPS_PER_SYNCMER * n_sync + OPS_PER_LINK_CAND * n_cand
+    bounds = {"seed_randstrobes": bound(seed_bytes, seed_ops),
+              "index_find": bound(32 * nq + 8 * (steps + nq), OPS_PER_FIND_STEP * steps)}
+    for name, (ms, plain_ms) in times.items():
+        lib = library[name]
+        say(f"{name}: kernel {ms:.4f} ms on the card, plain {plain_ms:.4f} ms, bound "
+            f"{bounds[name][0]:.6f} ms ({bounds[name][1]}), one PyTorch call "
+            f"{'none' if lib is None else f'{lib:.4f} ms'} [{card}]")
+    say(f"seed_randstrobes at {B} x {SEED_L}: {times['seed_randstrobes'][0] * 1e6 / B:.2f} ns a "
+        f"read, {seed_bytes / 1e6:.1f} MB read and written [{card}]")
+    say(f"index_find of {nq} queries ({steps / max(nq, 1):.2f} search steps a query): "
+        f"{find_ms:.4f} ms after an L2 flush (flush alone {flush_ms:.4f} ms), {warm_ms:.4f} ms "
+        f"back to back; torch.searchsorted over the sign-flipped hashes "
+        f"{library['index_find']:.4f} ms after a flush, {library_warm:.4f} ms back to back [{card}]")
+    return err, times, bounds, library
+
+
+def main_path(torch, card, reads):
+    say("== phase 4: main path")
+    from rabbitsalign_tpu_torch.cli import main
+    from rabbitsalign_tpu_torch.native import cache_dir
+    from rabbitsalign_tpu_torch.ops import extend_device as px
+    from rabbitsalign_tpu_torch.ops import int16_probe as probe
+    from rabbitsalign_tpu_torch.ops import seed_cuda, sw_cuda, tb_cuda
+
     base = ["--use-index", "--no-progress"]
     trace_dir = WORK / "trace"
     # path -> (RSB_SW16, {SE/PE: extra flags}); the SE runs of the
@@ -567,12 +746,18 @@ def main_path(torch, card):
         "t3-sw16": ("1", {"SE": [], "PE": ["--deterministic", "-t", "3"]}),
         "t3-mmap": (None, {"SE": ["--mmap-index"]}),
         "t3-profile": (None, {"SE": ["--profile", str(trace_dir)]}),
+        "t1-dseed": (None, {"SE": ["-t", "1", "--device-seed"],
+                            "PE": ["-t", "1", "--device-seed"]}),
+        "t3-dseed": (None, {"SE": ["--device-seed"],
+                            "PE": ["--deterministic", "-t", "3", "--device-seed"]}),
     }
     host_paths = ("t1", "t3")  # each also run with --no-tpu
     counters = {"sw_forward": lambda: sw_cuda.launches,
                 "sw_forward_i16": lambda: sw_cuda.launches_i16,
                 "sw_traceback": lambda: tb_cuda.launches,
-                "int16_probe": lambda: probe.launches}
+                "int16_probe": lambda: probe.launches,
+                "seed_randstrobes": lambda: seed_cuda.launches_seed,
+                "index_find": lambda: seed_cuda.launches_find}
     runs, launches, dispatches = {}, {}, {}
     for path, (sw16_value, flags) in paths.items():
         # a cold probe cache, as on a host's first run: the prewarm of the
@@ -582,6 +767,7 @@ def main_path(torch, card):
         with sw16(sw16_value):
             sw_cuda.launches = sw_cuda.launches_i16 = tb_cuda.launches = 0
             probe.launches = px.calls = 0
+            seed_cuda.launches_seed = seed_cuda.launches_find = 0
             for name, extra in flags.items():
                 runs[path, name] = map_run(main, f"{name}.{path}.cuda",
                                            [*reads[name], *base, *extra, "--device", DEVICE])
@@ -603,16 +789,22 @@ def main_path(torch, card):
         check(all(launches[path][k] > 0 for k in (fwd, "sw_traceback", "int16_probe")),
               f"{path}: a kernel of the path never launched: {launches[path]}")
         check(launches[path][unused] == 0, f"{path}: {unused} launched: {launches[path]}")
+        seeding = [launches[path][k] for k in ("seed_randstrobes", "index_find")]
+        check(all(seeding) if path in SEED_PATHS else not any(seeding),
+              f"{path}: seeding kernel launches {seeding}")
 
     for key, run in runs.items():
-        _, n, rate_log, rate_wall, wall, phases, index_s = run
+        _, n, rate_log, rate_wall, wall, phases, index_s, dseed = run
         say(f"{' '.join(key)}: {n} reads, mapping loop {rate_log} reads/s, whole CLI call "
-            f"{rate_wall:.1f} reads/s ({wall:.2f} s), index read {index_s} s [{card}]; {phases}")
+            f"{rate_wall:.1f} reads/s ({wall:.2f} s), index read {index_s} s [{card}]; {phases}"
+            + (f"; device seeding {dseed}" if dseed else ""))
     same = [(("t1", "SE"), ("t1", "SE", "host")), (("t1", "PE"), ("t1", "PE", "host")),
             (("t3", "SE"), ("t3", "SE", "host")), (("t3", "SE"), ("t1", "SE")),
             (("t3", "PE"), ("t3", "PE", "host")),
             (("t3-sw16", "SE"), ("t3", "SE")), (("t3-sw16", "PE"), ("t3", "PE")),
-            (("t3-mmap", "SE"), ("t3", "SE")), (("t3-profile", "SE"), ("t3", "SE"))]
+            (("t3-mmap", "SE"), ("t3", "SE")), (("t3-profile", "SE"), ("t3", "SE")),
+            (("t1-dseed", "SE"), ("t1", "SE")), (("t1-dseed", "PE"), ("t1", "PE")),
+            (("t3-dseed", "SE"), ("t3", "SE")), (("t3-dseed", "PE"), ("t3", "PE"))]
     for a, b in same:
         check(runs[a][0] == runs[b][0],
               f"SAM of {' '.join(a)} differs from {' '.join(b)}")
@@ -621,6 +813,12 @@ def main_path(torch, card):
         say(f"{name} mapping loop, device: -t 1 {runs['t1', name][2]} reads/s, "
             f"3 workers {runs['t3', name][2]} reads/s, 3 workers int16 "
             f"{runs['t3-sw16', name][2]} reads/s [{card}]")
+    for path in SEED_PATHS:
+        plain = path.split("-")[0]
+        for name in reads:
+            a, b = runs[path, name], runs[plain, name]
+            say(f"{name} {path} against {plain}: mapping loop {a[2]} against {b[2]} reads/s; "
+                f"{a[5]}; device seeding {a[7]} | {plain}: {b[5]} [{card}]")
     say(f"SE index open, 3 workers: 'Total time reading index' {runs['t3', 'SE'][6]} s from the "
         f".sti, {runs['t3-mmap', 'SE'][6]} s with --mmap-index [{card}]")
 
@@ -639,15 +837,21 @@ def main() -> int:
     build()
     err, times, bounds = kernels(torch, card)
     split_launches = ilp(torch, card)
-    launches = main_path(torch, card)
+    ref, reads = make_data()
+    seed_err, seed_times, seed_bounds, library = seed_kernels(torch, card, ref, reads["SE"][1])
+    err.update(seed_err)
+    times.update(seed_times)
+    bounds.update(seed_bounds)
+    launches = main_path(torch, card, reads)
     launches["sw_forward_split"] = split_launches
     # no single PyTorch call computes an affine-gap Smith-Waterman pass,
-    # its traceback or the probe's compare: library_ms is null
+    # its traceback, the probe's compare or the seeding: library_ms is
+    # null for those; the lookup's is torch.searchsorted
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,
          "launches": launches[name], "max_abs_err": err[name],
          "ms": times[name][0], "plain_ms": times[name][1], "bound_ms": bounds[name][0],
-         "bound_by": bounds[name][1], "library_ms": None}
+         "bound_by": bounds[name][1], "library_ms": library.get(name)}
         for name, (src, replaces) in KERNELS.items()]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -166,8 +166,8 @@ def parse_command_line_arguments(argv: Optional[List[str]] = None) -> CommandLin
                    help="Rescue level [2]")
     # device extensions
     p.add_argument("--device-seed", action="store_true",
-                   help="Run seeding + index lookup on the accelerator "
-                        "(not yet ported)")
+                   help="Run seeding + index lookup on the device given by "
+                        "--device")
     p.add_argument("--shard-index", action="store_true",
                    help="Serve every index lookup from a hash-sharded "
                         "index spread across the device mesh (whole-"

@@ -127,6 +127,16 @@ def _lib():
         lib.fastx_close_async.argtypes = [c.c_void_p]
         lib.engine_chunk_a_fx.restype = c.c_void_p
         lib.engine_chunk_a_fx.argtypes = [c.c_void_p, c.c_void_p, c.c_uint64]
+        # --device-seed: code export for the seeding kernels, and phase A
+        # from their (compacted) results
+        lib.fx_chunk_codes.argtypes = [c.c_void_p, c.c_int64, c.c_void_p,
+                                       c.c_void_p, c.c_int64]
+        lib.engine_chunk_a_fx_pre.restype = c.c_void_p
+        lib.engine_chunk_a_fx_pre.argtypes = [
+            c.c_void_p, c.c_void_p, c.c_uint64,
+            c.c_void_p, c.c_void_p, c.c_void_p, c.c_void_p, c.c_void_p,
+            c.c_void_p, c.c_void_p,
+        ]
         lib._engine_configured = True
     return lib
 
@@ -230,6 +240,37 @@ class NativeEngine:
         the record blobs never surface to Python)."""
         handle = self.lib.engine_chunk_a_fx(
             self.handle, fx_chunk, ctypes.c_uint64(chunk_seed)
+        )
+        return NativeChunk(self.lib, handle)
+
+    def fx_codes(self, fx_chunk: int, n_records: int, L: int):
+        """Export a reader chunk's sequences as an (N, L) nt4 code batch
+        (4 = N, also past the end of a read) and lengths (-1 = longer
+        than L, seeded on the host) for the device seeding kernels
+        (--device-seed). Rows are the records in the order phase A maps
+        them: 2 * n_pairs mates, then the singles."""
+        codes = np.empty((n_records, L), dtype=np.uint8)
+        lens = np.empty(n_records, dtype=np.int32)
+        self.lib.fx_chunk_codes(fx_chunk, L, codes.ctypes.data,
+                                lens.ctypes.data, n_records)
+        return codes, lens
+
+    def chunk_a_fx_pre(self, fx_chunk: int, chunk_seed: int,
+                       counts: np.ndarray, offsets: np.ndarray,
+                       hashes: np.ndarray, starts: np.ndarray,
+                       ends: np.ndarray, is_rev: np.ndarray,
+                       positions: np.ndarray) -> NativeChunk:
+        """Phase A with device-computed seeding and index lookups:
+        counts (N,) i32 (-1 = host seeding for that record), offsets (N,)
+        i64 into the flat per-strobe arrays, which hold each record's
+        strobes in host emission order (forward, then reverse): hashes
+        u64, starts and ends i32, is_rev u8, positions i64 (-1 = absent).
+        Every array must hold at least one element."""
+        handle = self.lib.engine_chunk_a_fx_pre(
+            self.handle, fx_chunk, ctypes.c_uint64(chunk_seed),
+            counts.ctypes.data, offsets.ctypes.data, hashes.ctypes.data,
+            starts.ctypes.data, ends.ctypes.data, is_rev.ctypes.data,
+            positions.ctypes.data,
         )
         return NativeChunk(self.lib, handle)
 

@@ -26,7 +26,8 @@ from typing import Optional
 
 PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PKG_DIR / "csrc"
-SOURCES = ("sw_forward.cu", "sw_traceback.cu", "int16_probe.cu")
+SOURCES = ("sw_forward.cu", "sw_traceback.cu", "int16_probe.cu", "seed_randstrobes.cu",
+           "index_find.cu")
 BUILD_DIR = PKG_DIR / "build"
 LIB_PATH = BUILD_DIR / "libsw_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -120,5 +121,11 @@ def load_kernels() -> ctypes.CDLL:
             lib.sw_traceback_packed_launch.argtypes = [p, p, p, p, i, i, i, p, p]
             lib.int16_probe_launch.restype = i
             lib.int16_probe_launch.argtypes = [p, p, i, i, p]
+            lib.seed_randstrobes_launch.restype = i
+            lib.seed_randstrobes_launch.argtypes = [p, p, i, i, i, i, i, i, i, ctypes.c_uint64,
+                                                    i, i, p, p, p, p, p, p, p]
+            i64 = ctypes.c_int64
+            lib.index_find_launch.restype = i
+            lib.index_find_launch.argtypes = [p, i64, p, i, p, i64, p, p]
             _lib = lib
         return _lib

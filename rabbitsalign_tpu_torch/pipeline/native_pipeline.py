@@ -13,8 +13,15 @@ runs while the GPU extends this one; `finish_chunk` waits on the event.
 Each threaded worker enqueues on a CUDA stream of its own (the current
 stream is per thread), as GASAL2 gives each host thread its own streams.
 
+With ``--device-seed`` phase A takes each chunk's seeds and index hits
+from the device (ops/seed_device.py:seed_and_find, two kernels against
+the index arrays kept resident on the device); reads the closed form
+cannot seed exactly (a min-queue tie, or longer than SEED_L) are seeded
+by the engine itself.
+
 Without device extension (``--no-tpu``, or gap_extend >= gap_open) the
-engine's built-in SSW resolves every gapped job on the host.
+engine's built-in SSW resolves every gapped job on the host, and seeding
+stays on the host too.
 """
 
 from __future__ import annotations
@@ -23,6 +30,7 @@ import contextlib
 import os
 import queue
 import threading
+import time
 from collections import deque
 from typing import Callable, Iterable, Optional, Tuple
 
@@ -31,6 +39,7 @@ import torch
 
 from ..native.engine import NativeEngine, NativeReader
 from ..ops.extend_device import extend_batch_packed_resident_q2, resident_ref_codes
+from ..ops.seed_device import seed_and_find
 from ..ops.sw_cuda import SwParams
 from ..utils.logger import logger
 
@@ -110,6 +119,43 @@ def _resident_ref_codes(references, engine, device: torch.device) -> torch.Tenso
         return codes
 
 
+# one resident index (hashes, bucket table) per run and device, shared by
+# every worker's pipeline (--device-seed)
+_SEED_IX_CACHE: dict = {}
+
+
+def _int64_bits(a: np.ndarray) -> np.ndarray:
+    """A uint64 array as int64 with the same bits; read-only arrays (the
+    memmaps of --mmap-index) are copied, as torch.from_numpy needs a
+    writable one."""
+    a = np.ascontiguousarray(a).view(np.int64)
+    return a if a.flags.writeable else a.copy()
+
+
+def _resident_seed_index(index, device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+    # under the lock, as the genome: one upload per run and device, not
+    # one per worker (64 MB of hashes and 17 MB of buckets at 40 Mbp)
+    key = (id(index), str(device))
+    with _RESIDENT_LOCK:
+        cached = _SEED_IX_CACHE.get(key)
+        if cached is None:
+            for other in [k for k in _SEED_IX_CACHE if k[0] != key[0]]:
+                del _SEED_IX_CACHE[other]  # one index per run
+            arrays = tuple(torch.from_numpy(_int64_bits(a)).to(device)
+                           for a in (index.hashes, index.randstrobe_start_indices))
+            if device.type == "cuda":
+                # queued on this thread's stream; workers read it from theirs
+                torch.cuda.synchronize(device)
+            # a strong ref to `index` keeps the id() key valid
+            cached = _SEED_IX_CACHE[key] = (index, *arrays)
+        return cached[1], cached[2]
+
+
+def _at_least_one(a: np.ndarray) -> np.ndarray:
+    """The engine takes a pointer per array: an empty one gets an element."""
+    return a if a.size else np.zeros(1, a.dtype)
+
+
 class NativePipeline:
     def __init__(
         self,
@@ -125,8 +171,6 @@ class NativePipeline:
         device_seed: bool = False,
         shard_index: bool = False,
     ):
-        if device_seed:
-            raise NotImplementedError("--device-seed is not yet ported")
         if shard_index:
             raise NotImplementedError("--shard-index is not yet ported")
         self.engine = NativeEngine(
@@ -145,7 +189,14 @@ class NativePipeline:
                 "(host SSW resolves all gapped alignments)")
             use_device = False
         self.use_device = use_device
+        # --device-seed needs the device path: --no-tpu keeps host seeding
+        self.device_seed = device_seed and use_device
         self.device = torch.device(device)
+        self._index = index
+        self._params = index_parameters
+        self._seed_ix = None
+        self.device_seed_s = 0.0  # wall time of _preseed before the engine
+        self.host_seeded = 0  # records the engine seeded under --device-seed
         if use_device:
             require_cuda(self.device)
             self._sw = SwParams(aln_params.match, aln_params.mismatch,
@@ -153,17 +204,50 @@ class NativePipeline:
             # the genome stays resident on the device for the whole run
             self._ref_codes = _resident_ref_codes(references, self.engine, self.device)
 
+    SEED_L = 256  # longest read seeded on the device (longer: host)
+
+    def _upload(self, a: np.ndarray) -> torch.Tensor:
+        host = torch.from_numpy(a)
+        if self.device.type != "cuda":
+            return host
+        return host.pin_memory().to(self.device, non_blocking=True)
+
+    def _preseed(self, fx, n_records: int, chunk_index: int):
+        """Phase A of one reader chunk with its seeds and index hits from
+        the device: the chunk's codes go up, `seed_and_find` seeds, looks
+        up and compacts them there, and only the valid strobes come back,
+        in the arrays `chunk_a_fx_pre` reads (counts[i] = -1: the engine
+        seeds record i itself)."""
+        t0 = time.perf_counter()
+        if self._seed_ix is None:
+            self._seed_ix = _resident_seed_index(self._index, self.device)
+        codes, lens = self.engine.fx_codes(fx, n_records, self.SEED_L)
+        sp, rp = self._params.syncmer, self._params.randstrobe
+        out = seed_and_find(self._upload(codes), self._upload(lens), *self._seed_ix, sp.k, sp.s,
+                            sp.t_syncmer, rp.w_min, rp.w_max, rp.q, rp.max_dist, self.SEED_L,
+                            self._index.bits)
+        counts, offsets, hashes, starts, ends, is_rev, positions = (x.cpu().numpy() for x in out)
+        self.host_seeded += int((counts < 0).sum())
+        self.device_seed_s += time.perf_counter() - t0
+        return self.engine.chunk_a_fx_pre(
+            fx, chunk_index, counts, offsets, _at_least_one(hashes.view(np.uint64)),
+            *map(_at_least_one, (starts, ends, is_rev, positions)))
+
+    def _chunk_a(self, fx, n_records: int, chunk_index: int):
+        """Phase A of one reader chunk, seeded on the device under
+        --device-seed."""
+        if self.device_seed:
+            return self._preseed(fx, n_records, chunk_index)
+        return self.engine.chunk_a_fx(fx, chunk_index)
+
     def _dispatch(self, buf: np.ndarray, Q: int, T: int, sub: int):
         """Upload one q2 batch, extend it on the device and start the copy
         of its packed output to the host. Returns (host tensor, event);
         the event is None on the CPU, where the result is ready."""
-        host = torch.from_numpy(buf)
-        if self.device.type != "cuda":
-            return extend_batch_packed_resident_q2(
-                host, self._ref_codes, Q, T, self._sw, sub), None
-        dev_buf = host.pin_memory().to(self.device, non_blocking=True)
-        out = extend_batch_packed_resident_q2(dev_buf, self._ref_codes, Q, T,
+        out = extend_batch_packed_resident_q2(self._upload(buf), self._ref_codes, Q, T,
                                               self._sw, sub)
+        if self.device.type != "cuda":
+            return out, None
         out_host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
         out_host.copy_(out, non_blocking=True)
         event = torch.cuda.Event()
@@ -235,7 +319,7 @@ class NativePipeline:
                 if progress is not None:
                     progress(n_reads)
                 try:
-                    chunk = self.engine.chunk_a_fx(fx, chunk_index)
+                    chunk = self._chunk_a(fx, 2 * n_pairs + n_singles, chunk_index)
                 finally:
                     reader.free_chunk(fx)  # pooled buffer must always return
                 in_flight.append((chunk, self._plan_and_dispatch(chunk)))
@@ -248,10 +332,10 @@ class NativePipeline:
         return n_reads
 
     def counters(self) -> dict:
-        return self.engine.counters()
+        return {**self.engine.counters(), "host_seeded": self.host_seeded}
 
     def timers(self) -> dict:
-        return self.engine.timers()
+        return {**self.engine.timers(), "device_seed_s": self.device_seed_s}
 
     @contextlib.contextmanager
     def stream_context(self):
@@ -355,12 +439,13 @@ class ThreadedNativePipeline:
         queue_depth: int = 8,
         device="cuda",
         deterministic: bool = False,
+        device_seed: bool = False,
         pin_workers: bool = False,
     ):
         self._mk = lambda: NativePipeline(
             index, index_parameters, references, aln_params, map_param,
             read_group_id, use_device=use_device, batch_size=batch_size,
-            device=device,
+            device=device, device_seed=device_seed,
         )
         self.n_workers = max(1, n_workers)
         self.queue_depth = queue_depth
@@ -417,9 +502,9 @@ class ThreadedNativePipeline:
                         item = in_q.get()
                         if item is None:
                             break
-                        ci, fx = item
+                        ci, fx, n_records = item
                         try:
-                            chunk = pipe.engine.chunk_a_fx(fx, ci)
+                            chunk = pipe._chunk_a(fx, n_records, ci)
                         finally:
                             reader.free_chunk(fx)
                         state = (chunk, pipe._plan_and_dispatch(chunk))
@@ -455,7 +540,7 @@ class ThreadedNativePipeline:
                         reader.free_chunk(fx)
                         break
                     try:
-                        in_qs[q_i].put((ci, fx), timeout=1.0)
+                        in_qs[q_i].put((ci, fx, 2 * np_ + ns), timeout=1.0)
                         break
                     except queue.Full:
                         continue

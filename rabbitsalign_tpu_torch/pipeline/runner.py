@@ -3,13 +3,14 @@
 Plays the role of reference src/main.cpp run_rabbitsalign on one host:
 the native pipeline (pipeline/native_pipeline.py) runs the C++ engine's
 phases with the extend batches on the device given by ``--device``, on
-one mapping thread (``-t 1``) or on ``-t`` workers (default 3). The
-device prewarm (kernel build, CUDA context, int16 probe) runs while the
-reference and index load. ``--mmap-index`` opens the index through its
-columnar sidecar, which ``-i`` writes beside the ``.sti``; ``--profile``
-wraps the mapping run in one torch.profiler trace. Options whose code
-paths are not ported yet are refused up front (`_reject_unported`) rather
-than silently running something else.
+one mapping thread (``-t 1``) or on ``-t`` workers (default 3), with
+``--device-seed`` seeding and looking up each chunk's reads on that
+device too. The device prewarm (kernel build, CUDA context, int16 probe)
+runs while the reference and index load. ``--mmap-index`` opens the index
+through its columnar sidecar, which ``-i`` writes beside the ``.sti``;
+``--profile`` wraps the mapping run in one torch.profiler trace. Options
+whose code paths are not ported yet are refused up front
+(`_reject_unported`) rather than silently running something else.
 """
 
 from __future__ import annotations
@@ -32,7 +33,6 @@ from ..utils.logger import logger
 
 def _reject_unported(opt: CommandLineOptions) -> None:
     unported = [
-        (opt.device_seed, "--device-seed"),
         (opt.shard_index, "--shard-index"),
         (opt.num_nodes > 1, "--num-nodes > 1 (multi-host)"),
     ]
@@ -249,13 +249,14 @@ def _map_reads(opt, out, references, index, index_parameters, map_param,
             index, index_parameters, references, aln_params, map_param,
             opt.read_group_id, use_device=opt.use_tpu, batch_size=opt.tpu_batch,
             n_workers=opt.n_threads, device=opt.device,
-            deterministic=opt.deterministic, pin_workers=opt.pin_workers,
+            deterministic=opt.deterministic, device_seed=opt.device_seed,
+            pin_workers=opt.pin_workers,
         )
     else:
         pipeline = NativePipeline(
             index, index_parameters, references, aln_params, map_param,
             opt.read_group_id, use_device=opt.use_tpu, batch_size=opt.tpu_batch,
-            device=opt.device,
+            device=opt.device, device_seed=opt.device_seed,
         )
     t0 = time.perf_counter()
     # no retry-from-scratch fallback: map_file writes output
@@ -282,3 +283,7 @@ def _map_reads(opt, out, references, index, index_parameters, map_param,
         % (tm["seed_nam_s"], tm["phase_a_s"], tm["host_align_s"],
            tm["phase_b_s"])
     )
+    if opt.device_seed and opt.use_tpu:
+        # the device's share of phase A, which the engine's timers do not see
+        logger.info(f"Device seeding: {tm['device_seed_s']:.2f} s, "
+                    f"{c['host_seeded']} tie or long reads seeded on the host")

@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions on the
-same GPU inputs, exact, at every engine bucket shape, and the 3-worker
-pipeline on the GPU against one worker. Needs an NVIDIA GPU and nvcc;
+same GPU inputs, exact, at every engine bucket shape (the extend) and at
+B = 1, 33 and 4096 reads (seeding and lookup), and the 3-worker pipeline
+and --device-seed on the GPU against one worker and host seeding. Needs an NVIDIA GPU and nvcc;
 skips without one. This file imports neither jax nor rabbitsalign_tpu,
 so it also runs where JAX is absent:
 
@@ -15,11 +16,12 @@ from rabbitsalign_tpu_torch.cli import main as port_main
 from rabbitsalign_tpu_torch.native.engine import engine_buckets
 from rabbitsalign_tpu_torch.ops import extend_device as px
 from rabbitsalign_tpu_torch.ops import int16_probe as probe
-from rabbitsalign_tpu_torch.ops import sw_cuda, tb_cuda
+from rabbitsalign_tpu_torch.ops import seed_cuda, seed_device, sw_cuda, tb_cuda
 from rabbitsalign_tpu_torch.ops.sw_cuda import SwParams
 
 from .torch_extend_cases import (READ_LEN, gap_pairs, mixed_pairs, q2_batch, revcomp, sim_read,
                                  write_fastq)
+from .torch_seed_cases import code_batch, edge_reads, sampled_reads
 
 
 @pytest.fixture
@@ -295,3 +297,119 @@ def test_three_workers_match_one_on_cuda(cuda, tmp_path):
                              if not ln.startswith(b"@PG")))
     assert outs[0] == outs[1]
     assert len(outs[0].splitlines()) > 3000
+
+
+@pytest.fixture(scope="module")
+def seed_world():
+    """A 300 kbp genome with a tandem-repeat stretch, the port's index of
+    it, and reads sampled from it behind the edge reads."""
+    from rabbitsalign_tpu_torch.index.params import IndexParameters
+    from rabbitsalign_tpu_torch.index.strobemer_index import StrobemerIndex
+    from rabbitsalign_tpu_torch.io.fasta import References
+
+    rng = np.random.RandomState(9)
+    genome = (rng.choice(np.frombuffer(b"ACGT", np.uint8), 250_000).tobytes() + b"ACGTTGCA" * 2000
+              + rng.choice(np.frombuffer(b"ACGT", np.uint8), 34_000).tobytes())
+    refs = References()
+    refs.add("chr1", genome)
+    index = StrobemerIndex(refs, IndexParameters.from_read_length(150))
+    index.populate(0.0002)
+    return genome, index
+
+
+def _seed_args(params, M=256):
+    sp, rp = params.syncmer, params.randstrobe
+    return (sp.k, sp.s, sp.t_syncmer, rp.w_min, rp.w_max, rp.q, rp.max_dist, M)
+
+
+def _index_tensors(index, device):
+    return [torch.from_numpy(np.ascontiguousarray(a).view(np.int64).copy()).to(device)
+            for a in (index.hashes, index.randstrobe_start_indices)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 33, 4096])
+@pytest.mark.parametrize("window", ["r150", "wide"])
+def test_seed_kernels_match_plain_versions(cuda, seed_world, B, window):
+    """Both seeding kernels against their plain versions on the card, every
+    output byte for byte (unused slots included): the edge reads first,
+    then reads of the genome; the lookup on the batch's valid strobes, the
+    smallest hash (unreachable: -1) and random misses."""
+    from rabbitsalign_tpu_torch.index.params import IndexParameters
+
+    genome, index = seed_world
+    params = (IndexParameters.from_read_length(150) if window == "r150" else
+              IndexParameters.from_read_length(150, l=0, u=19, max_seed_len=255))
+    edge = edge_reads(B)
+    reads = (edge + sampled_reads(genome, B, seed=B))[:B]
+    codes, lens = (torch.from_numpy(a).to(cuda) for a in code_batch(reads))
+    lens = lens.clamp(min=0)
+    args = _seed_args(params)
+    launches = seed_cuda.launches_seed
+    got = seed_cuda.seed_randstrobes(codes, lens, *args)
+    assert seed_cuda.launches_seed == launches + 1
+    want = seed_device.randstrobes_query_vec(codes, lens, *args)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    if B >= 33:
+        assert got[5].any() and not got[5].all()  # tie rows and others
+    M = args[-1]
+    slot = torch.arange(2 * M, device=cuda)[None, :]
+    valid = torch.where(slot < M, slot < got[3][:, None], slot - M < got[4][:, None])
+    hashes, buckets = _index_tensors(index, cuda)
+    rng = np.random.RandomState(B)
+    misses = torch.from_numpy(rng.randint(-(1 << 63), (1 << 63) - 1, 64, dtype=np.int64))
+    queries = torch.cat([got[0][valid], hashes[:1], misses.to(cuda)])
+    launches = seed_cuda.launches_find
+    pos = seed_cuda.index_find(hashes, buckets, index.bits, queries)
+    assert seed_cuda.launches_find == launches + 1
+    assert torch.equal(pos, seed_device.index_find_device(hashes, buckets, index.bits, queries))
+    n = int(valid.sum())
+    assert int(pos[n]) == -1
+    if window == "r150" and B > len(edge):  # most strobes of the genome's reads hit
+        of_genome = valid[len(edge):][valid[len(edge):]].numel()
+        assert int((pos[n - of_genome:n] >= 0).sum()) > of_genome // 2
+
+
+@pytest.mark.cuda
+def test_index_find_all_equal_index_on_cuda(cuda, seed_world):
+    """An index whose hashes are all equal finds nothing, as the plain
+    version; a (B, S) query batch keeps its shape."""
+    _, index = seed_world
+    h = np.full(9, index.hashes[1234], np.uint64)
+    same = type(index)(index.references, index.parameters, index.bits)
+    same.hashes = h
+    same._build_buckets()
+    hashes, buckets = _index_tensors(same, cuda)
+    queries = np.array([[h[0], 0], [1, (1 << 64) - 1]], np.uint64)
+    queries = torch.from_numpy(queries.view(np.int64)).to(cuda)
+    got = seed_cuda.index_find(hashes, buckets, same.bits, queries)
+    assert got.shape == (2, 2) and (got == -1).all()
+    assert torch.equal(got, seed_device.index_find_device(hashes, buckets, same.bits, queries))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("threads", ["1", "3"])
+def test_device_seed_matches_host_seeding_on_cuda(cuda, tmp_path, threads):
+    """--device-seed on the card: the SAM equals the default run's, and
+    both seeding kernels launched, besides the extend kernels."""
+    rng = np.random.RandomState(6)
+    genome = rng.choice(np.frombuffer(b"ACGT", np.uint8), 200_000).tobytes()
+    (tmp_path / "ref.fa").write_bytes(b">chr1\n" + genome + b"\n")
+    reads = [sim_read(genome, rng.randint(len(genome) - 2 * READ_LEN), rng) for _ in range(2000)]
+    reads += edge_reads(1)
+    write_fastq(tmp_path / "se.fq", [revcomp(r) if i % 4 == 1 else r for i, r in enumerate(reads)],
+                b"s")
+    argv = [str(tmp_path / "ref.fa"), str(tmp_path / "se.fq"), "--chunk-size", "250",
+            "--tpu-batch", "128", "--device", "cuda", "-t", threads]
+    outs = []
+    for extra in ([], ["--device-seed"]):
+        seeds, finds, fwd = seed_cuda.launches_seed, seed_cuda.launches_find, sw_cuda.launches
+        assert port_main([*argv, *extra, "-o", str(tmp_path / "out.sam")]) == 0
+        launched = (seed_cuda.launches_seed - seeds, seed_cuda.launches_find - finds)
+        assert sw_cuda.launches > fwd
+        assert (min(launched) >= 8) if extra else launched == (0, 0)
+        outs.append(b"".join(ln for ln in open(tmp_path / "out.sam", "rb")
+                             if not ln.startswith(b"@PG")))
+    assert outs[0] == outs[1]
+    assert len(outs[0].splitlines()) > 2000

@@ -135,8 +135,9 @@ def test_profile_writes_a_trace(data, tmp_path):
     assert op_threads - {os.getpid()}  # ops from the worker threads
 
 
+# --device-seed is ported; beside --shard-index it is refused all the same
 @pytest.mark.parametrize("flags", [
-    ["--device-seed"], ["--shard-index"], ["--num-nodes", "2", "-o", "out.sam"],
+    ["--device-seed", "--shard-index"], ["--shard-index"], ["--num-nodes", "2", "-o", "out.sam"],
 ], ids=["device-seed", "shard-index", "num-nodes"])
 def test_unported_options_are_refused(data, flags, capsys):
     assert port_main([str(data / "ref.fa"), str(data / "se.fq"), *flags]) == 1
