@@ -58,7 +58,20 @@ Seed. The seeding kernels of `--device-seed` against their plain PyTorch
    index whose hashes are all equal. Times on the card, plain times, the
    bound, and for the lookup one `torch.searchsorted` over the sign-flipped
    hashes as the library call.
-4. The main path through the CLI on that data: seven paths, each with the
+Shard. The run lookup of `--shard-index` (csrc/find_runs.cu, a search
+   bounded by the bucket table, then a compacting gather) on the 40 Mbp
+   index cut into 1 and 4 shards of the one card: the three lookups of
+   `ShardedIndex` (every shard searching every key, dense; routed at cap 2,
+   so that runs are longer than the cap; routed and compacted, as phase A
+   uses it) on the first SE chunk's strobes (seeded on the host by the
+   engine), 4096 misses, the sentinel hash and the smallest hash must equal
+   the same index's on the CPU (the plain versions), tolerance 0; and the
+   kernels' wrappers their plain versions on the same card tensors. At one
+   shard, the main path's shape, the search and the compacting gather timed
+   on the card after an L2 flush and back to back, the search alone (also
+   over a one-bit bucket table: a whole-shard search's depth), the plain
+   time, the bound, and one `torch.searchsorted` as the library call.
+4. The main path through the CLI on that data: nine paths, each with the
    launch counts set to 0 before it and read after it, and each from a
    cold probe cache (so its prewarm runs the probe kernel):
    - `-t 1`: SE and PE, `--device cuda`;
@@ -70,15 +83,18 @@ Seed. The seeding kernels of `--device-seed` against their plain PyTorch
      kernels, and the device busy share (the union of kernel and copy
      intervals over the trace's span) is printed;
    - `--device-seed` at `-t 1` (SE and PE) and with 3 workers (SE with the
-     default `-t`, PE with `--deterministic -t 3`).
+     default `-t`, PE with `--deterministic -t 3`);
+   - `--shard-index` the same way (`t1-shard`, `t3-shard`).
    Each device SAM must equal, apart from @PG, the host-only SAM
    (`--no-tpu`) of the same threading, the `-t 1` device SAM (SE) and the
    int32 device SAM (RSB_SW16); the mmap and profile SAMs must equal the
-   3-worker SE SAM; the `--device-seed` SAMs the device SAMs of the same
-   threading; the device runs must have dispatched extend batches, every
-   kernel of a path must have launched in it, and the seeding kernels in
-   no other path. Each `--device-seed` run's device seeding time and its
-   tie-or-long reads are printed beside its phase times.
+   3-worker SE SAM; the `--device-seed` and `--shard-index` SAMs the device
+   SAMs of the same threading; the device runs must have dispatched extend
+   batches, every kernel of a path must have launched in it, the seeding
+   kernels and the run lookup in no other path, and the sharded runs must
+   report no feed misses. Each `--device-seed` run's device seeding time
+   and its tie-or-long reads, and each `--shard-index` run's lookup time,
+   are printed beside its phase times.
 
 The line before last is a JSON object with each kernel's launches in its
 path (phase 4; the ILP phase for sw_forward_split), its phase-3 error,
@@ -108,11 +124,13 @@ REQUIRED = ("rabbitsalign_tpu_torch/__init__.py", "rabbitsalign_tpu_torch/csrc/s
             "rabbitsalign_tpu_torch/csrc/sw_traceback.cu",
             "rabbitsalign_tpu_torch/csrc/int16_probe.cu",
             "rabbitsalign_tpu_torch/csrc/seed_randstrobes.cu",
-            "rabbitsalign_tpu_torch/csrc/index_find.cu", "rabbitsalign_tpu/native/engine.cpp",
+            "rabbitsalign_tpu_torch/csrc/index_find.cu",
+            "rabbitsalign_tpu_torch/csrc/find_runs.cu",
+            "rabbitsalign_tpu_torch/csrc/bucket_search.cuh", "rabbitsalign_tpu/native/engine.cpp",
             "rabbitsalign_tpu_torch/tools/ilp_probe.py", "bench.py", "tests/torch_extend_cases.py",
             "tests/torch_tb_tiles.py", "tests/torch_seed_cases.py")
-# kernel name -> (source, the pallas_call or, for the seeding kernels, the
-# XLA function it replaces)
+# kernel name -> (source, the pallas_call or, for the seeding and lookup
+# kernels, the XLA function it replaces)
 KERNELS = {
     "sw_forward": ("rabbitsalign_tpu_torch/csrc/sw_forward.cu",
                    "rabbitsalign_tpu/ops/sw_pallas.py:464"),
@@ -128,8 +146,11 @@ KERNELS = {
                          "rabbitsalign_tpu/ops/seed_device.py:432"),
     "index_find": ("rabbitsalign_tpu_torch/csrc/index_find.cu",
                    "rabbitsalign_tpu/ops/seed_device.py:239"),
+    "find_runs": ("rabbitsalign_tpu_torch/csrc/find_runs.cu",
+                  "rabbitsalign_tpu/parallel/sharding.py:253"),
 }
 SEED_PATHS = ("t1-dseed", "t3-dseed")  # the paths that run the seeding kernels
+SHARD_PATHS = ("t1-shard", "t3-shard")  # the paths that run the run lookup
 # the card's peak rates for the bounds (H100 SXM): HBM3 bytes/s, and int32
 # operations/s = 132 SMs x 64 INT32 lanes x 1.98 GHz (Hopper white paper;
 # one operation per lane per cycle)
@@ -157,6 +178,15 @@ OPS_PER_SMER = 80
 OPS_PER_SYNCMER = 65
 OPS_PER_LINK_CAND = 12
 OPS_PER_FIND_STEP = 6
+# the run lookup of --shard-index (search and compacting gather), per key:
+# the key (8), its bucket bounds (16), its count and run offset written
+# (16); 8 bytes a probed hash (the bucket-bounded search's steps, the
+# final equality read, and for a found key one probe past its run); 16
+# bytes a walked run row (positions and packed read, and written); 6
+# operations a search step. The search's (gpos, count) that the gather
+# reads back are the kernels' own round trip, not the function's bytes.
+SHARD_KEY_BYTES = 8 + 16 + 16
+SHARD_ROW_BYTES = 16
 
 
 def fail(msg: str) -> None:
@@ -513,7 +543,7 @@ def ilp(torch, card):
 def map_run(main, tag, argv):
     """One CLI call; returns (sha256 of its SAM without @PG, reads,
     mapping-loop reads/s, whole-call reads/s, wall s, phase times, index
-    read s, the --device-seed line or "")."""
+    read s, the --device-seed or --shard-index line or "")."""
     out = WORK / f"{tag}.sam"
     log = io.StringIO()
     t0 = time.perf_counter()
@@ -527,7 +557,7 @@ def map_run(main, tag, argv):
     n_reads = int(m.group(1))
     phases = re.search(r"Phase times: (.*)", text)
     index_s = re.search(r"Total time reading index: ([0-9.]+) s", text)
-    dseed = re.search(r"Device seeding: (.*)", text)
+    dseed = re.search(r"(?:Device seeding|Sharded lookups): (.*)", text)
     digest = hashlib.sha256()
     with open(out, "rb") as f:
         for line in f:
@@ -603,22 +633,30 @@ def flush_l2(torch):
     return lambda: buf.fill_(1)
 
 
-def seed_kernels(torch, card, ref, se_fastq):
+def load_index(ref):
+    """The 40 Mbp index that make_data built, read from its .sti."""
+    from rabbitsalign_tpu_torch.index.params import IndexParameters
+    from rabbitsalign_tpu_torch.index.strobemer_index import StrobemerIndex
+    from rabbitsalign_tpu_torch.io.fasta import References
+
+    params = IndexParameters.from_read_length(150)
+    index = StrobemerIndex(References.from_fasta(str(ref)), params)
+    index.read(f"{ref}{params.filename_extension()}")
+    return index
+
+
+def seed_kernels(torch, card, index, se_fastq):
     """Phase Seed: the seeding and lookup kernels against their plain
     versions on the card, times, bounds and the library call."""
     say("== phase Seed: the --device-seed kernels against their plain versions")
     import numpy as np
 
-    from rabbitsalign_tpu_torch.index.params import IndexParameters
     from rabbitsalign_tpu_torch.index.strobemer_index import StrobemerIndex
-    from rabbitsalign_tpu_torch.io.fasta import References
     from rabbitsalign_tpu_torch.ops import seed_cuda, seed_device
     from tests.torch_seed_cases import SEED_L, code_batch, edge_reads
 
     dev = torch.device(DEVICE)
-    params = IndexParameters.from_read_length(150)
-    index = StrobemerIndex(References.from_fasta(str(ref)), params)
-    index.read(f"{ref}{params.filename_extension()}")
+    params = index.parameters
     hashes, buckets = (torch.from_numpy(np.ascontiguousarray(a).view(np.int64)).to(dev)
                        for a in (index.hashes, index.randstrobe_start_indices))
     bits = index.bits
@@ -728,13 +766,148 @@ def seed_kernels(torch, card, ref, se_fastq):
     return err, times, bounds, library
 
 
+def chunk_strobes(index, se_fastq):
+    """The strobe hashes of the first SE chunk (10 000 reads), seeded on
+    the host by the engine as --shard-index seeds them."""
+    from rabbitsalign_tpu_torch.align.aligner import AlignmentParameters
+    from rabbitsalign_tpu_torch.map.common import MappingParameters
+    from rabbitsalign_tpu_torch.native.engine import NativeEngine, NativeReader
+
+    engine = NativeEngine(index, index.parameters, index.references, AlignmentParameters(),
+                          MappingParameters(r=150, rescue_cutoff=2 * index.filter_cutoff))
+    reader = NativeReader(str(se_fastq), chunk_size=10_000, producer=False)
+    try:
+        _, fx, n_pairs, n_singles = next(iter(reader))
+        try:
+            h, total = engine.fx_seed_only(fx)
+            hashes = engine.fx_seed_copy(h, 2 * n_pairs + n_singles, total)[2]
+        finally:
+            reader.free_chunk(fx)
+    finally:
+        reader.close()
+        engine.close()
+    return hashes, 2 * n_pairs + n_singles
+
+
+def shard_kernels(torch, card, index, se_fastq):
+    """Phase Shard: the run lookup of --shard-index against its plain
+    versions on the card, at 1 and 4 shards of the one card; times, bound
+    and the library call at 1 shard, the main path's shape."""
+    say("== phase Shard: the --shard-index run lookup against its plain versions")
+    import numpy as np
+
+    from rabbitsalign_tpu_torch.ops import seed_device, shard_cuda, shard_find
+    from rabbitsalign_tpu_torch.parallel.sharding import ShardedIndex, make_mesh
+
+    dev = torch.device(DEVICE)
+    strobes, n_reads = chunk_strobes(index, se_fastq)
+    misses = np.random.RandomState(2).randint(0, 2**63, 4096, dtype=np.int64).astype(np.uint64)
+    keys = np.concatenate([strobes, misses, np.array([2**64 - 1, index.hashes[0]], np.uint64)])
+    fc = index.filter_cutoff
+    err = 0
+    for n_shards in (1, 4):
+        t0 = time.perf_counter()
+        on_card = ShardedIndex(make_mesh(n_shards, DEVICE), index)
+        build_s = time.perf_counter() - t0
+        on_cpu = ShardedIndex(make_mesh(n_shards, "cpu"), index)
+        for name, call in (("find_runs", lambda si: si.find_runs(keys, fc)),
+                           ("find_runs_routed cap 2", lambda si: si.find_runs_routed(keys, 2)),
+                           ("find_runs_compact", lambda si: si.find_runs_compact(keys))):
+            got, want = call(on_card), call(on_cpu)
+            e = max(int(np.abs(got[k].astype(np.int64) - want[k].astype(np.int64)).max())
+                    if want[k].size else 0 for k in want)
+            check(all(got[k].dtype == want[k].dtype and np.array_equal(got[k], want[k])
+                      for k in want), f"{name} at {n_shards} shards: the card's lookup differs "
+                                      f"from the plain version on the CPU (max_abs_err {e})")
+            err = max(err, e)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = on_card.find_runs_compact(keys)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        on_card._route(keys)
+        route_ms = (time.perf_counter() - t0) * 1e3
+        walked = int((res["run_off"] >= 0).sum())
+        say(f"{n_shards} shard(s) of the card ({on_card.shard_sizes} randstrobes, built and "
+            f"uploaded in {build_s:.2f} s): find_runs, find_runs_routed (cap 2) and "
+            f"find_runs_compact equal to the plain versions on the CPU over {keys.size} keys "
+            f"({strobes.size} strobes of {n_reads} reads, 4096 misses, the sentinel hash, the "
+            f"smallest hash); {int((res['count'] > 0).sum())} found, "
+            f"{int(res['filtered'].sum())} filtered, {walked} walked with "
+            f"{res['run_positions'].size} run rows; find_runs_compact {wall_ms:.2f} ms a call "
+            f"host-paced (routing, upload, two launches a shard, the cumsum's sync, four copies "
+            f"back), of which the host's routing {route_ms:.2f} ms [{card}]")
+    check(res["count"][-2] == 0 and res["count"][-1] == 0,
+          "the sentinel key or the smallest hash (bucket quirk) was found")
+
+    # the kernels alone on the one-shard index (the main path's shape on
+    # one card): the wrappers against the plain versions on the same tensors
+    single = ShardedIndex(make_mesh(1, DEVICE), index)
+    h, p, k = single._shards[0]
+    size, buckets, bits = single.shard_sizes[0], single._buckets, single.bits
+    q = torch.from_numpy(keys.view(np.int64)).to(dev)
+    gpos, count = shard_cuda.find_runs(h, size, 0, buckets, bits, q)
+    plain = shard_find.find_runs_plain(h, size, 0, buckets, bits, q)
+    walk = (count > 0) & (count <= fc)
+    width = torch.where(walk, count, 0)
+    dst = torch.where(walk, torch.cumsum(width, 0) - width, -1)
+    n_rows = int(width.sum())
+    outs = [torch.zeros(max(n_rows, 1), dtype=torch.int32, device=dev) for _ in range(4)]
+    shard_cuda.gather_runs(p, k, gpos, count, 0, fc, dst, *outs[:2])
+    shard_find.gather_runs_plain(p, k, plain[0], plain[1], 0, fc, dst, *outs[2:])
+    torch.cuda.synchronize()
+    err = max(err, max_abs_err(torch, [(gpos, plain[0]), (count, plain[1]), (outs[0], outs[2]),
+                                       (outs[1], outs[3])]))
+    check(err == 0, f"find_runs disagrees with its plain version (max_abs_err {err})")
+
+    def kernel():
+        g, c = shard_cuda.find_runs(h, size, 0, buckets, bits, q)
+        shard_cuda.gather_runs(p, k, g, c, 0, fc, dst, *outs[:2])
+
+    def plain_call():
+        g, c = shard_find.find_runs_plain(h, size, 0, buckets, bits, q)
+        shard_find.gather_runs_plain(p, k, g, c, 0, fc, dst, *outs[2:])
+
+    flush = flush_l2(torch)
+    flush_ms = device_ms(torch, flush, 20)
+    ms = device_ms(torch, lambda: (flush(), kernel()), 20) - flush_ms
+    warm_ms = device_ms(torch, kernel, 20)
+    search_ms = device_ms(torch, lambda: shard_cuda.find_runs(h, size, 0, buckets, bits, q), 20)
+    # the same search over two half-shard buckets (a one-bit table, split
+    # where the hashes' top bit turns on): the depth of a search over the
+    # whole shard, beside the index's bits-bit table in the same call
+    halves = torch.tensor([0, int((h[:size] >= 0).sum()), size], device=dev)
+    wide_ms = device_ms(torch, lambda: shard_cuda.find_runs(h, size, 0, halves, 1, q), 20)
+    plain_ms = time_ms(torch, plain_call, 3)
+    fh, fq = seed_device.flip(h), seed_device.flip(q)
+    lib_ms = device_ms(torch, lambda: (flush(), torch.searchsorted(fh, fq)), 20) - flush_ms
+    lib_warm = device_ms(torch, lambda: torch.searchsorted(fh, fq), 20)
+    # this run's probes: each key's search steps over its bucket's range on
+    # the shard, its equality read, and one probe past each found run
+    m = h.numel()
+    tops = seed_device.lsr(q, 64 - bits)
+    b_width = (buckets[tops + 1].clamp(max=size) - buckets[tops]).clamp(min=0)
+    steps = int(torch.ceil(torch.log2(b_width.double() + 1)).sum())
+    probes = steps + int((b_width > 0).sum()) + int((count > 0).sum())
+    b = bound(SHARD_KEY_BYTES * keys.size + 8 * probes + SHARD_ROW_BYTES * n_rows,
+              OPS_PER_FIND_STEP * steps)
+    say(f"find_runs (search + compacting gather) of {keys.size} keys on one shard of {m} "
+        f"entries: kernel {ms:.4f} ms on the card after an L2 flush (flush alone "
+        f"{flush_ms:.4f} ms), {warm_ms:.4f} ms back to back, the search alone {search_ms:.4f} "
+        f"ms back to back ({wide_ms:.4f} ms over two half-shard buckets); plain {plain_ms:.4f} ms; bound {b[0]:.6f} ms ({b[1]}; {n_rows} run "
+        f"rows, {probes} probes, {steps / keys.size:.2f} search steps a key); torch.searchsorted over the sign-flipped hashes {lib_ms:.4f} ms "
+        f"after a flush, {lib_warm:.4f} ms back to back [{card}]")
+    return {"find_runs": err}, {"find_runs": (ms, plain_ms)}, {"find_runs": b}, \
+        {"find_runs": lib_ms}
+
+
 def main_path(torch, card, reads):
     say("== phase 4: main path")
     from rabbitsalign_tpu_torch.cli import main
     from rabbitsalign_tpu_torch.native import cache_dir
     from rabbitsalign_tpu_torch.ops import extend_device as px
     from rabbitsalign_tpu_torch.ops import int16_probe as probe
-    from rabbitsalign_tpu_torch.ops import seed_cuda, sw_cuda, tb_cuda
+    from rabbitsalign_tpu_torch.ops import seed_cuda, shard_cuda, sw_cuda, tb_cuda
 
     base = ["--use-index", "--no-progress"]
     trace_dir = WORK / "trace"
@@ -750,6 +923,10 @@ def main_path(torch, card, reads):
                             "PE": ["-t", "1", "--device-seed"]}),
         "t3-dseed": (None, {"SE": ["--device-seed"],
                             "PE": ["--deterministic", "-t", "3", "--device-seed"]}),
+        "t1-shard": (None, {"SE": ["-t", "1", "--shard-index"],
+                            "PE": ["-t", "1", "--shard-index"]}),
+        "t3-shard": (None, {"SE": ["--shard-index"],
+                            "PE": ["--deterministic", "-t", "3", "--shard-index"]}),
     }
     host_paths = ("t1", "t3")  # each also run with --no-tpu
     counters = {"sw_forward": lambda: sw_cuda.launches,
@@ -757,7 +934,8 @@ def main_path(torch, card, reads):
                 "sw_traceback": lambda: tb_cuda.launches,
                 "int16_probe": lambda: probe.launches,
                 "seed_randstrobes": lambda: seed_cuda.launches_seed,
-                "index_find": lambda: seed_cuda.launches_find}
+                "index_find": lambda: seed_cuda.launches_find,
+                "find_runs": lambda: shard_cuda.launches_find_runs}
     runs, launches, dispatches = {}, {}, {}
     for path, (sw16_value, flags) in paths.items():
         # a cold probe cache, as on a host's first run: the prewarm of the
@@ -768,6 +946,7 @@ def main_path(torch, card, reads):
             sw_cuda.launches = sw_cuda.launches_i16 = tb_cuda.launches = 0
             probe.launches = px.calls = 0
             seed_cuda.launches_seed = seed_cuda.launches_find = 0
+            shard_cuda.launches_find_runs = 0
             for name, extra in flags.items():
                 runs[path, name] = map_run(main, f"{name}.{path}.cuda",
                                            [*reads[name], *base, *extra, "--device", DEVICE])
@@ -792,19 +971,28 @@ def main_path(torch, card, reads):
         seeding = [launches[path][k] for k in ("seed_randstrobes", "index_find")]
         check(all(seeding) if path in SEED_PATHS else not any(seeding),
               f"{path}: seeding kernel launches {seeding}")
+        n_find = launches[path]["find_runs"]
+        check(n_find > 0 if path in SHARD_PATHS else n_find == 0,
+              f"{path}: find_runs launches {n_find}")
+        if path in SHARD_PATHS:
+            misses = [runs[path, name][7] for name in flags]
+            check(all(line.endswith("feed misses 0") for line in misses),
+                  f"{path}: the engine missed run records: {misses}")
 
     for key, run in runs.items():
         _, n, rate_log, rate_wall, wall, phases, index_s, dseed = run
         say(f"{' '.join(key)}: {n} reads, mapping loop {rate_log} reads/s, whole CLI call "
             f"{rate_wall:.1f} reads/s ({wall:.2f} s), index read {index_s} s [{card}]; {phases}"
-            + (f"; device seeding {dseed}" if dseed else ""))
+            + (f"; device seeding or sharded lookups {dseed}" if dseed else ""))
     same = [(("t1", "SE"), ("t1", "SE", "host")), (("t1", "PE"), ("t1", "PE", "host")),
             (("t3", "SE"), ("t3", "SE", "host")), (("t3", "SE"), ("t1", "SE")),
             (("t3", "PE"), ("t3", "PE", "host")),
             (("t3-sw16", "SE"), ("t3", "SE")), (("t3-sw16", "PE"), ("t3", "PE")),
             (("t3-mmap", "SE"), ("t3", "SE")), (("t3-profile", "SE"), ("t3", "SE")),
             (("t1-dseed", "SE"), ("t1", "SE")), (("t1-dseed", "PE"), ("t1", "PE")),
-            (("t3-dseed", "SE"), ("t3", "SE")), (("t3-dseed", "PE"), ("t3", "PE"))]
+            (("t3-dseed", "SE"), ("t3", "SE")), (("t3-dseed", "PE"), ("t3", "PE")),
+            (("t1-shard", "SE"), ("t1", "SE")), (("t1-shard", "PE"), ("t1", "PE")),
+            (("t3-shard", "SE"), ("t3", "SE")), (("t3-shard", "PE"), ("t3", "PE"))]
     for a, b in same:
         check(runs[a][0] == runs[b][0],
               f"SAM of {' '.join(a)} differs from {' '.join(b)}")
@@ -813,12 +1001,13 @@ def main_path(torch, card, reads):
         say(f"{name} mapping loop, device: -t 1 {runs['t1', name][2]} reads/s, "
             f"3 workers {runs['t3', name][2]} reads/s, 3 workers int16 "
             f"{runs['t3-sw16', name][2]} reads/s [{card}]")
-    for path in SEED_PATHS:
+    for path in SEED_PATHS + SHARD_PATHS:
         plain = path.split("-")[0]
+        what = "device seeding" if path in SEED_PATHS else "sharded lookups"
         for name in reads:
             a, b = runs[path, name], runs[plain, name]
             say(f"{name} {path} against {plain}: mapping loop {a[2]} against {b[2]} reads/s; "
-                f"{a[5]}; device seeding {a[7]} | {plain}: {b[5]} [{card}]")
+                f"{a[5]}; {what} {a[7]} | {plain}: {b[5]} [{card}]")
     say(f"SE index open, 3 workers: 'Total time reading index' {runs['t3', 'SE'][6]} s from the "
         f".sti, {runs['t3-mmap', 'SE'][6]} s with --mmap-index [{card}]")
 
@@ -838,15 +1027,20 @@ def main() -> int:
     err, times, bounds = kernels(torch, card)
     split_launches = ilp(torch, card)
     ref, reads = make_data()
-    seed_err, seed_times, seed_bounds, library = seed_kernels(torch, card, ref, reads["SE"][1])
-    err.update(seed_err)
-    times.update(seed_times)
-    bounds.update(seed_bounds)
+    index = load_index(ref)
+    seed_err, seed_times, seed_bounds, library = seed_kernels(torch, card, index, reads["SE"][1])
+    shard_err, shard_times, shard_bounds, shard_library = shard_kernels(torch, card, index,
+                                                                        reads["SE"][1])
+    del index
+    err.update(seed_err, **shard_err)
+    times.update(seed_times, **shard_times)
+    bounds.update(seed_bounds, **shard_bounds)
+    library.update(shard_library)
     launches = main_path(torch, card, reads)
     launches["sw_forward_split"] = split_launches
     # no single PyTorch call computes an affine-gap Smith-Waterman pass,
     # its traceback, the probe's compare or the seeding: library_ms is
-    # null for those; the lookup's is torch.searchsorted
+    # null for those; the lookups' is torch.searchsorted
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,
          "launches": launches[name], "max_abs_err": err[name],

@@ -170,9 +170,9 @@ def parse_command_line_arguments(argv: Optional[List[str]] = None) -> CommandLin
                         "--device")
     p.add_argument("--shard-index", action="store_true",
                    help="Serve every index lookup from a hash-sharded "
-                        "index spread across the device mesh (whole-"
-                        "genome scale-out) instead of a per-host replica "
-                        "(not yet ported)")
+                        "index on the device given by --device instead "
+                        "of the host arrays; takes precedence over "
+                        "--device-seed")
     p.add_argument("--pe-ref-async", action="store_true",
                    help="Replicate the reference binary's async PE "
                         "insert-size semantics exactly (per-chunk "
@@ -186,8 +186,9 @@ def parse_command_line_arguments(argv: Optional[List[str]] = None) -> CommandLin
     p.add_argument("--no-tpu", action="store_true",
                    help="Disable the device extend path (host alignment only)")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
-                   help="Device of the extend kernels [cuda]; cpu runs their "
-                        "plain PyTorch versions")
+                   help="Device of the kernels (the extend, --device-seed "
+                        "and --shard-index) [cuda]; cpu runs their plain "
+                        "PyTorch versions")
     p.add_argument("--profile", metavar="DIR", default=None,
                    help="Write a torch.profiler trace of the mapping run to "
                         "DIR (view with TensorBoard / Perfetto)")

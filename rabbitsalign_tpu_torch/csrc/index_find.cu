@@ -21,6 +21,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "bucket_search.cuh"
+
 namespace {
 
 typedef unsigned long long u64;
@@ -36,16 +38,8 @@ __global__ void index_find_kernel(const u64* __restrict__ hashes, long long n,
     long long lo = (long long)buckets[top];
     long long hi = (long long)buckets[top + 1];
     hi = hi < n ? hi : n;
-    const long long end = hi;
-    while (lo < hi) {
-        const long long mid = lo + ((hi - lo) >> 1);
-        if (hashes[mid] < q) {
-            lo = mid + 1;
-        } else {
-            hi = mid;
-        }
-    }
-    out[i] = (lo < end && hashes[lo] == q) ? lo : -1;
+    const long long first = lower_bound_u64(hashes, lo, hi, q);
+    out[i] = (first < hi && hashes[first] == q) ? first : -1;
 }
 
 }  // namespace

@@ -137,6 +137,17 @@ def _lib():
             c.c_void_p, c.c_void_p, c.c_void_p, c.c_void_p, c.c_void_p,
             c.c_void_p, c.c_void_p,
         ]
+        # --shard-index: host seeding without the index, and phase A from
+        # the sharded index's run records
+        lib.engine_fx_seed_only.restype = c.c_void_p
+        lib.engine_fx_seed_only.argtypes = [c.c_void_p, c.c_void_p]
+        lib.seedonly_total.restype = c.c_int64
+        lib.seedonly_total.argtypes = [c.c_void_p]
+        lib.seedonly_copy.argtypes = [c.c_void_p] + [c.c_void_p] * 6
+        lib.seedonly_free.argtypes = [c.c_void_p]
+        lib.engine_chunk_a_fx_runs.restype = c.c_void_p
+        lib.engine_chunk_a_fx_runs.argtypes = ([c.c_void_p, c.c_void_p, c.c_uint64]
+                                               + [c.c_void_p] * 14)
         lib._engine_configured = True
     return lib
 
@@ -272,6 +283,51 @@ class NativeEngine:
             starts.ctypes.data, ends.ctypes.data, is_rev.ctypes.data,
             positions.ctypes.data,
         )
+        return NativeChunk(self.lib, handle)
+
+    def fx_seed_only(self, fx_chunk: int):
+        """Host seeding (syncmers and randstrobes) of every record of a
+        reader chunk, with no index access: the first half of phase A
+        under --shard-index. Returns (handle, number of strobes) for
+        `fx_seed_copy`."""
+        h = self.lib.engine_fx_seed_only(self.handle, fx_chunk)
+        return h, int(self.lib.seedonly_total(h))
+
+    def fx_seed_copy(self, handle: int, n_records: int, total: int):
+        """Copy out and free the strobes of `fx_seed_only`: (counts (N,)
+        i32, offsets (N+1,) i64, hashes u64, starts i32, ends i32, rev u8),
+        one entry a strobe in host emission order."""
+        counts = np.zeros(n_records, dtype=np.int32)
+        offsets = np.zeros(n_records + 1, dtype=np.int64)
+        hashes = np.zeros(max(total, 1), dtype=np.uint64)
+        starts = np.zeros(max(total, 1), dtype=np.int32)
+        ends = np.zeros(max(total, 1), dtype=np.int32)
+        rev = np.zeros(max(total, 1), dtype=np.uint8)
+        self.lib.seedonly_copy(
+            handle, counts.ctypes.data, offsets.ctypes.data,
+            hashes.ctypes.data, starts.ctypes.data, ends.ctypes.data,
+            rev.ctypes.data,
+        )
+        self.lib.seedonly_free(handle)
+        return counts, offsets, hashes[:total], starts[:total], ends[:total], rev[:total]
+
+    def chunk_a_fx_runs(self, fx_chunk: int, chunk_seed: int,
+                        counts, offsets, hashes, starts, ends, is_rev,
+                        count, filtered, run_off, run_pos, run_packed,
+                        resc_off, resc_pos, resc_packed) -> NativeChunk:
+        """Phase A with NAM building fed only by prefetched run records
+        (engine.cpp RunFeed): the strobes of `fx_seed_copy`; per strobe
+        count i64 (0: absent), filtered u8 and run_off i64 (-1: no
+        records) into run_pos/run_packed u32; the rescue's records at
+        resc_off i64 (-1: none) into resc_pos/resc_packed u32. The engine
+        never reads the host index arrays for lookups here. Every array
+        must hold at least one element."""
+        arrs = [counts, offsets, hashes, starts, ends, is_rev, count,
+                filtered, run_off, run_pos, run_packed, resc_off,
+                resc_pos, resc_packed]
+        handle = self.lib.engine_chunk_a_fx_runs(
+            self.handle, fx_chunk, ctypes.c_uint64(chunk_seed),
+            *[a.ctypes.data for a in arrs])
         return NativeChunk(self.lib, handle)
 
     def chunk_a(self, records1, records2, records3, chunk_seed: int) -> NativeChunk:

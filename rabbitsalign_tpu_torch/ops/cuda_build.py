@@ -27,7 +27,8 @@ from typing import Optional
 PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PKG_DIR / "csrc"
 SOURCES = ("sw_forward.cu", "sw_traceback.cu", "int16_probe.cu", "seed_randstrobes.cu",
-           "index_find.cu")
+           "index_find.cu", "find_runs.cu")
+HEADERS = ("bucket_search.cuh",)  # included by SOURCES, so in the digest too
 BUILD_DIR = PKG_DIR / "build"
 LIB_PATH = BUILD_DIR / "libsw_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -52,9 +53,10 @@ def nvcc_path() -> str:
 
 
 def sources_digest() -> str:
-    """sha256 over the names and contents of SOURCES and NVCC_FLAGS."""
+    """sha256 over the names and contents of SOURCES and HEADERS, and
+    NVCC_FLAGS."""
     h = hashlib.sha256(repr(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode() + b"\0" + (CSRC_DIR / name).read_bytes() + b"\0")
     return h.hexdigest()
 
@@ -127,5 +129,9 @@ def load_kernels() -> ctypes.CDLL:
             i64 = ctypes.c_int64
             lib.index_find_launch.restype = i
             lib.index_find_launch.argtypes = [p, i64, p, i, p, i64, p, p]
+            lib.find_runs_launch.restype = i
+            lib.find_runs_launch.argtypes = [p, i64, i64, i64, p, i, p, i64, p, p, p]
+            lib.gather_runs_launch.restype = i
+            lib.gather_runs_launch.argtypes = [p, p, p, p, i64, p, i64, i64, p, p, p]
             _lib = lib
         return _lib

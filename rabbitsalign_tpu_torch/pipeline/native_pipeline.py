@@ -19,6 +19,12 @@ the index arrays kept resident on the device); reads the closed form
 cannot seed exactly (a min-queue tie, or longer than SEED_L) are seeded
 by the engine itself.
 
+With ``--shard-index`` (which takes precedence over ``--device-seed``)
+every index lookup of phase A is served by the hash-sharded index
+(parallel/sharding.py, one shard on the device): the engine seeds the chunk
+without touching the index, the strobes' hashes go through one batched
+lookup, and the engine maps the chunk from the prefetched run records.
+
 Without device extension (``--no-tpu``, or gap_extend >= gap_open) the
 engine's built-in SSW resolves every gapped job on the host, and seeding
 stays on the host too.
@@ -41,6 +47,7 @@ from ..native.engine import NativeEngine, NativeReader
 from ..ops.extend_device import extend_batch_packed_resident_q2, resident_ref_codes
 from ..ops.seed_device import seed_and_find
 from ..ops.sw_cuda import SwParams
+from ..parallel.sharding import ShardedIndex, make_mesh
 from ..utils.logger import logger
 
 
@@ -151,6 +158,18 @@ def _resident_seed_index(index, device: torch.device) -> Tuple[torch.Tensor, tor
         return cached[1], cached[2]
 
 
+# the engine's rescue walk hard-stops at count > 1000 regardless of the
+# rescue cutoff (reference nam.cpp take-rule `|| rh.count > 1000`), so no
+# rescued strobe past it is looked up
+RESCUE_RUN_CAP = 1000
+
+
+def build_sharded_index(index, device: torch.device) -> ShardedIndex:
+    """The --shard-index index: one shard on `device` (a CUDA device
+    without a card raises)."""
+    return ShardedIndex(make_mesh(1, device), index)
+
+
 def _at_least_one(a: np.ndarray) -> np.ndarray:
     """The engine takes a pointer per array: an empty one gets an element."""
     return a if a.size else np.zeros(1, a.dtype)
@@ -170,9 +189,8 @@ class NativePipeline:
         device="cuda",
         device_seed: bool = False,
         shard_index: bool = False,
+        sharded_index: Optional[ShardedIndex] = None,
     ):
-        if shard_index:
-            raise NotImplementedError("--shard-index is not yet ported")
         self.engine = NativeEngine(
             index, index_parameters, references, aln_params, map_param,
             read_group_id,
@@ -194,9 +212,18 @@ class NativePipeline:
         self.device = torch.device(device)
         self._index = index
         self._params = index_parameters
+        self._map_param = map_param
         self._seed_ix = None
         self.device_seed_s = 0.0  # wall time of _preseed before the engine
         self.host_seeded = 0  # records the engine seeded under --device-seed
+        # --shard-index: the shards stay on --device even with --no-tpu,
+        # which turns off only the extend
+        self.shard_index = bool(shard_index)
+        self.sharded_index = sharded_index
+        if self.shard_index and sharded_index is None:
+            self.sharded_index = build_sharded_index(index, self.device)
+        self.shard_lookup_s = 0.0  # wall time of the sharded lookups
+        self.rescue_preflight_s = 0.0  # and of the host's rescue preflight
         if use_device:
             require_cuda(self.device)
             self._sw = SwParams(aln_params.match, aln_params.mismatch,
@@ -233,9 +260,113 @@ class NativePipeline:
             fx, chunk_index, counts, offsets, _at_least_one(hashes.view(np.uint64)),
             *map(_at_least_one, (starts, ends, is_rev, positions)))
 
+    def _shard_chunk_a(self, fx, n_records: int, chunk_index: int):
+        """Phase A with every index lookup served by the sharded index:
+        host seeding (no index access) -> one batched lookup, compacted on
+        the device into the run records the engine walks -> host preflight
+        of the rescue take-rule (it depends only on per-strobe counts,
+        which the first lookup returned) -> a second capped lookup for
+        exactly the strobes rescue will walk -> engine RunFeed. Counters:
+        engine feed_miss must stay 0."""
+        eng = self.engine
+        si = self.sharded_index
+        h, total = eng.fx_seed_only(fx)
+        counts, offsets, hashes, starts, ends, rev = eng.fx_seed_copy(h, n_records, total)
+        t0 = time.perf_counter()
+        if total:
+            res = si.find_runs_compact(hashes)
+            cnt, filt, run_off = res["count"], res["filtered"], res["run_off"]
+            run_pos, run_packed = res["run_positions"], res["run_packed"]
+        else:
+            cnt = np.zeros(0, np.int64)
+            filt = np.zeros(0, bool)
+            run_off = np.full(1, -1, np.int64)
+            run_pos = np.zeros(1, np.uint32)
+            run_packed = np.zeros(1, np.uint32)
+        walk = (cnt > 0) & ~filt
+        t1 = time.perf_counter()
+        self.shard_lookup_s += t1 - t0
+
+        # rescue preflight: the engine rescues when nams are empty or the
+        # float32 nonrepetitive fraction compares < 0.7f — and with run
+        # feeds, nams are empty iff no unfiltered hit exists
+        resc_off = np.full(max(total, 1), -1, np.int64)
+        resc_pos = np.zeros(1, np.uint32)
+        resc_packed = np.zeros(1, np.uint32)
+        if total and self._map_param.rescue_level > 1:
+            read_id = np.repeat(np.arange(n_records),
+                                np.diff(offsets).astype(np.int64))
+            found = cnt > 0
+            tot_r = np.bincount(read_id[found], minlength=n_records)
+            good_r = np.bincount(read_id[walk], minlength=n_records)
+            frac = np.ones(n_records, np.float32)
+            nz = tot_r > 0
+            frac[nz] = (good_r[nz].astype(np.float32)
+                        / tot_r[nz].astype(np.float32))
+            rescue = (good_r == 0) | (frac < np.float32(0.7))
+            cutoff = int(self._map_param.rescue_cutoff)
+            sel_parts = []
+            for r in np.flatnonzero(rescue):
+                lo, hi = int(offsets[r]), int(offsets[r + 1])
+                gi0 = np.arange(lo, hi)
+                gi0 = gi0[cnt[lo:hi] > 0]
+                if gi0.size == 0:
+                    continue
+                for orient in (0, 1):
+                    g = gi0[rev[gi0] == orient]
+                    if g.size == 0:
+                        continue
+                    order = np.lexsort((ends[g], starts[g], cnt[g]))
+                    g = g[order]
+                    c = cnt[g]
+                    n0 = int((c <= cutoff).sum())
+                    if n0 >= 5:
+                        # strobes past RESCUE_RUN_CAP are never consumed,
+                        # also when -R pushes the cutoff past it
+                        take = g[: int((c <= min(cutoff, RESCUE_RUN_CAP)).sum())]
+                    else:
+                        ok = g[c <= RESCUE_RUN_CAP]
+                        k = min(len(ok), 5)
+                        if 0 < k < len(ok):
+                            # the take-rule's 5-hit budget can land inside
+                            # a (count, qs, qe) tie class whose member
+                            # order is the unstable introsort's choice —
+                            # feed the whole class so any member works
+                            bq = (cnt[ok[k - 1]], starts[ok[k - 1]],
+                                  ends[ok[k - 1]])
+                            while (k < len(ok)
+                                   and (cnt[ok[k]], starts[ok[k]],
+                                        ends[ok[k]]) == bq):
+                                k += 1
+                        take = ok[:k]
+                    if take.size:
+                        sel_parts.append(take)
+            if sel_parts:
+                # strobe ranges are disjoint per read, so sel is unique; no
+                # selected count is above RESCUE_RUN_CAP: all are walked
+                sel = np.concatenate(sel_parts)
+                t2 = time.perf_counter()
+                r2 = si.find_runs_compact(hashes[sel], RESCUE_RUN_CAP)
+                resc_off[sel] = r2["run_off"]
+                resc_pos, resc_packed = r2["run_positions"], r2["run_packed"]
+                second = time.perf_counter() - t2  # the lookup's, not the preflight's
+                self.shard_lookup_s += second
+                t1 += second
+        self.rescue_preflight_s += time.perf_counter() - t1
+
+        return eng.chunk_a_fx_runs(
+            fx, chunk_index, counts, offsets, _at_least_one(hashes), starts, ends, rev,
+            np.ascontiguousarray(cnt, dtype=np.int64) if total else np.zeros(1, np.int64),
+            np.ascontiguousarray(filt, dtype=np.uint8) if total else np.zeros(1, np.uint8),
+            run_off, run_pos, run_packed, resc_off, resc_pos, resc_packed,
+        )
+
     def _chunk_a(self, fx, n_records: int, chunk_index: int):
-        """Phase A of one reader chunk, seeded on the device under
+        """Phase A of one reader chunk: its lookups served by the sharded
+        index under --shard-index, else seeded on the device under
         --device-seed."""
+        if self.shard_index:
+            return self._shard_chunk_a(fx, n_records, chunk_index)
         if self.device_seed:
             return self._preseed(fx, n_records, chunk_index)
         return self.engine.chunk_a_fx(fx, chunk_index)
@@ -335,15 +466,17 @@ class NativePipeline:
         return {**self.engine.counters(), "host_seeded": self.host_seeded}
 
     def timers(self) -> dict:
-        return {**self.engine.timers(), "device_seed_s": self.device_seed_s}
+        return {**self.engine.timers(), "device_seed_s": self.device_seed_s,
+                "shard_lookup_s": self.shard_lookup_s,
+                "rescue_preflight_s": self.rescue_preflight_s}
 
     @contextlib.contextmanager
     def stream_context(self):
         """Enter on a mapping thread: a CUDA stream of its own when the
-        pipeline extends on a CUDA device (the current stream is per
-        thread, so workers that shared the default stream would serialize
-        their kernels); nothing otherwise."""
-        if not (self.use_device and self.device.type == "cuda"):
+        pipeline extends or looks up on a CUDA device (the current stream
+        is per thread, so workers that shared the default stream would
+        serialize their kernels); nothing otherwise."""
+        if not ((self.use_device or self.shard_index) and self.device.type == "cuda"):
             yield
             return
         with torch.cuda.device(self.device), torch.cuda.stream(torch.cuda.Stream(self.device)):
@@ -440,12 +573,18 @@ class ThreadedNativePipeline:
         device="cuda",
         deterministic: bool = False,
         device_seed: bool = False,
+        shard_index: bool = False,
         pin_workers: bool = False,
     ):
+        # one sharded index serves every worker: its shards are uploaded
+        # once, and each worker looks up on its own stream
+        self.sharded_index = (build_sharded_index(index, torch.device(device))
+                              if shard_index else None)
         self._mk = lambda: NativePipeline(
             index, index_parameters, references, aln_params, map_param,
             read_group_id, use_device=use_device, batch_size=batch_size,
-            device=device, device_seed=device_seed,
+            device=device, device_seed=device_seed, shard_index=shard_index,
+            sharded_index=self.sharded_index,
         )
         self.n_workers = max(1, n_workers)
         self.queue_depth = queue_depth

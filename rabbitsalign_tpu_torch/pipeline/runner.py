@@ -5,8 +5,10 @@ the native pipeline (pipeline/native_pipeline.py) runs the C++ engine's
 phases with the extend batches on the device given by ``--device``, on
 one mapping thread (``-t 1``) or on ``-t`` workers (default 3), with
 ``--device-seed`` seeding and looking up each chunk's reads on that
-device too. The device prewarm (kernel build, CUDA context, int16 probe)
-runs while the reference and index load. ``--mmap-index`` opens the index
+device too, or ``--shard-index`` serving phase A's index lookups from
+the index cut into hash ranges on that device. The device prewarm
+(kernel build, CUDA context, int16 probe) runs while the reference and
+index load. ``--mmap-index`` opens the index
 through its columnar sidecar, which ``-i`` writes beside the ``.sti``;
 ``--profile`` wraps the mapping run in one torch.profiler trace. Options
 whose code paths are not ported yet are refused up front
@@ -32,13 +34,9 @@ from ..utils.logger import logger
 
 
 def _reject_unported(opt: CommandLineOptions) -> None:
-    unported = [
-        (opt.shard_index, "--shard-index"),
-        (opt.num_nodes > 1, "--num-nodes > 1 (multi-host)"),
-    ]
-    for given, name in unported:
-        if given:
-            raise NotImplementedError(f"{name} is not yet ported to rabbitsalign_tpu_torch")
+    if opt.num_nodes > 1:
+        raise NotImplementedError("--num-nodes > 1 (multi-host) is not yet ported to "
+                                  "rabbitsalign_tpu_torch")
 
 
 def run_aligner(opt: CommandLineOptions) -> int:
@@ -250,14 +248,19 @@ def _map_reads(opt, out, references, index, index_parameters, map_param,
             opt.read_group_id, use_device=opt.use_tpu, batch_size=opt.tpu_batch,
             n_workers=opt.n_threads, device=opt.device,
             deterministic=opt.deterministic, device_seed=opt.device_seed,
-            pin_workers=opt.pin_workers,
+            shard_index=opt.shard_index, pin_workers=opt.pin_workers,
         )
     else:
         pipeline = NativePipeline(
             index, index_parameters, references, aln_params, map_param,
             opt.read_group_id, use_device=opt.use_tpu, batch_size=opt.tpu_batch,
-            device=opt.device, device_seed=opt.device_seed,
+            device=opt.device, device_seed=opt.device_seed, shard_index=opt.shard_index,
         )
+    if opt.shard_index:
+        si = pipeline.sharded_index
+        logger.info(f"Sharded index: {si.n_shards} shard(s) on "
+                    f"{', '.join(map(str, si.devices))}, {si.shard_sizes} randstrobes "
+                    f"({si.width} entries a shard with padding), built in {si.build_s:.2f} s")
     t0 = time.perf_counter()
     # no retry-from-scratch fallback: map_file writes output
     # incrementally, so re-running after a mid-run failure would append
@@ -283,7 +286,11 @@ def _map_reads(opt, out, references, index, index_parameters, map_param,
         % (tm["seed_nam_s"], tm["phase_a_s"], tm["host_align_s"],
            tm["phase_b_s"])
     )
-    if opt.device_seed and opt.use_tpu:
+    if opt.shard_index:
+        # the lookups' share of phase A, beside the engine's seeding
+        logger.info(f"Sharded lookups: {tm['shard_lookup_s']:.2f} s, rescue preflight "
+                    f"{tm['rescue_preflight_s']:.2f} s, feed misses {c['feed_miss']}")
+    elif opt.device_seed and opt.use_tpu:
         # the device's share of phase A, which the engine's timers do not see
         logger.info(f"Device seeding: {tm['device_seed_s']:.2f} s, "
                     f"{c['host_seeded']} tie or long reads seeded on the host")

@@ -1,5 +1,5 @@
 """When the kernel library is rebuilt: the build's stamp holds a digest of
-the source list, the sources and the nvcc flags, so a library built from
+the source list, the sources, the headers they include and the nvcc flags, so a library built from
 another list or other contents is rebuilt whatever the files' mtimes (an
 unpacked archive carries its commit's times). A stand-in nvcc records its
 calls; nothing is compiled. Also the test run's one build of the JAX
@@ -19,7 +19,7 @@ from rabbitsalign_tpu_torch.ops import cuda_build
 def fake_build(monkeypatch, tmp_path):
     csrc, build = tmp_path / "csrc", tmp_path / "build"
     csrc.mkdir()
-    for name in ("a.cu", "b.cu"):
+    for name in ("a.cu", "b.cu", "a.cuh"):
         (csrc / name).write_text(f"// {name}\n")
     log = tmp_path / "nvcc.log"
     nvcc = tmp_path / "nvcc"
@@ -33,6 +33,7 @@ def fake_build(monkeypatch, tmp_path):
     monkeypatch.setattr(cuda_build, "BUILD_DIR", build)
     monkeypatch.setattr(cuda_build, "LIB_PATH", build / "libsw_kernels.so")
     monkeypatch.setattr(cuda_build, "SOURCES", ("a.cu",))
+    monkeypatch.setattr(cuda_build, "HEADERS", ("a.cuh",))
 
     def builds():
         return sum("-shared" in line for line in log.read_text().splitlines()) \
@@ -65,11 +66,17 @@ def test_library_is_rebuilt_when_the_sources_change(fake_build, monkeypatch):
     cuda_build.build_kernels()
     assert builds() == 3
 
-    # diagnostic flags force a build but leave the digest alone
-    cuda_build.build_kernels(extra_flags=("-Xptxas", "-v"))
-    assert builds() == 4
+    # an edited header that the sources include
+    (csrc / "a.cuh").write_text("// a.cuh, edited\n")
+    os.utime(csrc / "a.cuh", (old, old))
     cuda_build.build_kernels()
     assert builds() == 4
+
+    # diagnostic flags force a build but leave the digest alone
+    cuda_build.build_kernels(extra_flags=("-Xptxas", "-v"))
+    assert builds() == 5
+    cuda_build.build_kernels()
+    assert builds() == 5
     assert sorted(p.name for p in build.iterdir()) == ["libsw_kernels.so",
                                                         "libsw_kernels.so.sha256"]
 

@@ -1,7 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch versions on the
 same GPU inputs, exact, at every engine bucket shape (the extend) and at
-B = 1, 33 and 4096 reads (seeding and lookup), and the 3-worker pipeline
-and --device-seed on the GPU against one worker and host seeding. Needs an NVIDIA GPU and nvcc;
+B = 1, 33 and 4096 reads (seeding and lookup), the sharded index's run
+lookup at 1 and 4 shards of one card, and the 3-worker pipeline,
+--device-seed and --shard-index on the GPU against one worker and the
+default run. Needs an NVIDIA GPU and nvcc;
 skips without one. This file imports neither jax nor rabbitsalign_tpu,
 so it also runs where JAX is absent:
 
@@ -409,6 +411,112 @@ def test_device_seed_matches_host_seeding_on_cuda(cuda, tmp_path, threads):
         launched = (seed_cuda.launches_seed - seeds, seed_cuda.launches_find - finds)
         assert sw_cuda.launches > fwd
         assert (min(launched) >= 8) if extra else launched == (0, 0)
+        outs.append(b"".join(ln for ln in open(tmp_path / "out.sam", "rb")
+                             if not ln.startswith(b"@PG")))
+    assert outs[0] == outs[1]
+    assert len(outs[0].splitlines()) > 2000
+
+
+class _SentinelIndex:
+    """Small runs, then a run of the 0xFF..F hash (the shards' padding
+    value) at the top, long enough to leave trailing shards empty."""
+    bits = 4
+    filter_cutoff = 30
+
+    def __init__(self):
+        top = np.uint64(0xFFFFFFFFFFFFFFFF)
+        self.hashes = np.concatenate([np.repeat(np.uint64(5), 2),
+                                      np.repeat(np.uint64(1) << np.uint64(40), 3),
+                                      np.repeat(top, 10)])
+        n = self.hashes.shape[0]
+        self.positions = np.arange(n, dtype=np.uint32)
+        self.packed = (np.arange(n, dtype=np.uint32) << 8) | 1
+        tops = (self.hashes >> np.uint64(64 - self.bits)).astype(np.int64)
+        self.randstrobe_start_indices = np.searchsorted(
+            tops, np.arange((1 << self.bits) + 1)).astype(np.uint64)
+
+
+def _shard_keys(index, seed):
+    rng = np.random.RandomState(seed)
+    h = index.hashes
+    picks = rng.randint(0, h.shape[0], 3000)
+    return np.concatenate([h[picks], h[picks] + np.uint64(1), rng.randint(0, 2**63, 500).astype(
+        np.uint64), np.array([0, 2**64 - 1, h[0], h[-1]], np.uint64)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_shards", [1, 4])
+@pytest.mark.parametrize("which", ["world", "sentinel"])
+def test_find_runs_kernels_match_plain_versions(cuda, seed_world, n_shards, which):
+    """The find_runs.cu kernels against their plain versions, exact: the
+    wrappers on one shard's CUDA tensors against the plain functions on
+    the same tensors, and a sharded index on cuda:0 (1 or 4 shards of the
+    one card) against the same index on the CPU: both dense lookups at the
+    filter cutoff and at cap 2 (runs longer than the cap), and the
+    compacted run records; with misses, the sentinel key and the smallest
+    hash."""
+    from rabbitsalign_tpu_torch.ops import shard_cuda, shard_find
+    from rabbitsalign_tpu_torch.parallel.sharding import ShardedIndex, make_mesh
+
+    index = seed_world[1] if which == "world" else _SentinelIndex()
+    on_card = ShardedIndex(make_mesh(n_shards, "cuda"), index)
+    on_cpu = ShardedIndex(make_mesh(n_shards, "cpu"), index)
+    keys = _shard_keys(index, n_shards)
+    launches = shard_cuda.launches_find_runs
+    for cap in (on_card.filter_cutoff, 2):
+        for lookup in ("find_runs", "find_runs_routed"):
+            got, want = (getattr(si, lookup)(keys, cap) for si in (on_card, on_cpu))
+            for k in want:
+                assert got[k].dtype == want[k].dtype and np.array_equal(got[k], want[k]), k
+    got, want = on_card.find_runs_compact(keys), on_cpu.find_runs_compact(keys)
+    for k in want:
+        assert got[k].dtype == want[k].dtype and np.array_equal(got[k], want[k]), k
+    assert shard_cuda.launches_find_runs > launches
+    if which == "world":
+        assert (got["count"] > 2).any() and (got["run_off"] >= 0).sum() > 1000
+    else:
+        res = on_card.find_runs_routed(np.array([2**64 - 1], np.uint64), 30)
+        assert res["position"][0] == 5 and res["count"][0] == 10
+
+    h, p, k = on_card._shards[0]
+    search = (on_card.shard_sizes[0], on_card.starts[0], on_card._buckets, on_card.bits)
+    q = torch.from_numpy(keys.view(np.int64)).to(cuda)
+    launches = shard_cuda.launches_find_runs
+    gpos, count = shard_cuda.find_runs(h, *search, q)
+    assert shard_cuda.launches_find_runs == launches + 1
+    want = shard_find.find_runs_plain(h, *search, q)
+    assert torch.equal(gpos, want[0]) and torch.equal(count, want[1])
+    outs = [torch.zeros(q.numel() * 3, dtype=torch.int32, device=cuda) for _ in range(4)]
+    shard_cuda.gather_runs(p, k, gpos, count, on_card.starts[0], 3, None, *outs[:2])
+    assert shard_cuda.launches_find_runs == launches + 2
+    shard_find.gather_runs_plain(p, k, gpos, count, on_card.starts[0], 3, None, *outs[2:])
+    assert torch.equal(outs[0], outs[2]) and torch.equal(outs[1], outs[3])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("threads", ["1", "3"])
+def test_shard_index_matches_default_on_cuda(cuda, tmp_path, threads):
+    """--shard-index on the card: the SAM equals the default run's, and
+    the lookup kernels launched only with the flag."""
+    from rabbitsalign_tpu_torch.ops import shard_cuda
+
+    rng = np.random.RandomState(7)
+    unit = rng.choice(np.frombuffer(b"ACGT", np.uint8), 300).tobytes()
+    genome = (rng.choice(np.frombuffer(b"ACGT", np.uint8), 150_000).tobytes() + unit * 80
+              + rng.choice(np.frombuffer(b"ACGT", np.uint8), 50_000).tobytes())
+    (tmp_path / "ref.fa").write_bytes(b">chr1\n" + genome + b"\n")
+    reads = [sim_read(genome, rng.randint(len(genome) - 2 * READ_LEN), rng) for _ in range(2000)]
+    write_fastq(tmp_path / "se.fq", [revcomp(r) if i % 4 == 1 else r for i, r in enumerate(reads)],
+                b"s")
+    argv = [str(tmp_path / "ref.fa"), str(tmp_path / "se.fq"), "--chunk-size", "250",
+            "--tpu-batch", "128", "--device", "cuda", "-t", threads]
+    outs = []
+    for extra in ([], ["--shard-index"]):
+        finds, fwd = shard_cuda.launches_find_runs, sw_cuda.launches
+        assert port_main([*argv, *extra, "-o", str(tmp_path / "out.sam")]) == 0
+        assert sw_cuda.launches > fwd
+        launched = shard_cuda.launches_find_runs - finds
+        assert launched >= 16 if extra else launched == 0  # 8 chunks, 2 launches each
         outs.append(b"".join(ln for ln in open(tmp_path / "out.sam", "rb")
                              if not ln.startswith(b"@PG")))
     assert outs[0] == outs[1]

@@ -135,13 +135,21 @@ def test_profile_writes_a_trace(data, tmp_path):
     assert op_threads - {os.getpid()}  # ops from the worker threads
 
 
-# --device-seed is ported; beside --shard-index it is refused all the same
-@pytest.mark.parametrize("flags", [
-    ["--device-seed", "--shard-index"], ["--shard-index"], ["--num-nodes", "2", "-o", "out.sam"],
-], ids=["device-seed", "shard-index", "num-nodes"])
-def test_unported_options_are_refused(data, flags, capsys):
+# --num-nodes > 1 is not ported; --shard-index is, and on cuda without a
+# card it is refused as the extend is (with --no-tpu by the shard mesh)
+@pytest.mark.parametrize("flags,message", [
+    (["--device-seed", "--shard-index"], "no CUDA device"),
+    (["--shard-index"], "no CUDA device"),
+    (["--num-nodes", "2", "-o", "out.sam"], "not yet ported"),
+    (["--shard-index", "--no-tpu"], "no CUDA device"),
+], ids=["device-seed", "shard-index", "num-nodes", "shard-index-no-tpu"])
+def test_unported_options_are_refused(data, flags, message, capsys):
+    import torch
+
+    if message == "no CUDA device" and torch.cuda.is_available():
+        pytest.skip("a GPU is present")
     assert port_main([str(data / "ref.fa"), str(data / "se.fq"), *flags]) == 1
-    assert "not yet ported" in capsys.readouterr().err
+    assert message in capsys.readouterr().err
 
 
 def test_cuda_device_without_gpu_is_refused(data, capsys):
