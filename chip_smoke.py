@@ -96,8 +96,21 @@ Shard. The run lookup of `--shard-index` (csrc/find_runs.cu, a search
    and its tie-or-long reads, and each `--shard-index` run's lookup time,
    are printed beside its phase times.
 
+Pod. The multi-host pod run on the one card: two CLI processes
+   (`python -m rabbitsalign_tpu_torch.cli --num-nodes 2`, the checkout on
+   PYTHONPATH, a free coordinator port from the OS, `-t 1`, `-v`, `-o`),
+   started together, each from a cold probe cache: `pod2` SE (the merged
+   SAM equal to `t1`'s apart from @PG), `pod2-shard` SE with
+   `--pod-index-peers` (each host holds half the index on the card and
+   serves the other's keys; equal to `t1`'s, no feed misses, find_runs
+   launched in both processes), `pod2` PE (equal to the same pod with
+   `--no-tpu`, since each host keeps its own insert-size state). Each
+   device process's `-v` log must show forward and traceback launches;
+   each host's mapping-loop reads/s, the pod total, node 0's merge time
+   and the pod index's traffic are printed.
+
 The line before last is a JSON object with each kernel's launches in its
-path (phase 4; the ILP phase for sw_forward_split), its phase-3 error,
+path (phases 4 and Pod; the ILP phase for sw_forward_split), its phase-3 error,
 times, bound and library call; the last line is {"ok": true, "device":
 {...}}. Work files go to build/chip_smoke/.
 """
@@ -127,6 +140,7 @@ REQUIRED = ("rabbitsalign_tpu_torch/__init__.py", "rabbitsalign_tpu_torch/csrc/s
             "rabbitsalign_tpu_torch/csrc/index_find.cu",
             "rabbitsalign_tpu_torch/csrc/find_runs.cu",
             "rabbitsalign_tpu_torch/csrc/bucket_search.cuh", "rabbitsalign_tpu/native/engine.cpp",
+            "rabbitsalign_tpu_torch/parallel/multihost.py",
             "rabbitsalign_tpu_torch/tools/ilp_probe.py", "bench.py", "tests/torch_extend_cases.py",
             "tests/torch_tb_tiles.py", "tests/torch_seed_cases.py")
 # kernel name -> (source, the pallas_call or, for the seeding and lookup
@@ -151,6 +165,7 @@ KERNELS = {
 }
 SEED_PATHS = ("t1-dseed", "t3-dseed")  # the paths that run the seeding kernels
 SHARD_PATHS = ("t1-shard", "t3-shard")  # the paths that run the run lookup
+POD_PATHS = ("pod2", "pod2-shard")  # phase Pod: two hosts on the one card
 # the card's peak rates for the bounds (H100 SXM): HBM3 bytes/s, and int32
 # operations/s = 132 SMs x 64 INT32 lanes x 1.98 GHz (Hopper white paper;
 # one operation per lane per cycle)
@@ -1018,7 +1033,134 @@ def main_path(torch, card, reads):
         f"device busy {share:.6f} (idle {1 - share:.6f}) of the {span_ms:.1f} ms traced mapping "
         f"run; mapping loop {runs['t3-profile', 'SE'][2]} reads/s traced against "
         f"{runs['t3', 'SE'][2]} untraced [{card}]")
-    return {k: sum(launches[path][k] for path in paths) for k in counters}
+    return {k: sum(launches[path][k] for path in paths) for k in counters}, runs
+
+
+def free_ports(n: int):
+    """n ports the OS has free now (bound to port 0, then released)."""
+    import socket
+
+    socks = [socket.socket() for _ in range(n)]
+    for sk in socks:
+        sk.bind(("127.0.0.1", 0))
+    ports = [sk.getsockname()[1] for sk in socks]
+    for sk in socks:
+        sk.close()
+    return ports
+
+
+def pod_run(tag, argv, pod_index: bool):
+    """One two-host pod: both CLI processes started together, waited for,
+    and killed if still running when this returns. Returns (sha256 of the
+    merged SAM without @PG, wall s, [one dict a host: reads, mapping-loop
+    reads/s, pod total, kernel launches, merge s or None, pod index
+    traffic or None, the sharded-lookups line or ""])."""
+    from rabbitsalign_tpu_torch.native import cache_dir
+
+    for old in cache_dir().glob("int16_probe_*.json"):
+        old.unlink()  # a cold probe cache, as a host's first run
+    out = WORK / f"{tag}.sam"
+    coord, *peers = free_ports(3)
+    extra = ["--pod-index-peers", ",".join(f"127.0.0.1:{p}" for p in peers)] if pod_index else []
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    cmds = [[sys.executable, "-m", "rabbitsalign_tpu_torch.cli", *argv, "-t", "1", "-v", "-o",
+             str(out), "--num-nodes", "2", "--node-id", str(node), "--coordinator",
+             f"127.0.0.1:{coord}", *extra] for node in (0, 1)]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(c, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True,
+                              env=env, cwd=ROOT) for c in cmds]
+    try:
+        errs = [p.communicate(timeout=900)[1] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    hosts = []
+    for node, (p, err) in enumerate(zip(procs, errs)):
+        check(p.returncode == 0, f"{tag} host {node} exited {p.returncode}:\n{err[-3000:]}")
+        m = re.search(r"Mapped (\d+) reads in ([0-9.]+) s \((\d+) reads/s\)", err)
+        total = re.search(rf"Host {node}/2: mapped \d+ reads in [0-9.]+ s; pod total (\d+)", err)
+        launches = re.search(rf"Host {node}/2 kernel launches: (.*)", err)
+        check(m and total and launches, f"{tag} host {node}: no mapping, pod or launch line:\n"
+              f"{err[-3000:]}")
+        merge = re.search(r"Merged 2 output shards into .* in ([0-9.]+) s", err)
+        traffic = re.search(rf"Pod index traffic of host {node}: (.*)", err)
+        lookups = re.search(r"Sharded lookups: (.*)", err)
+        hosts.append({"reads": int(m.group(1)), "rate": int(m.group(3)),
+                      "pod_total": int(total.group(1)),
+                      "launches": json.loads(launches.group(1)),
+                      "merge_s": float(merge.group(1)) if merge else None,
+                      "traffic": json.loads(traffic.group(1)) if traffic else None,
+                      "lookups": lookups.group(1) if lookups else ""})
+    check(hosts[0]["merge_s"] is not None and hosts[1]["merge_s"] is None,
+          f"{tag}: node 0 alone must merge")
+    digest = hashlib.sha256()
+    with open(out, "rb") as f:
+        for line in f:
+            if not line.startswith(b"@PG"):
+                digest.update(line)
+    for part in WORK.glob(f"{tag}.sam*"):
+        part.unlink()
+    return digest.hexdigest(), wall, hosts
+
+
+def pod(card, reads, runs):
+    """Phase Pod: three pods of two processes on the card, and the PE one
+    with --no-tpu as its reference. Returns the device pods' kernel
+    launches, summed over their processes."""
+    say("== phase Pod: two hosts of a --num-nodes 2 pod on the one card")
+    base = ["--use-index", "--no-progress", "--device", DEVICE]
+    specs = {("pod2", "SE"): (reads["SE"], False, []),
+             ("pod2-shard", "SE"): (reads["SE"], True, []),
+             ("pod2", "PE"): (reads["PE"], False, []),
+             ("pod2", "PE", "host"): (reads["PE"], False, ["--no-tpu"])}
+    pods = {}
+    for key, (files, pod_index, extra) in specs.items():
+        pods[key] = pod_run(".".join(key), [*files, *base, *extra], pod_index)
+        digest, wall, hosts = pods[key]
+        n_total = N_SE_READS if key[1] == "SE" else 2 * N_PE_PAIRS
+        check(sum(h["reads"] for h in hosts) == n_total and
+              all(h["pod_total"] == n_total for h in hosts),
+              f"{' '.join(key)}: the hosts mapped {[h['reads'] for h in hosts]} of {n_total}")
+        for node, h in enumerate(hosts):
+            n = h["launches"]
+            if key[-1] == "host":
+                check(n["extend_dispatches"] == 0, f"{' '.join(key)} host {node}: {n}")
+            else:
+                check(n["extend_dispatches"] > 0 and n["sw_forward"] > 0 and
+                      n["sw_traceback"] > 0,
+                      f"{' '.join(key)} host {node}: the extend kernels never launched: {n}")
+            check((n["find_runs"] > 0) == pod_index,
+                  f"{' '.join(key)} host {node}: find_runs launches {n['find_runs']}")
+            if pod_index:
+                check(h["lookups"].endswith("feed misses 0"),
+                      f"{' '.join(key)} host {node}: the engine missed run records: "
+                      f"{h['lookups']}")
+            say(f"{' '.join(key)} node {node}/2: {h['reads']} reads, mapping loop {h['rate']} "
+                f"reads/s, pod total {h['pod_total']}"
+                + (f", merge {h['merge_s']} s" if h["merge_s"] is not None else "")
+                + (f"; pod index {json.dumps(h['traffic'])}; sharded lookups {h['lookups']}"
+                   if pod_index else "")
+                + f"; launches {json.dumps(n)} [{card}]")
+        say(f"{' '.join(key)}: pod wall {wall:.2f} s (both processes, start to exit), mapping "
+            f"loops {sum(h['rate'] for h in hosts)} reads/s summed over the hosts, "
+            f"against t1 {runs['t1', key[1]][2]} reads/s [{card}]")
+    same = [(pods["pod2", "SE"][0], runs["t1", "SE"][0], "pod2 SE", "t1 SE"),
+            (pods["pod2-shard", "SE"][0], runs["t1", "SE"][0], "pod2-shard SE", "t1 SE"),
+            (pods["pod2", "PE"][0], pods["pod2", "PE", "host"][0], "pod2 PE",
+             "pod2 PE --no-tpu")]
+    for a, b, name_a, name_b in same:
+        check(a == b, f"SAM of {name_a} differs from {name_b}")
+        say(f"SAM {name_a} == {name_b} apart from @PG")
+    totals = {}
+    for key, (_, _, hosts) in pods.items():
+        if key[-1] != "host":
+            for h in hosts:
+                for k, v in h["launches"].items():
+                    totals[k] = totals.get(k, 0) + v
+    return totals
 
 
 def main() -> int:
@@ -1036,7 +1178,10 @@ def main() -> int:
     times.update(seed_times, **shard_times)
     bounds.update(seed_bounds, **shard_bounds)
     library.update(shard_library)
-    launches = main_path(torch, card, reads)
+    launches, runs = main_path(torch, card, reads)
+    for k, v in pod(card, reads, runs).items():
+        if k in launches:
+            launches[k] += v
     launches["sw_forward_split"] = split_launches
     # no single PyTorch call computes an affine-gap Smith-Waterman pass,
     # its traceback, the probe's compare or the seeding: library_ms is

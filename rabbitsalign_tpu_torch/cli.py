@@ -1,7 +1,6 @@
 """Command-line interface: the flags of rabbitsalign_tpu's CLI (which
 follows the reference aligner, reference src/cmdline.{hpp,cpp})
-plus ``--device``. Flags whose code paths are not ported yet are
-accepted by the parser and refused by the runner with a clear error."""
+plus ``--device``."""
 
 from __future__ import annotations
 
@@ -192,14 +191,20 @@ def parse_command_line_arguments(argv: Optional[List[str]] = None) -> CommandLin
     p.add_argument("--profile", metavar="DIR", default=None,
                    help="Write a torch.profiler trace of the mapping run to "
                         "DIR (view with TensorBoard / Perfetto)")
-    # multi-host pod scale-out (requires -o on a shared fs; not yet ported)
+    # multi-host pod scale-out (torch.distributed over gloo; requires -o on
+    # a shared filesystem)
     p.add_argument("--num-nodes", type=int, default=1, metavar="INT",
-                   help="Number of hosts in the pod [1]; more than one is "
-                        "not yet ported")
+                   help="Number of hosts in the pod [1]. With more than one, "
+                        "each host maps the read chunks with index %% N == "
+                        "--node-id on one mapping thread, writes them to "
+                        "PATH.part<id>of<N> beside -o PATH, and node 0 "
+                        "merges the parts into PATH")
     p.add_argument("--node-id", type=int, default=0, metavar="INT",
                    help="This host's index in the pod [0]")
     p.add_argument("--coordinator", metavar="HOST:PORT",
-                   help="Coordinator address (node 0)")
+                   help="Address of the pod's torch.distributed (gloo) "
+                        "rendezvous, where node 0 listens; without it the "
+                        "env:// variables MASTER_ADDR and MASTER_PORT")
     p.add_argument("--pod-index-peers", metavar="HOST:PORT,...", default="",
                    help="Split the index across the pod hosts (one lookup "
                         "endpoint per node, comma-separated, node-id "

@@ -20,6 +20,7 @@ does, from RSB_SW16).
 from __future__ import annotations
 
 import json
+import os
 import re
 import threading
 from pathlib import Path
@@ -110,7 +111,7 @@ def probe_int16_lowering(device) -> bool:
     got = int16_probe(a)
     ok = torch.equal(got, int16_probe_plain(a))
     path.parent.mkdir(parents=True, exist_ok=True)
-    tmp = path.with_name(f"{path.name}.{threading.get_ident()}.tmp")
+    tmp = path.with_name(f"{path.name}.{os.getpid()}.{threading.get_ident()}.tmp")
     tmp.write_text(json.dumps({"ordered_i16_compare": ok}))
     tmp.replace(path)
     if ok:

@@ -24,6 +24,10 @@ every index lookup of phase A is served by the hash-sharded index
 (parallel/sharding.py, one shard on the device): the engine seeds the chunk
 without touching the index, the strobes' hashes go through one batched
 lookup, and the engine maps the chunk from the prefetched run records.
+In a multi-host pod (``--num-nodes``, parallel/multihost.py) one
+NativePipeline a host maps its share of the chunks (`map_file_sharded`),
+and with ``--pod-index-peers`` the lookups go to the pod-split index
+(`PodShardedIndex`, which presents the same `find_runs_compact`).
 
 Without device extension (``--no-tpu``, or gap_extend >= gap_open) the
 engine's built-in SSW resolves every gapped job on the host, and seeding
@@ -440,12 +444,35 @@ class NativePipeline:
         consumes them zero-copy, the device extends, phase B writes
         output. Returns the number of reads mapped. `progress(n_reads)`
         is called after every chunk when given."""
+        return self._map_chunks(path1, path2, interleaved, chunk_size,
+                                lambda ci, text: write(text), depth, progress)
+
+    def map_file_sharded(self, path1, path2, interleaved, chunk_size, shard_writer,
+                         process_index: int, process_count: int, depth: int = 3) -> int:
+        """One pod host's share of map_file: every host parses the whole
+        stream (cheap next to mapping) but maps only the chunks with
+        index % process_count == process_index, writing (chunk index,
+        bytes) to its `ShardWriter` for node 0's merge into chunk order.
+        Returns the number of reads this host mapped."""
+        return self._map_chunks(path1, path2, interleaved, chunk_size,
+                                shard_writer.write_chunk, depth,
+                                owns=lambda ci: ci % process_count == process_index)
+
+    def _map_chunks(self, path1, path2, interleaved, chunk_size, emit, depth: int,
+                    progress=None, owns=None) -> int:
+        """Map the chunks of the native reader that `owns` accepts (all
+        without it) with up to `depth` in flight, calling emit(chunk
+        index, bytes) in chunk order. The thread is boosted before the
+        reader starts its producer thread, which inherits the priority."""
         boost_mapping_thread()
         reader = NativeReader(path1, path2, interleaved, chunk_size)
         n_reads = 0
         in_flight = deque()
         try:
             for chunk_index, fx, n_pairs, n_singles in reader:
+                if owns is not None and not owns(chunk_index):
+                    reader.free_chunk(fx)
+                    continue
                 n_reads += 2 * n_pairs + n_singles
                 if progress is not None:
                     progress(n_reads)
@@ -453,11 +480,13 @@ class NativePipeline:
                     chunk = self._chunk_a(fx, 2 * n_pairs + n_singles, chunk_index)
                 finally:
                     reader.free_chunk(fx)  # pooled buffer must always return
-                in_flight.append((chunk, self._plan_and_dispatch(chunk)))
+                in_flight.append((chunk_index, (chunk, self._plan_and_dispatch(chunk))))
                 if len(in_flight) > depth:
-                    write(self.finish_chunk(in_flight.popleft()))
+                    ci, state = in_flight.popleft()
+                    emit(ci, self.finish_chunk(state))
             while in_flight:
-                write(self.finish_chunk(in_flight.popleft()))
+                ci, state = in_flight.popleft()
+                emit(ci, self.finish_chunk(state))
         finally:
             reader.close()
         return n_reads

@@ -10,14 +10,20 @@ the index cut into hash ranges on that device. The device prewarm
 (kernel build, CUDA context, int16 probe) runs while the reference and
 index load. ``--mmap-index`` opens the index
 through its columnar sidecar, which ``-i`` writes beside the ``.sti``;
-``--profile`` wraps the mapping run in one torch.profiler trace. Options
-whose code paths are not ported yet are refused up front
-(`_reject_unported`) rather than silently running something else.
+``--profile`` wraps the mapping run in one torch.profiler trace.
+
+With ``--num-nodes N > 1`` the process is one host of a pod
+(parallel/multihost.py, `_map_pod`): the hosts join a torch.distributed
+gloo group, each maps the chunks with index % N == its node id on one
+mapping thread and writes its own output shard beside ``-o``, and node 0
+merges the shards after a barrier; ``--pod-index-peers`` splits the
+index over the hosts.
 """
 
 from __future__ import annotations
 
 import contextlib
+import json
 import sys
 import threading
 import time
@@ -33,14 +39,7 @@ from ..map.common import MappingParameters
 from ..utils.logger import logger
 
 
-def _reject_unported(opt: CommandLineOptions) -> None:
-    if opt.num_nodes > 1:
-        raise NotImplementedError("--num-nodes > 1 (multi-host) is not yet ported to "
-                                  "rabbitsalign_tpu_torch")
-
-
 def run_aligner(opt: CommandLineOptions) -> int:
-    _reject_unported(opt)
     logger.set_level("debug" if opt.verbose else "info")
     t_start = time.perf_counter()
 
@@ -176,19 +175,24 @@ def run_aligner(opt: CommandLineOptions) -> int:
         # launch, fails the run here, before any output is written
         prewarm.result()
 
-    # binary output end-to-end: the engine produces ASCII SAM/PAF bytes
-    out = (
-        sys.stdout.buffer if opt.write_to_stdout
-        else open(opt.output_file_name, "wb")
-    )
-    try:
+    if opt.num_nodes > 1:
+        # each host writes its own shard beside -o; node 0 merges them
         with _profiler(opt):
-            _map_reads(opt, out, references, index, index_parameters, map_param,
-                       aln_params)
-        out.flush()
-    finally:
-        if not opt.write_to_stdout:
-            out.close()
+            _map_pod(opt, references, index, index_parameters, map_param, aln_params)
+    else:
+        # binary output end-to-end: the engine produces ASCII SAM/PAF bytes
+        out = (
+            sys.stdout.buffer if opt.write_to_stdout
+            else open(opt.output_file_name, "wb")
+        )
+        try:
+            with _profiler(opt):
+                _map_reads(opt, out, references, index, index_parameters, map_param,
+                           aln_params)
+            out.flush()
+        finally:
+            if not opt.write_to_stdout:
+                out.close()
     logger.info("Done!")
     logger.info(f"Total time mapping: {time.perf_counter() - t_start:.2f} s.")
     return 0
@@ -257,10 +261,7 @@ def _map_reads(opt, out, references, index, index_parameters, map_param,
             device=opt.device, device_seed=opt.device_seed, shard_index=opt.shard_index,
         )
     if opt.shard_index:
-        si = pipeline.sharded_index
-        logger.info(f"Sharded index: {si.n_shards} shard(s) on "
-                    f"{', '.join(map(str, si.devices))}, {si.shard_sizes} randstrobes "
-                    f"({si.width} entries a shard with padding), built in {si.build_s:.2f} s")
+        _log_sharded_index(pipeline.sharded_index)
     t0 = time.perf_counter()
     # no retry-from-scratch fallback: map_file writes output
     # incrementally, so re-running after a mid-run failure would append
@@ -269,7 +270,18 @@ def _map_reads(opt, out, references, index, index_parameters, map_param,
         opt.reads_filename1, opt.reads_filename2, opt.is_interleaved,
         opt.chunk_size, out.write, progress=_make_progress(opt, t0),
     )
-    elapsed = time.perf_counter() - t0
+    _log_mapping(opt, pipeline, n_reads, time.perf_counter() - t0)
+
+
+def _log_sharded_index(si) -> None:
+    logger.info(f"Sharded index: {si.n_shards} shard(s) on "
+                f"{', '.join(map(str, si.devices))}, {si.shard_sizes} randstrobes "
+                f"({si.width} entries a shard with padding), built in {si.build_s:.2f} s")
+
+
+def _log_mapping(opt, pipeline, n_reads: int, elapsed: float) -> None:
+    """The mapping loop's reads/s, the engine's counters and phase times,
+    and the lookups' or the device seeding's share of phase A."""
     c = pipeline.counters()
     logger.info(f"Mapped {n_reads} reads in {elapsed:.2f} s "
                 f"({n_reads / max(elapsed, 1e-9):.0f} reads/s)")
@@ -286,7 +298,7 @@ def _map_reads(opt, out, references, index, index_parameters, map_param,
         % (tm["seed_nam_s"], tm["phase_a_s"], tm["host_align_s"],
            tm["phase_b_s"])
     )
-    if opt.shard_index:
+    if pipeline.sharded_index is not None:
         # the lookups' share of phase A, beside the engine's seeding
         logger.info(f"Sharded lookups: {tm['shard_lookup_s']:.2f} s, rescue preflight "
                     f"{tm['rescue_preflight_s']:.2f} s, feed misses {c['feed_miss']}")
@@ -294,3 +306,90 @@ def _map_reads(opt, out, references, index, index_parameters, map_param,
         # the device's share of phase A, which the engine's timers do not see
         logger.info(f"Device seeding: {tm['device_seed_s']:.2f} s, "
                     f"{c['host_seeded']} tie or long reads seeded on the host")
+
+
+def _kernel_launches() -> dict:
+    """This process's extend dispatches and kernel launches so far."""
+    from ..ops import extend_device, int16_probe, seed_cuda, shard_cuda, sw_cuda, tb_cuda
+
+    return {"extend_dispatches": extend_device.calls, "sw_forward": sw_cuda.launches,
+            "sw_forward_i16": sw_cuda.launches_i16, "sw_traceback": tb_cuda.launches,
+            "int16_probe": int16_probe.launches, "seed_randstrobes": seed_cuda.launches_seed,
+            "index_find": seed_cuda.launches_find,
+            "find_runs": shard_cuda.launches_find_runs}
+
+
+def _map_pod(opt, references, index, index_parameters, map_param, aln_params) -> None:
+    """One host of a multi-host pod run (rabbitsalign_tpu's runner pod
+    branch): join the gloo group, map this host's chunks on one mapping
+    thread into its output shard, sum the statistics over the pod, and on
+    node 0 merge the shards (SAM header first) after a barrier. With
+    --pod-index-peers this host keeps only its slice of the index, and
+    the host arrays are emptied so that a stray host-index access fails
+    loudly."""
+    import numpy as np
+
+    from ..parallel.multihost import (PodShardedIndex, ShardWriter, barrier, init_distributed,
+                                      merge_output, psum_statistics, shutdown_distributed)
+    from ..parallel.sharding import make_mesh
+    from .native_pipeline import NativePipeline
+
+    pid, pcount = init_distributed(opt.coordinator, opt.num_nodes, opt.node_id)
+    pod_index = None
+    try:
+        shard_flag = opt.shard_index
+        if opt.pod_index_peers:
+            peers = opt.pod_index_peers.split(",")
+            if len(peers) != pcount:
+                raise RuntimeError(f"--pod-index-peers lists {len(peers)} endpoints for a "
+                                   f"{pcount}-host pod")
+            pod_index = PodShardedIndex(index, pid, pcount, peers,
+                                        make_mesh(1, opt.device)[0])
+            index.hashes = np.zeros(0, dtype=np.uint64)
+            index.positions = np.zeros(0, dtype=np.uint32)
+            index.packed = np.zeros(0, dtype=np.uint32)
+            shard_flag = True
+            logger.info(f"Pod-sharded index: host {pid} holds {pod_index.size} of the "
+                        f"randstrobes ({pod_index.nbytes / 1e9:.2f} GB slice) on "
+                        f"{pod_index.device}, built in {pod_index.build_s:.2f} s")
+        pipeline = NativePipeline(
+            index, index_parameters, references, aln_params, map_param,
+            opt.read_group_id, use_device=opt.use_tpu, batch_size=opt.tpu_batch,
+            device=opt.device, device_seed=opt.device_seed, shard_index=shard_flag,
+            sharded_index=pod_index,
+        )
+        if pod_index is None and shard_flag:
+            _log_sharded_index(pipeline.sharded_index)
+        if opt.n_threads > 1 or opt.deterministic:
+            logger.info("multi-host mode runs one mapping thread per host; "
+                        "-t/--deterministic apply to single-host runs")
+        writer = ShardWriter(opt.output_file_name, pid, pcount)
+        t0 = time.perf_counter()
+        try:
+            n_reads = pipeline.map_file_sharded(
+                opt.reads_filename1, opt.reads_filename2, opt.is_interleaved,
+                opt.chunk_size, writer, pid, pcount,
+            )
+        finally:
+            writer.close()
+        _log_mapping(opt, pipeline, n_reads, time.perf_counter() - t0)
+        logger.debug(f"Host {pid}/{pcount} kernel launches: {json.dumps(_kernel_launches())}")
+        if pod_index is not None:
+            logger.info(f"Pod index traffic of host {pid}: {json.dumps(pod_index.stats)}")
+        stats_sum = psum_statistics({"n_reads": n_reads, **pipeline.counters()})
+        barrier()
+        if pid == 0:
+            t1 = time.perf_counter()
+            header = ""
+            if map_param.is_sam_out:
+                header = sam_header(references, opt.read_group_id, opt.read_group_fields,
+                                    " ".join(sys.argv))
+            merge_output(opt.output_file_name, pcount, header)
+            logger.info(f"Merged {pcount} output shards into {opt.output_file_name} in "
+                        f"{time.perf_counter() - t1:.2f} s")
+        logger.info(f"Host {pid}/{pcount}: mapped {n_reads} reads in "
+                    f"{time.perf_counter() - t0:.2f} s; pod total {stats_sum['n_reads']:.0f}")
+    finally:
+        if pod_index is not None:
+            pod_index.close()
+        shutdown_distributed()

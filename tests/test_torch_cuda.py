@@ -3,7 +3,8 @@ same GPU inputs, exact, at every engine bucket shape (the extend) and at
 B = 1, 33 and 4096 reads (seeding and lookup), the sharded index's run
 lookup at 1 and 4 shards of one card, and the 3-worker pipeline,
 --device-seed and --shard-index on the GPU against one worker and the
-default run. Needs an NVIDIA GPU and nvcc;
+default run, and the multi-host pod's split index and a two-process pod
+on the card. Needs an NVIDIA GPU and nvcc;
 skips without one. This file imports neither jax nor rabbitsalign_tpu,
 so it also runs where JAX is absent:
 
@@ -521,3 +522,89 @@ def test_shard_index_matches_default_on_cuda(cuda, tmp_path, threads):
                              if not ln.startswith(b"@PG")))
     assert outs[0] == outs[1]
     assert len(outs[0].splitlines()) > 2000
+
+
+def _free_ports(n):
+    import socket
+
+    socks = [socket.socket() for _ in range(n)]
+    for s in socks:
+        s.bind(("127.0.0.1", 0))
+    ports = [s.getsockname()[1] for s in socks]
+    for s in socks:
+        s.close()
+    return ports
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hosts", [2, 3])
+@pytest.mark.parametrize("which", ["world", "sentinel"])
+def test_pod_index_on_cuda_matches_cpu(cuda, seed_world, hosts, which):
+    """PodShardedIndex with every host's slice on the card (its own
+    lookups and, from the server threads on streams of their own, the
+    other hosts' keys) against the same pod on the CPU (the plain
+    versions): `find_runs_compact` and `find_runs_routed` equal at caps 1,
+    the filter cutoff and 1000, and the lookup kernels launched."""
+    from rabbitsalign_tpu_torch.ops import shard_cuda
+    from rabbitsalign_tpu_torch.parallel.multihost import PodShardedIndex
+
+    index = seed_world[1] if which == "world" else _SentinelIndex()
+    pods = []
+    for device in ("cuda", "cpu"):
+        peers = [f"127.0.0.1:{p}" for p in _free_ports(hosts)]
+        pods.append([PodShardedIndex(index, p, hosts, peers, device) for p in range(hosts)])
+    try:
+        keys = _shard_keys(index, hosts)
+        launches = shard_cuda.launches_find_runs
+        for on_card, on_cpu in zip(*pods):
+            for cap in (1, on_card.filter_cutoff, 1000):
+                for lookup in ("find_runs_compact", "find_runs_routed"):
+                    got, want = (getattr(pod, lookup)(keys, cap) for pod in (on_card, on_cpu))
+                    for k in want:
+                        assert got[k].dtype == want[k].dtype and np.array_equal(got[k], want[k]), k
+            assert on_card.stats["remote_keys"] > 0
+        assert shard_cuda.launches_find_runs > launches
+    finally:
+        for pod in pods[0] + pods[1]:
+            pod.close()
+
+
+@pytest.mark.cuda
+def test_pod_cli_on_cuda_matches_single_host(cuda, tmp_path):
+    """Two `--num-nodes 2 --pod-index-peers` processes on the one card
+    (python -m, the repository root on PYTHONPATH): the merged SAM equals
+    a single-host `-t 1` run's apart from @PG, and each host launched the
+    forward, the traceback and find_runs (its -v log)."""
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    rng = np.random.RandomState(17)
+    genome = rng.choice(np.frombuffer(b"ACGT", np.uint8), 200_000).tobytes()
+    (tmp_path / "ref.fa").write_bytes(b">chr1\n" + genome + b"\n")
+    reads = [sim_read(genome, rng.randint(len(genome) - 2 * READ_LEN), rng) for _ in range(3000)]
+    write_fastq(tmp_path / "se.fq", [revcomp(r) if i % 4 == 1 else r for i, r in enumerate(reads)],
+                b"s")
+    argv = [str(tmp_path / "ref.fa"), str(tmp_path / "se.fq"), "--chunk-size", "500",
+            "--tpu-batch", "128", "--device", "cuda"]
+    assert port_main([*argv, "-t", "1", "-o", str(tmp_path / "single.sam")]) == 0
+    root = Path(__file__).resolve().parents[1]
+    env = dict(os.environ, PYTHONPATH=str(root))
+    coord, *peers = _free_ports(3)
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "rabbitsalign_tpu_torch.cli", *argv, "-v", "-o",
+         str(tmp_path / "pod.sam"), "--num-nodes", "2", "--node-id", str(node), "--coordinator",
+         f"127.0.0.1:{coord}", "--pod-index-peers", ",".join(f"127.0.0.1:{p}" for p in peers)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, cwd=tmp_path, env=env) for node in (0, 1)]
+    for node, p in enumerate(procs):
+        _, err = p.communicate(timeout=600)
+        err = err.decode()
+        assert p.returncode == 0, err[-3000:]
+        launches = json.loads(err.split(f"Host {node}/2 kernel launches: ")[1].splitlines()[0])
+        assert all(launches[k] > 0 for k in ("sw_forward", "sw_traceback", "find_runs")), launches
+        assert "feed misses 0" in err
+    want, got = ([ln for ln in open(tmp_path / f, "rb") if not ln.startswith(b"@PG")]
+                 for f in ("single.sam", "pod.sam"))
+    assert got == want and len(got) > 3000

@@ -135,14 +135,13 @@ def test_profile_writes_a_trace(data, tmp_path):
     assert op_threads - {os.getpid()}  # ops from the worker threads
 
 
-# --num-nodes > 1 is not ported; --shard-index is, and on cuda without a
-# card it is refused as the extend is (with --no-tpu by the shard mesh)
+# on cuda without a card --shard-index is refused as the extend is (with
+# --no-tpu by the shard mesh)
 @pytest.mark.parametrize("flags,message", [
     (["--device-seed", "--shard-index"], "no CUDA device"),
     (["--shard-index"], "no CUDA device"),
-    (["--num-nodes", "2", "-o", "out.sam"], "not yet ported"),
     (["--shard-index", "--no-tpu"], "no CUDA device"),
-], ids=["device-seed", "shard-index", "num-nodes", "shard-index-no-tpu"])
+], ids=["device-seed", "shard-index", "shard-index-no-tpu"])
 def test_unported_options_are_refused(data, flags, message, capsys):
     import torch
 

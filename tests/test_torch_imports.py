@@ -19,7 +19,8 @@ def test_every_module_imports_with_jax_blocked():
     mods = _modules()
     for m in ("ops.sw_cuda", "ops.int16_probe", "ops.cuda_build", "pipeline.native_pipeline",
               "ops.seed_device", "ops.seed_cuda", "seed.hash", "seed.syncmers",
-              "seed.randstrobes", "tools.dumpstrobes"):
+              "seed.randstrobes", "tools.dumpstrobes", "parallel.sharding",
+              "parallel.multihost"):
         assert f"rabbitsalign_tpu_torch.{m}" in mods
     code = (
         "import sys, importlib\n"
