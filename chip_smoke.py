@@ -49,15 +49,19 @@ Data. A 40 Mbp simulated genome (bench.py's generator), 240k x 150 bp SE
    maps several); the index built once with `-i` (which also writes the
    `--mmap-index` sidecar).
 Seed. The seeding kernels of `--device-seed` against their plain PyTorch
-   versions on the card, tolerance 0 on every output: `seed_randstrobes` on
-   a chunk's shape (the first 10 000 SE reads x 256 codes) plus edge reads
-   (lengths 0, 11, 150, 256 and 300, all-N, N runs, tandem repeats that set
-   `tie`), and `index_find` against the 40 Mbp index (64 MB of hashes and a
-   17 MB bucket table, larger than the 50 MB L2) on that chunk's valid
-   strobes, the smallest hash (unreachable: -1) and random misses, and on an
-   index whose hashes are all equal. Times on the card, plain times, the
-   bound, and for the lookup one `torch.searchsorted` over the sign-flipped
-   hashes as the library call.
+   versions on the card, tolerance 0 on every output: `seed_randstrobes`
+   (counts, offsets, the total and the compacted strobes in one buffer,
+   nothing written past them in its worst-case allocation) on a chunk's
+   shape (the first 10 000 SE reads x 256 codes) plus edge reads (lengths
+   0, 11, 150, 256 and 300, all-N, N runs, tandem repeats that make tie
+   rows), and `index_find` against the 40 Mbp index (64 MB of hashes and a
+   17 MB bucket table, larger than the 50 MB L2) on that chunk's strobes,
+   the smallest hash (unreachable: -1) and random misses, into the seeding
+   buffer, and on an index whose hashes are all equal. Times on the card
+   (the seeding also after an L2 flush and host-paced with its read of the
+   total), plain times, the bound at this run's s-mers, syncmers and
+   candidates, and for the lookup one `torch.searchsorted` over the
+   sign-flipped hashes as the library call.
 Shard. The run lookup of `--shard-index` (csrc/find_runs.cu, a search
    bounded by the bucket table, then a compacting gather) on the 40 Mbp
    index cut into 1 and 4 shards of the one card: the three lookups of
@@ -66,11 +70,16 @@ Shard. The run lookup of `--shard-index` (csrc/find_runs.cu, a search
    uses it) on the first SE chunk's strobes (seeded on the host by the
    engine), 4096 misses, the sentinel hash and the smallest hash must equal
    the same index's on the CPU (the plain versions), tolerance 0; and the
-   kernels' wrappers their plain versions on the same card tensors. At one
-   shard, the main path's shape, the search and the compacting gather timed
-   on the card after an L2 flush and back to back, the search alone (also
-   over a one-bit bucket table: a whole-shard search's depth), the plain
-   time, the bound, and one `torch.searchsorted` as the library call.
+   kernels' wrappers their plain versions on the same card tensors. The
+   same on an index of runs of 1 to 120 rows (tests/torch_gather_lanes.py
+   `RunsIndex`: runs over 32 rows and over the cap) at caps 2, 40 and the
+   filter cutoff, and its gather at cap 40 dense, at the pod's offsets and
+   with keys skipped. At one shard, the main path's shape, the search and
+   the compacting gather timed on the card together and each alone, after
+   an L2 flush and back to back, the search also over a one-bit bucket
+   table (a whole-shard search's depth); the plain time, the bound with the
+   search's probes replayed (`lookup_probes`) and their 32-byte sectors,
+   and one `torch.searchsorted` as the library call.
 4. The main path through the CLI on that data: nine paths, each with the
    launch counts set to 0 before it and read after it, and each from a
    cold probe cache (so its prewarm runs the probe kernel):
@@ -139,7 +148,8 @@ REQUIRED = ("rabbitsalign_tpu_torch/__init__.py", "rabbitsalign_tpu_torch/csrc/s
             "rabbitsalign_tpu_torch/csrc/seed_randstrobes.cu",
             "rabbitsalign_tpu_torch/csrc/index_find.cu",
             "rabbitsalign_tpu_torch/csrc/find_runs.cu",
-            "rabbitsalign_tpu_torch/csrc/bucket_search.cuh", "rabbitsalign_tpu/native/engine.cpp",
+            "rabbitsalign_tpu_torch/csrc/bucket_search.cuh",
+            "rabbitsalign_tpu_torch/native/engine.cpp", "rabbitsalign_tpu_torch/native/seednam.cpp",
             "rabbitsalign_tpu_torch/parallel/multihost.py",
             "rabbitsalign_tpu_torch/tools/ilp_probe.py", "bench.py", "tests/torch_extend_cases.py",
             "tests/torch_tb_tiles.py", "tests/torch_seed_cases.py")
@@ -196,7 +206,8 @@ OPS_PER_FIND_STEP = 6
 # the run lookup of --shard-index (search and compacting gather), per key:
 # the key (8), its bucket bounds (16), its count and run offset written
 # (16); 8 bytes a probed hash (the bucket-bounded search's steps, the
-# final equality read, and for a found key one probe past its run); 16
+# final equality read, and for a found key the gallop's and the binary
+# search's probes for its run's end, counted by lookup_probes); 16
 # bytes a walked run row (positions and packed read, and written); 6
 # operations a search step. The search's (gpos, count) that the gather
 # reads back are the kernels' own round trip, not the function's bytes.
@@ -648,6 +659,44 @@ def flush_l2(torch):
     return lambda: buf.fill_(1)
 
 
+def lookup_probes(torch, h, size: int, start: int, buckets, bits: int, q):
+    """The reads of the hash array that find_runs_kernel makes for the
+    keys q, replayed with torch ops in its order: (search steps of the
+    bucket-bounded lower bound, equality reads, gallop and binary probes
+    for a found key's run end), each summed over the keys."""
+    from rabbitsalign_tpu_torch.ops.seed_device import flip, lsr
+
+    m = h.numel()
+    fh, fq = flip(h), flip(q)
+    top = lsr(q, 64 - bits)
+    lo = (buckets[top] - start).clamp(min=0)
+    hi0 = hi = (buckets[top + 1] - start).clamp(max=size)
+    steps = 0
+    while bool((act := lo < hi).any()):
+        steps += int(act.sum())
+        mid = lo + ((hi - lo) >> 1)
+        less = fh[mid.clamp(max=m - 1)] < fq
+        lo, hi = torch.where(act & less, mid + 1, lo), torch.where(act & ~less, mid, hi)
+    eq = lo < hi0
+    found = eq & (h[lo.clamp(max=m - 1)] == q)
+    first = lo.clamp(max=m - 1)
+    a, b, gallop, step = first + 1, torch.full_like(first, m), 0, 1
+    open_ = found.clone()
+    while bool((act := open_ & (first + step < m)).any()):
+        gallop += int(act.sum())
+        ne = act & (h[(first + step).clamp(max=m - 1)] != q)
+        b = torch.where(ne, first + step, b)
+        a = torch.where(act & ~ne, first + step + 1, a)
+        open_ = act & ~ne
+        step <<= 1
+    while bool((act := found & (a < b)).any()):
+        gallop += int(act.sum())
+        mid = a + ((b - a) >> 1)
+        same = h[mid.clamp(max=m - 1)] == q
+        a, b = torch.where(act & same, mid + 1, a), torch.where(act & ~same, mid, b)
+    return steps, int(eq.sum()), gallop
+
+
 def load_index(ref):
     """The 40 Mbp index that make_data built, read from its .sti."""
     from rabbitsalign_tpu_torch.index.params import IndexParameters
@@ -679,42 +728,53 @@ def seed_kernels(torch, card, index, se_fastq):
         chunk = [line.rstrip(b"\n") for i, line in zip(range(4 * 10_000), f) if i % 4 == 1]
     edge = edge_reads(3)
     codes, lens = (torch.from_numpy(a).to(dev) for a in code_batch(chunk + edge))
-    lens = lens.clamp(min=0)  # as seed_and_find passes them
     sp, rp = params.syncmer, params.randstrobe
-    args = (sp.k, sp.s, sp.t_syncmer, rp.w_min, rp.w_max, rp.q, rp.max_dist, SEED_L)
-    got = seed_cuda.seed_randstrobes(codes, lens, *args)
-    want = seed_device.randstrobes_query_vec(codes, lens, *args)
-    torch.cuda.synchronize()
-    err = {"seed_randstrobes": max_abs_err(torch, zip(got, want))}
-    check(all(g.dtype == w.dtype and torch.equal(g, w) for g, w in zip(got, want)),
-          f"seed_randstrobes disagrees with its plain version (max_abs_err "
-          f"{err['seed_randstrobes']})")
-    h, st, en, nf, nr, tie = got
     M = SEED_L
-    slot = torch.arange(2 * M, device=dev)[None, :]
-    valid = torch.where(slot < M, slot < nf[:, None], slot - M < nr[:, None])
-    n_edge = len(edge)
-    tie_edge = tie[-n_edge:].cpu().tolist()
-    check(any(tie_edge[-5:]) and not any(tie_edge[:2]) and int(nf[-n_edge]) == 0,
-          f"edge reads: tie {tie_edge}, n_fwd {nf[-n_edge:].tolist()}")
-    n_chunk = len(chunk)
+    args = (sp.k, sp.s, sp.t_syncmer, rp.w_min, rp.w_max, rp.q, rp.max_dist, M)
+    B = codes.shape[0]
+    buf, total = seed_cuda.seed_randstrobes(codes, lens, *args)
+    want, want_total = seed_device.seed_strobes_plain(codes, lens, *args)
+    got_v, want_v = (seed_device.strobe_views(x, B, total) for x in (buf, want))
+    torch.cuda.synchronize()
+    err = {"seed_randstrobes": max_abs_err(torch, zip(got_v[:6], want_v[:6]))
+           + abs(total - want_total)}
+    check(total == want_total and all(g.dtype == w.dtype and torch.equal(g, w)
+                                      for g, w in zip(got_v[:6], want_v[:6])),
+          f"seed_randstrobes disagrees with its plain version (totals {total} and "
+          f"{want_total}, max_abs_err {err['seed_randstrobes']})")
+    # nothing past the chunk's strobes is written in the worst-case buffer
+    filled = seed_cuda.seed_buffer(B, M, dev).fill_(0xA5)
+    seed_cuda.launch_seed_randstrobes(codes, lens, *args, filled)
+    end = seed_device.strobe_bytes(B, total)
+    untouched = bool((filled[end:seed_cuda._scratch_at(B, M)] == 0xA5).all())
+    check(untouched and all(torch.equal(g, w) for g, w in zip(
+        seed_device.strobe_views(filled, B, total)[:6], want_v[:6])),
+        "seed_randstrobes wrote past the chunk's strobes, or differs in a filled buffer")
+    counts = got_v[0]
+    n_edge, n_chunk = len(edge), len(chunk)
+    edge_counts = counts[-n_edge:].cpu().tolist()
+    check((counts[-5:] == -1).any() and edge_counts[:2] == [0, 0] and edge_counts[4] == -1,
+          f"edge reads: counts {edge_counts}")
+    chunk_strobes_n = int(counts[:n_chunk].clamp(min=0).sum())
     say(f"seed_randstrobes on {n_chunk} reads + {n_edge} edge reads x {SEED_L}: equal to its "
-        f"plain version (max_abs_err 0 over hash, start, end, n_fwd, n_rc, tie); "
-        f"{int(valid[:n_chunk].sum())} valid strobes in the chunk "
-        f"({int(valid[:n_chunk].sum()) / n_chunk:.1f} a read), {int(tie[:n_chunk].sum())} tie "
-        f"rows; edge tie flags {tie_edge}")
+        f"plain version (max_abs_err 0 over counts, offsets, hashes, starts, ends, is_rev and "
+        f"the total); {chunk_strobes_n} strobes in the chunk ({chunk_strobes_n / n_chunk:.1f} a "
+        f"read), {int((counts[:n_chunk] == -1).sum())} tie rows; nothing written past the "
+        f"{end} bytes of the strobes in the {filled.numel()}-byte buffer; edge counts "
+        f"{edge_counts}")
 
-    chunk_q = h[:n_chunk][valid[:n_chunk]]  # what seed_and_find hands the lookup
+    chunk_q = got_v[2][:chunk_strobes_n]  # the chunk's strobes, as seed_and_find looks them up
     misses = torch.from_numpy(np.random.RandomState(1).randint(
         -(1 << 63), (1 << 63) - 1, 4096, dtype=np.int64)).to(dev)
-    queries = torch.cat([h[valid], hashes[:1], misses])
+    queries = torch.cat([got_v[2], hashes[:1], misses])
     pos = seed_cuda.index_find(hashes, buckets, bits, queries)
     pos_plain = seed_device.index_find_device(hashes, buckets, bits, queries)
     err["index_find"] = max_abs_err(torch, [(pos, pos_plain)])
-    n_valid = int(valid.sum())
     check(torch.equal(pos, pos_plain), f"index_find disagrees with its plain version "
                                        f"(max_abs_err {err['index_find']})")
-    check(int(pos[n_valid]) == -1, "the smallest hash was found (bucket-table quirk)")
+    check(int(pos[total]) == -1, "the smallest hash was found (bucket-table quirk)")
+    seed_cuda.index_find(hashes, buckets, bits, got_v[2], out=got_v[6])
+    check(torch.equal(got_v[6], pos[:total]), "index_find into the seeding buffer differs")
     same = StrobemerIndex(index.references, params, bits)
     same.hashes = np.full(9, index.hashes[1000], np.uint64)
     same._build_buckets()
@@ -725,24 +785,28 @@ def seed_kernels(torch, card, index, se_fastq):
     check(bool((s_pos == -1).all()) and torch.equal(
         s_pos, seed_device.index_find_device(s_h, s_b, bits, s_q)),
         "index_find on an all-equal index")
-    hits = int((pos[:n_valid] >= 0).sum())
+    hits = int((pos[:total] >= 0).sum())
     say(f"index_find on {queries.numel()} queries against the {GENOME_BP} bp index "
-        f"({len(index)} hashes, bits {bits}): equal to its plain version, {hits} of {n_valid} "
+        f"({len(index)} hashes, bits {bits}): equal to its plain version, {hits} of {total} "
         f"strobes found, the smallest hash -1, an all-equal index finds nothing")
 
-    # times: the seeding kernel at the chunk's shape; the lookup on the
-    # chunk's valid strobes, an L2 flush before each call (timed alone and
-    # subtracted) and back to back
-    B = codes.shape[0]
-    times = {"seed_randstrobes": (
-        device_ms(torch, lambda: seed_cuda.seed_randstrobes(codes, lens, *args), 20),
-        time_ms(torch, lambda: seed_device.randstrobes_query_vec(codes, lens, *args), 3))}
+    # times: the seeding kernel (a memset and two launches) at the chunk's shape,
+    # on the card and, with its one sync for the total, host-paced; the
+    # lookup on the chunk's strobes, an L2 flush before each call (timed
+    # alone and subtracted) and back to back
+    seed_ms = device_ms(torch, lambda: seed_cuda.launch_seed_randstrobes(codes, lens, *args,
+                                                                         filled), 20)
+    seed_host = time_ms(torch, lambda: seed_cuda.seed_randstrobes(codes, lens, *args), 20)
+    times = {"seed_randstrobes": (seed_ms, time_ms(
+        torch, lambda: seed_device.seed_strobes_plain(codes, lens, *args), 3))}
     flush = flush_l2(torch)
     flush_ms = device_ms(torch, flush, 20)
 
     def flushed(fn):
         return lambda: (flush(), fn())
 
+    seed_cold = device_ms(torch, flushed(lambda: seed_cuda.launch_seed_randstrobes(
+        codes, lens, *args, filled)), 20) - flush_ms
     find_ms = device_ms(torch, flushed(lambda: seed_cuda.index_find(
         hashes, buckets, bits, chunk_q)), 20) - flush_ms
     warm_ms = device_ms(torch, lambda: seed_cuda.index_find(hashes, buckets, bits, chunk_q), 20)
@@ -753,13 +817,17 @@ def seed_kernels(torch, card, index, se_fastq):
                - flush_ms, "seed_randstrobes": None}
     library_warm = device_ms(torch, lambda: torch.searchsorted(fh, fq), 20)
 
-    # bounds for this run's inputs
-    n_smer = int((lens - sp.s + 1).clamp(min=0).sum())
-    # syncmers of the rows that link strobes (a row of n <= w_min syncmers
-    # is not counted: a lower bound), and candidates of every valid slot
-    n_sync = int((nf + rp.w_min).where(nf > 0, 0).sum())
-    n_cand = int(valid.sum()) * (rp.w_max - rp.w_min + 1)
-    seed_bytes = B * SEED_L + 4 * B + B * 2 * M * 16 + 9 * B
+    # bounds for this run's inputs: the s-mers of the reads with a k-mer
+    # window, the syncmers of the rows that link strobes, and each
+    # strobe's strobe-2 candidates (d in [w_min, w_max] with m + d < n)
+    n_len = lens.clamp(min=0, max=SEED_L)
+    n_smer = int((n_len - sp.s + 1).where(n_len >= sp.k, 0).sum())
+    n_out = (counts.clamp(min=0) // 2).long()
+    n_sync = int((n_out + rp.w_min).where(n_out > 0, 0).sum())
+    span = rp.w_max - rp.w_min + 1  # slot m of n_out has min(span, n_out - m)
+    a = n_out.clamp(max=span)
+    n_cand = 2 * int((a * (a + 1) // 2 + (n_out - a) * span).sum())
+    seed_bytes = B * SEED_L + 4 * B + 17 * total + 12 * B
     tops = seed_device.lsr(chunk_q, 64 - bits)
     width = (buckets[tops + 1] - buckets[tops]).clamp(min=0).double()
     steps = int(torch.ceil(torch.log2(width + 1)).sum())
@@ -772,8 +840,12 @@ def seed_kernels(torch, card, index, se_fastq):
         say(f"{name}: kernel {ms:.4f} ms on the card, plain {plain_ms:.4f} ms, bound "
             f"{bounds[name][0]:.6f} ms ({bounds[name][1]}), one PyTorch call "
             f"{'none' if lib is None else f'{lib:.4f} ms'} [{card}]")
-    say(f"seed_randstrobes at {B} x {SEED_L}: {times['seed_randstrobes'][0] * 1e6 / B:.2f} ns a "
-        f"read, {seed_bytes / 1e6:.1f} MB read and written [{card}]")
+    say(f"seed_randstrobes at {B} x {SEED_L} (counts, offsets and {total} compacted strobes): "
+        f"{seed_ms:.4f} ms on the card back to back, {seed_cold:.4f} ms after an L2 flush, "
+        f"{seed_host:.4f} ms host-paced with the read of the total; "
+        f"{seed_ms * 1e6 / B:.2f} ns a read; {seed_bytes / 1e6:.2f} MB read and written, "
+        f"{seed_ops / 1e6:.1f} M operations ({n_smer} s-mers, {n_sync} syncmers, {n_cand} "
+        f"candidates) [{card}]")
     say(f"index_find of {nq} queries ({steps / max(nq, 1):.2f} search steps a query): "
         f"{find_ms:.4f} ms after an L2 flush (flush alone {flush_ms:.4f} ms), {warm_ms:.4f} ms "
         f"back to back; torch.searchsorted over the sign-flipped hashes "
@@ -802,6 +874,53 @@ def chunk_strobes(index, se_fastq):
         reader.close()
         engine.close()
     return hashes, 2 * n_pairs + n_singles
+
+
+def long_runs(torch, card) -> int:
+    """The lookup on an index of runs of 1, 31, 32, 33 and more than the
+    cap rows (tests/torch_gather_lanes.py `RunsIndex`) at 1 and 4 shards
+    of the card against the CPU: every lookup of ShardedIndex at caps 2,
+    40 and the filter cutoff, and the wrappers' gather at cap 40 dense, at
+    the pod's `ends - width` and compacted with keys skipped. Returns the
+    largest error (0)."""
+    import numpy as np
+
+    from rabbitsalign_tpu_torch.ops import shard_cuda, shard_find
+    from rabbitsalign_tpu_torch.parallel.sharding import ShardedIndex, make_mesh
+    from tests.torch_gather_lanes import RunsIndex
+
+    stub = RunsIndex(40)
+    heads = np.unique(stub.hashes)
+    keys = np.concatenate([heads, heads + np.uint64(1), np.array([0, 2**64 - 1], np.uint64)])
+    err = 0
+    for n_shards in (1, 4):
+        on_card, on_cpu = (ShardedIndex(make_mesh(n_shards, d), stub) for d in (DEVICE, "cpu"))
+        for cap in (2, 40, stub.filter_cutoff):
+            for name in ("find_runs", "find_runs_routed", "find_runs_compact"):
+                got, want = (getattr(si, name)(keys, cap) for si in (on_card, on_cpu))
+                for key in want:
+                    check(got[key].dtype == want[key].dtype and np.array_equal(got[key], want[key]),
+                          f"{name} at cap {cap}, {n_shards} shards, runs over 32 rows: {key} "
+                          f"differs from the CPU")
+    h, p, k = on_card._shards[0]
+    q = torch.from_numpy(keys.view(np.int64)).to(DEVICE)
+    gpos, count = shard_cuda.find_runs(h, on_card.shard_sizes[0], 0, on_card._buckets,
+                                       on_card.bits, q)
+    width = count.clamp(max=40)
+    ends = torch.cumsum(width, 0)
+    for dst in (None, ends - width, torch.where(q % 3 == 0, -1, ends - width)):
+        rows = q.numel() * 40 if dst is None else int(ends[-1])
+        outs = [torch.zeros(rows, dtype=torch.int32, device=DEVICE) for _ in range(4)]
+        shard_cuda.gather_runs(p, k, gpos, count, 0, 40, dst, *outs[:2])
+        shard_find.gather_runs_plain(p, k, gpos, count, 0, 40, dst, *outs[2:])
+        err = max(err, max_abs_err(torch, [(outs[0], outs[2]), (outs[1], outs[3])]))
+    check(err == 0, f"gather_runs on runs over 32 rows disagrees with its plain version ({err})")
+    lens = np.unique(stub.hashes, return_counts=True)[1]
+    say(f"find_runs and gather_runs on runs of {sorted(set(lens.tolist()))} rows at 1 and 4 "
+        f"shards of the card: every lookup at caps 2, 40 and {stub.filter_cutoff}, and the "
+        f"gather at cap 40 dense, at the pod's offsets and with keys skipped, equal to the "
+        f"plain versions [{card}]")
+    return err
 
 
 def shard_kernels(torch, card, index, se_fastq):
@@ -860,13 +979,17 @@ def shard_kernels(torch, card, index, se_fastq):
     single = ShardedIndex(make_mesh(1, DEVICE), index)
     h, p, k = single._shards[0]
     size, buckets, bits = single.shard_sizes[0], single._buckets, single.bits
+    def layout(count, cap):
+        """dst and rows of the compacting gather: the walked keys (found,
+        count <= cap) back to back."""
+        walk = (count > 0) & (count <= cap)
+        width = torch.where(walk, count, 0)
+        return torch.where(walk, torch.cumsum(width, 0) - width, -1), int(width.sum())
+
     q = torch.from_numpy(keys.view(np.int64)).to(dev)
     gpos, count = shard_cuda.find_runs(h, size, 0, buckets, bits, q)
     plain = shard_find.find_runs_plain(h, size, 0, buckets, bits, q)
-    walk = (count > 0) & (count <= fc)
-    width = torch.where(walk, count, 0)
-    dst = torch.where(walk, torch.cumsum(width, 0) - width, -1)
-    n_rows = int(width.sum())
+    dst, n_rows = layout(count, fc)
     outs = [torch.zeros(max(n_rows, 1), dtype=torch.int32, device=dev) for _ in range(4)]
     shard_cuda.gather_runs(p, k, gpos, count, 0, fc, dst, *outs[:2])
     shard_find.gather_runs_plain(p, k, plain[0], plain[1], 0, fc, dst, *outs[2:])
@@ -874,6 +997,8 @@ def shard_kernels(torch, card, index, se_fastq):
     err = max(err, max_abs_err(torch, [(gpos, plain[0]), (count, plain[1]), (outs[0], outs[2]),
                                        (outs[1], outs[3])]))
     check(err == 0, f"find_runs disagrees with its plain version (max_abs_err {err})")
+    err = max(err, long_runs(torch, card))
+    nq = q.numel()
 
     def kernel():
         g, c = shard_cuda.find_runs(h, size, 0, buckets, bits, q)
@@ -883,11 +1008,20 @@ def shard_kernels(torch, card, index, se_fastq):
         g, c = shard_find.find_runs_plain(h, size, 0, buckets, bits, q)
         shard_find.gather_runs_plain(p, k, g, c, 0, fc, dst, *outs[2:])
 
+    def search():
+        return shard_cuda.find_runs(h, size, 0, buckets, bits, q)
+
+    def gather():
+        shard_cuda.gather_runs(p, k, gpos, count, 0, fc, dst, *outs[:2])
+
     flush = flush_l2(torch)
     flush_ms = device_ms(torch, flush, 20)
     ms = device_ms(torch, lambda: (flush(), kernel()), 20) - flush_ms
+    search_cold = device_ms(torch, lambda: (flush(), search()), 20) - flush_ms
+    gather_cold = device_ms(torch, lambda: (flush(), gather()), 20) - flush_ms
     warm_ms = device_ms(torch, kernel, 20)
-    search_ms = device_ms(torch, lambda: shard_cuda.find_runs(h, size, 0, buckets, bits, q), 20)
+    search_ms = device_ms(torch, search, 20)
+    gather_ms = device_ms(torch, gather, 20)
     # the same search over two half-shard buckets (a one-bit table, split
     # where the hashes' top bit turns on): the depth of a search over the
     # whole shard, beside the index's bits-bit table in the same call
@@ -897,20 +1031,24 @@ def shard_kernels(torch, card, index, se_fastq):
     fh, fq = seed_device.flip(h), seed_device.flip(q)
     lib_ms = device_ms(torch, lambda: (flush(), torch.searchsorted(fh, fq)), 20) - flush_ms
     lib_warm = device_ms(torch, lambda: torch.searchsorted(fh, fq), 20)
-    # this run's probes: each key's search steps over its bucket's range on
-    # the shard, its equality read, and one probe past each found run
-    m = h.numel()
-    tops = seed_device.lsr(q, 64 - bits)
-    b_width = (buckets[tops + 1].clamp(max=size) - buckets[tops]).clamp(min=0)
-    steps = int(torch.ceil(torch.log2(b_width.double() + 1)).sum())
-    probes = steps + int((b_width > 0).sum()) + int((count > 0).sum())
-    b = bound(SHARD_KEY_BYTES * keys.size + 8 * probes + SHARD_ROW_BYTES * n_rows,
+    steps, eq_reads, gallop = lookup_probes(torch, h, size, 0, buckets, bits, q)
+    probes = steps + eq_reads + gallop
+    b = bound(SHARD_KEY_BYTES * nq + 8 * probes + SHARD_ROW_BYTES * n_rows,
               OPS_PER_FIND_STEP * steps)
-    say(f"find_runs (search + compacting gather) of {keys.size} keys on one shard of {m} "
+    # every random read moves a whole 32-byte sector: the bucket pair, each
+    # search step, the equality read and each gallop probe, beside the
+    # key's coalesced 8 bytes in and 16 out
+    sectors = nq + probes
+    sector_ms = (32 * sectors + 24 * nq) / HBM_BYTES_PER_S * 1e3
+    say(f"find_runs (search + compacting gather) of {nq} keys on one shard of {h.numel()} "
         f"entries: kernel {ms:.4f} ms on the card after an L2 flush (flush alone "
-        f"{flush_ms:.4f} ms), {warm_ms:.4f} ms back to back, the search alone {search_ms:.4f} "
-        f"ms back to back ({wide_ms:.4f} ms over two half-shard buckets); plain {plain_ms:.4f} ms; bound {b[0]:.6f} ms ({b[1]}; {n_rows} run "
-        f"rows, {probes} probes, {steps / keys.size:.2f} search steps a key); torch.searchsorted over the sign-flipped hashes {lib_ms:.4f} ms "
+        f"{flush_ms:.4f} ms), {warm_ms:.4f} ms back to back; after a flush the search "
+        f"{search_cold:.4f} ms and the gather {gather_cold:.4f} ms, back to back {search_ms:.4f} "
+        f"and {gather_ms:.4f} ms (the search over two half-shard buckets {wide_ms:.4f} ms); plain "
+        f"{plain_ms:.4f} ms; bound {b[0]:.6f} ms ({b[1]}; {n_rows} run rows, {probes} probes: "
+        f"{steps} search steps, {steps / nq:.2f} a key, {eq_reads} equality reads, "
+        f"{gallop} gallop probes); the search's 32-byte sectors {sectors}, a floor of "
+        f"{sector_ms:.6f} ms; torch.searchsorted over the sign-flipped hashes {lib_ms:.4f} ms "
         f"after a flush, {lib_warm:.4f} ms back to back [{card}]")
     return {"find_runs": err}, {"find_runs": (ms, plain_ms)}, {"find_runs": b}, \
         {"find_runs": lib_ms}

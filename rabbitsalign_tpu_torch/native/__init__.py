@@ -1,28 +1,32 @@
-"""The native (C++) mapping engine, built from its one source and loaded
-via ctypes.
+"""The native (C++) mapping engine, built from this package's own sources
+and loaded via ctypes.
 
-The engine is not copied into this package: `engine.cpp` (which
-#includes `seednam.cpp`) is compiled by file path from the
-`rabbitsalign_tpu/native/` directory of the same checkout, with the same
-g++ flags as that package, into a cache of this package's own
+`engine.cpp` (which #includes `seednam.cpp` beside it) lives in this
+directory, a copy of the JAX package's engine with the same code (only
+its comments' paths to the reference source are shortened; the parity
+tests hold the two libraries against each other). It is compiled
+with g++ into a cache of this package's own
 (``$RABBITSALIGN_TPU_TORCH_CACHE``, default
-``~/.cache/rabbitsalign_tpu_torch``). It is rebuilt when either source
-is newer than the library. A failed build raises: there is no Python
-host path behind it.
+``~/.cache/rabbitsalign_tpu_torch``), and rebuilt unless the stamp beside
+the library holds the sha256 of both sources and the compiler flags
+(mtimes cannot be trusted: an unpacked archive carries its commit's
+times). A failed build raises: there is no Python host path behind it.
 """
 
 from __future__ import annotations
 
 import ctypes
 import fcntl
+import hashlib
 import os
 import subprocess
 import threading
 from pathlib import Path
 from typing import Optional
 
-ENGINE_SRC_DIR = Path(__file__).resolve().parents[2] / "rabbitsalign_tpu" / "native"
+ENGINE_SRC_DIR = Path(__file__).resolve().parent
 ENGINE_SOURCES = ("engine.cpp", "seednam.cpp")
+GXX_FLAGS = ("-O3", "-march=native", "-std=c++17", "-shared", "-fPIC", "-fopenmp")
 
 _lib: Optional[ctypes.CDLL] = None
 _lock = threading.Lock()
@@ -34,34 +38,48 @@ def cache_dir() -> Path:
         os.path.expanduser("~/.cache/rabbitsalign_tpu_torch")))
 
 
+def sources_digest() -> str:
+    """sha256 over the names and contents of ENGINE_SOURCES and GXX_FLAGS."""
+    h = hashlib.sha256(repr(GXX_FLAGS).encode())
+    for name in ENGINE_SOURCES:
+        h.update(name.encode() + b"\0" + (ENGINE_SRC_DIR / name).read_bytes() + b"\0")
+    return h.hexdigest()
+
+
 def build_engine() -> Path:
-    """Compile engine.cpp into the cache (if stale) and return the path.
-    Concurrent builds (test workers) take turns on a lock file, and the
-    build writes a private temporary file that is renamed into place, so
-    a reader never sees a partial library."""
-    src = ENGINE_SRC_DIR / ENGINE_SOURCES[0]
+    """Compile engine.cpp into the cache unless the library's stamp holds
+    `sources_digest()`, and return the library's path. Concurrent builds
+    (test workers) take turns on a lock file, and the build writes a
+    private temporary file that is renamed into place, so a reader never
+    sees a partial library."""
     missing = [s for s in ENGINE_SOURCES if not (ENGINE_SRC_DIR / s).is_file()]
     if missing:
         raise RuntimeError(f"engine sources not found in {ENGINE_SRC_DIR}: {missing}")
     out = cache_dir() / "engine.so"
-    newest = max((ENGINE_SRC_DIR / s).stat().st_mtime for s in ENGINE_SOURCES)
-    if out.exists() and out.stat().st_mtime >= newest:
+    stamp = out.with_name("engine.so.sha256")
+    digest = sources_digest()
+
+    def fresh() -> bool:
+        return out.exists() and stamp.exists() and stamp.read_text() == digest
+
+    if fresh():
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
     # one build at a time; the others wait and then find it fresh
     with open(out.with_name("engine.lock"), "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
-        if out.exists() and out.stat().st_mtime >= newest:
+        if fresh():
             return out
-        return _compile(src, out)
+        _compile(ENGINE_SRC_DIR / ENGINE_SOURCES[0], out)
+        tmp = stamp.with_name(f"engine.so.{os.getpid()}.{threading.get_ident()}.sha256")
+        tmp.write_text(digest)
+        os.replace(tmp, stamp)
+        return out
 
 
 def _compile(src: Path, out: Path) -> Path:
     tmp = out.with_name(f"engine.{os.getpid()}.{threading.get_ident()}.so")
-    cmd = [
-        "g++", "-O3", "-march=native", "-std=c++17", "-shared", "-fPIC",
-        "-fopenmp", str(src), "-o", str(tmp), "-lz",
-    ]
+    cmd = ["g++", *GXX_FLAGS, str(src), "-o", str(tmp), "-lz"]
     try:
         res = subprocess.run(cmd, capture_output=True, text=True)
     except FileNotFoundError as e:

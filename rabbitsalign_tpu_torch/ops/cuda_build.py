@@ -104,34 +104,41 @@ def build_kernels(extra_flags=()) -> Path:
     return LIB_PATH
 
 
+def _signatures() -> dict:
+    """The argument types of each ``*_launch`` entry (all return int)."""
+    p, i, i64, u64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_uint64
+    fwd = [p, p, p, p, i, i, i, i, i, i, i, p, p, p, p, p]
+    return {
+        "sw_forward_launch": fwd,
+        "sw_forward_i16_launch": fwd,
+        "sw_forward_split_launch": [p, p, p, p, i, i, i, i, i, i, i, i, p, p, p, p, p, p, p],
+        "sw_traceback_launch": [p, p, p, p, i, i, i, p, p, p, p],
+        "sw_traceback_packed_launch": [p, p, p, p, i, i, i, p, p],
+        "int16_probe_launch": [p, p, i, i, p],
+        "seed_randstrobes_launch": [p, p, i, i, i, i, i, i, i, u64, i, i, p, p, p, p, p, p, p,
+                                    p],
+        "index_find_launch": [p, i64, p, i, p, i64, p, p],
+        "find_runs_launch": [p, i64, i64, i64, p, i64, i, i64, p, i64, p, p, p],
+        "gather_runs_launch": [p, p, p, p, i64, p, i64, i64, p, p, p],
+    }
+
+
+def declare(lib: ctypes.CDLL, names=None) -> None:
+    """Set the C signatures of `lib`'s launch entries (those in `names`,
+    or all of them)."""
+    for name, args in _signatures().items():
+        if names is None or name in names:
+            fn = getattr(lib, name)
+            fn.restype = ctypes.c_int
+            fn.argtypes = args
+
+
 def load_kernels() -> ctypes.CDLL:
     """The kernel library, built if needed, with its C signatures set."""
     global _lib
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(str(build_kernels()))
-            p, i = ctypes.c_void_p, ctypes.c_int
-            for fn in (lib.sw_forward_launch, lib.sw_forward_i16_launch):
-                fn.restype = i
-                fn.argtypes = [p, p, p, p, i, i, i, i, i, i, i, p, p, p, p, p]
-            lib.sw_forward_split_launch.restype = i
-            lib.sw_forward_split_launch.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i,
-                                                    p, p, p, p, p, p, p]
-            lib.sw_traceback_launch.restype = i
-            lib.sw_traceback_launch.argtypes = [p, p, p, p, i, i, i, p, p, p, p]
-            lib.sw_traceback_packed_launch.restype = i
-            lib.sw_traceback_packed_launch.argtypes = [p, p, p, p, i, i, i, p, p]
-            lib.int16_probe_launch.restype = i
-            lib.int16_probe_launch.argtypes = [p, p, i, i, p]
-            lib.seed_randstrobes_launch.restype = i
-            lib.seed_randstrobes_launch.argtypes = [p, p, i, i, i, i, i, i, i, ctypes.c_uint64,
-                                                    i, i, p, p, p, p, p, p, p]
-            i64 = ctypes.c_int64
-            lib.index_find_launch.restype = i
-            lib.index_find_launch.argtypes = [p, i64, p, i, p, i64, p, p]
-            lib.find_runs_launch.restype = i
-            lib.find_runs_launch.argtypes = [p, i64, i64, i64, p, i, p, i64, p, p, p]
-            lib.gather_runs_launch.restype = i
-            lib.gather_runs_launch.argtypes = [p, p, p, p, i64, p, i64, i64, p, p, p]
+            declare(lib)
             _lib = lib
         return _lib

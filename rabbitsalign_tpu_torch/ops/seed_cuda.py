@@ -5,20 +5,20 @@ behind wrappers that take their plain PyTorch versions
 CUDA tensors.
 
 Neither replaces a Pallas kernel: in rabbitsalign_tpu they are XLA ops,
-`randstrobes_query_vec` (ops/seed_device.py:432) and `index_find_device`
-(:239). Each kernel's output equals its plain version's byte for byte,
-unused slots included.
+`randstrobes_query_vec` (ops/seed_device.py:432) with the compaction of
+`seed_and_find` (:555), and `index_find_device` (:239). Each kernel's
+output equals its plain version's byte for byte.
 """
 
 from __future__ import annotations
 
 import ctypes
 import threading
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
-from .seed_device import index_find_device, randstrobes_query_vec
+from .seed_device import index_find_device, seed_strobes_plain, strobe_bytes, strobes_at
 
 MAX_L = 512  # codes per read, and slots per strand, the seeding kernel takes
 
@@ -44,14 +44,55 @@ def _check_launch(err: int, name: str) -> None:
         raise RuntimeError(f"{name} kernel launch failed (CUDA error {err})")
 
 
+def seed_buffer(n_reads: int, M: int, device) -> torch.Tensor:
+    """One uint8 allocation for the seeding kernel: the arrays of
+    `seed_device.strobe_views` with room for n_reads * 2M strobes, then
+    the kernel's scratch: (n_reads, M) syncmer lists (hashes int64,
+    positions int32) and the offsets of its tiles of reads (int64)."""
+    return torch.empty(_tiles_at(n_reads, M) + 8 * (n_reads + 1), dtype=torch.uint8,
+                       device=device)
+
+
+def _scratch_at(n_reads: int, M: int) -> int:
+    return strobe_bytes(n_reads, 2 * M * n_reads) + 7 & ~7
+
+
+def _tiles_at(n_reads: int, M: int) -> int:
+    return _scratch_at(n_reads, M) + 12 * n_reads * M + 7 & ~7
+
+
+def launch_seed_randstrobes(codes: torch.Tensor, lengths: torch.Tensor, k: int, s: int, t: int,
+                            w_min: int, w_max: int, q: int, max_dist: int, M: int,
+                            buf: torch.Tensor) -> None:
+    """Queue the seeding kernel on the current stream, writing into `buf`
+    (from `seed_buffer`); checked CUDA tensors of `seed_randstrobes`.
+    Counts no launch and reads nothing back."""
+    lib = _kernels(codes, "seed_randstrobes")
+    N, L = codes.shape
+    at = strobes_at(N)
+    scratch = _scratch_at(N, M)
+    ptr = buf.data_ptr()
+    with torch.cuda.device(codes.device):
+        err = lib.seed_randstrobes_launch(
+            codes.data_ptr(), lengths.data_ptr(), N, L, k, s, t, w_min, w_max,
+            ctypes.c_uint64(q & ((1 << 64) - 1)), max_dist, M, ptr + 8,
+            ptr + at - 8 * N, ptr, ptr + at, ptr + scratch + 8 * N * M, ptr + scratch,
+            ptr + _tiles_at(N, M), torch.cuda.current_stream(codes.device).cuda_stream)
+    _check_launch(err, "seed_randstrobes")
+
+
 def seed_randstrobes(codes: torch.Tensor, lengths: torch.Tensor, k: int, s: int, t: int,
                      w_min: int, w_max: int, q: int, max_dist: int, M: int
-                     ) -> Tuple[torch.Tensor, ...]:
-    """codes (B, L) uint8 {0..3, 4 = N}, lengths (B,) int32 -> (hash (B,
-    2M) int64 with uint64 bits, start (B, 2M) int32, end (B, 2M) int32,
-    n_fwd (B,) int32, n_rc (B,) int32, tie (B,) bool), as
-    `seed_device.randstrobes_query_vec`. CPU tensors take that plain
-    version; CUDA tensors launch the kernel (L and M at most MAX_L)."""
+                     ) -> Tuple[torch.Tensor, int]:
+    """codes (N, L) uint8 {0..3, 4 = N}, lengths (N,) int32 (-1: longer
+    than L) -> (buffer, total): both strands' randstrobes of every read,
+    compacted, in a uint8 buffer whose arrays `seed_device.strobe_views`
+    gives (counts, offsets, and `total` strobes' hashes, starts, ends,
+    is_rev; the positions left to the lookup), as
+    `seed_device.seed_strobes_plain`. CPU tensors take that plain
+    version; CUDA tensors launch the kernel (L and M at most MAX_L) into
+    one allocation sized for N * 2M strobes and read the total back, the
+    one host sync."""
     global launches_seed
     if codes.dim() != 2 or codes.dtype != torch.uint8:
         raise ValueError(f"codes must be (B, L) uint8, got {tuple(codes.shape)} {codes.dtype}")
@@ -64,38 +105,31 @@ def seed_randstrobes(codes: torch.Tensor, lengths: torch.Tensor, k: int, s: int,
         raise ValueError(f"unsupported seeding parameters k={k} s={s} t={t} "
                          f"w_min={w_min} w_max={w_max} M={M}")
     if codes.device.type == "cpu":
-        return randstrobes_query_vec(codes, lengths, k, s, t, w_min, w_max, q, max_dist, M)
-    lib = _kernels(codes, "seed_randstrobes")
+        return seed_strobes_plain(codes, lengths, k, s, t, w_min, w_max, q, max_dist, M)
+    _kernels(codes, "seed_randstrobes")
     if L > MAX_L or M > MAX_L:
         raise ValueError(f"seed_randstrobes: the kernel takes L and M up to {MAX_L}, "
                          f"not {L} and {M}")
-    codes, lengths = codes.contiguous(), lengths.contiguous()
-    dev = codes.device
-    h = torch.empty((B, 2 * M), dtype=torch.int64, device=dev)
-    coords = torch.empty((2, B, 2 * M), dtype=torch.int32, device=dev)  # start, end
-    counts = torch.empty((2, B), dtype=torch.int32, device=dev)
-    tie = torch.empty(B, dtype=torch.bool, device=dev)
+    buf = seed_buffer(B, M, codes.device)
     if B == 0:
-        return h, coords[0], coords[1], counts[0], counts[1], tie
-    with torch.cuda.device(dev):
-        err = lib.seed_randstrobes_launch(
-            codes.data_ptr(), lengths.data_ptr(), B, L, k, s, t, w_min, w_max,
-            ctypes.c_uint64(q & ((1 << 64) - 1)), max_dist, M, h.data_ptr(),
-            coords[0].data_ptr(), coords[1].data_ptr(), counts[0].data_ptr(), counts[1].data_ptr(),
-            tie.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
-    _check_launch(err, "seed_randstrobes")
+        buf[:8].zero_()
+        return buf, 0
+    launch_seed_randstrobes(codes.contiguous(), lengths.contiguous(), k, s, t, w_min, w_max, q,
+                            max_dist, M, buf)
     with _count_lock:
         launches_seed += 1
-    return h, coords[0], coords[1], counts[0], counts[1], tie
+    return buf, int(buf[:8].view(torch.int64)[0])
 
 
 def index_find(index_hashes: torch.Tensor, bucket_starts: torch.Tensor, bits: int,
-               queries: torch.Tensor) -> torch.Tensor:
+               queries: torch.Tensor, out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The first position of each query's hash in the sorted index, or -1,
     with the bucket table's quirk, as `seed_device.index_find_device`.
     index_hashes (n,), bucket_starts (2**bits + 1,) and queries (any
-    shape) int64 with uint64 bits, on one device. CPU tensors take the
-    plain version; CUDA tensors launch the kernel, one thread a query."""
+    shape) int64 with uint64 bits, on one device; written into `out`
+    (int64, the queries' shape) when given, else a new tensor. CPU tensors
+    take the plain version; CUDA tensors launch the kernel, one thread a
+    query."""
     global launches_find
     for x in (index_hashes, bucket_starts, queries):
         if x.dtype != torch.int64 or x.device != queries.device:
@@ -103,11 +137,16 @@ def index_find(index_hashes: torch.Tensor, bucket_starts: torch.Tensor, bits: in
     if index_hashes.dim() != 1 or bucket_starts.shape != ((1 << bits) + 1,):
         raise ValueError(f"index_find: index_hashes (n,) and bucket_starts "
                          f"({(1 << bits) + 1},) expected")
+    if out is not None and (out.dtype != torch.int64 or out.shape != queries.shape or
+                            out.device != queries.device or not out.is_contiguous()):
+        raise ValueError("index_find: out must be a contiguous int64 tensor of the queries' "
+                         "shape on their device")
     if queries.device.type == "cpu":
-        return index_find_device(index_hashes, bucket_starts, bits, queries)
+        found = index_find_device(index_hashes, bucket_starts, bits, queries)
+        return found if out is None else out.copy_(found)
     lib = _kernels(queries, "index_find")
     hashes, buckets, q = (x.contiguous() for x in (index_hashes, bucket_starts, queries))
-    out = torch.empty_like(q)
+    out = torch.empty_like(q) if out is None else out
     if q.numel() == 0:
         return out
     with torch.cuda.device(q.device):

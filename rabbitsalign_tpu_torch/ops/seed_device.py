@@ -1,12 +1,14 @@
 """Device seeding for ``--device-seed``: both strands' randstrobes of a
-padded read batch and their index lookup, as plain PyTorch functions on
-tensors (the device is the tensors'), plus `seed_and_find`, which runs the
-two through their CUDA kernels (ops/seed_cuda.py) and compacts the result
-on the device for the engine's preseeded phase A.
+padded read batch, compacted, and their index lookup, as plain PyTorch
+functions on tensors (the device is the tensors'), plus `seed_and_find`,
+which runs the two through their CUDA kernels (ops/seed_cuda.py) into one
+buffer for the engine's preseeded phase A.
 
 Counterparts of rabbitsalign_tpu/ops/seed_device.py: `xxh64_u64` (:35),
 `randstrobes_query_vec` (:432), `index_find_device` (:239) and
-`seed_and_find` (:555). Their outputs equal the JAX functions' exactly.
+`seed_and_find` (:555, whose compaction is `compact_strobes`). Their
+outputs equal the JAX functions' exactly; `seed_and_find` writes its
+arrays into one buffer (`strobe_views`).
 
 torch has no unsigned 64-bit shifts, compares, searchsorted or popcount,
 so a uint64 is carried as the int64 with the same bits: addition,
@@ -215,34 +217,101 @@ def index_find_device(index_hashes: torch.Tensor, bucket_starts: torch.Tensor, b
     return torch.where(found, pos, -1)
 
 
+def compact_strobes(h: torch.Tensor, st: torch.Tensor, en: torch.Tensor, nf: torch.Tensor,
+                    nr: torch.Tensor, tie: torch.Tensor, lengths: torch.Tensor, M: int
+                    ) -> Tuple[torch.Tensor, ...]:
+    """The valid slots of `randstrobes_query_vec`'s output, in the layout
+    the engine's preseeded phase A reads (the compaction of the JAX
+    package's seed_and_find, :555). lengths (N,) int32, -1 for a read
+    longer than L. Returns (counts (N,) int32, -1 for a tie row or a long
+    read, which the engine seeds itself; offsets (N,) int64; hashes int64
+    with uint64 bits, starts int32, ends int32, is_rev uint8, one entry a
+    strobe: each read's forward strobes, then its reverse ones)."""
+    row_ok = ~(tie | (lengths < 0))
+    n_strobes = torch.where(row_ok, nf + nr, 0)
+    counts = torch.where(row_ok, nf + nr, -1).to(torch.int32)
+    offsets = torch.cumsum(n_strobes.to(I64), 0) - n_strobes
+    slot = torch.arange(2 * M, device=h.device)[None, :]
+    valid = torch.where(slot < M, slot < nf[:, None], slot - M < nr[:, None]) & row_ok[:, None]
+    idx = valid.flatten().nonzero().squeeze(1)
+    is_rev = (slot >= M).expand(valid.shape).flatten()[idx].to(torch.uint8)
+    return counts, offsets, h.flatten()[idx], st.flatten()[idx], en.flatten()[idx], is_rev
+
+
+def _a8(n: int) -> int:
+    return (n + 7) // 8 * 8
+
+
+def strobes_at(n_reads: int) -> int:
+    """Byte offset of the strobe sections in a seeding buffer: the total
+    (int64), counts (N,) int32 padded to 8 bytes and offsets (N,) int64
+    come first."""
+    return 8 + _a8(4 * n_reads) + 8 * n_reads
+
+
+def strobe_bytes(n_reads: int, total: int) -> int:
+    """Bytes of a seeding buffer that hold the arrays of `total` strobes:
+    the five sections (hashes, positions, starts, ends, is_rev) lie back
+    to back, 25 bytes a strobe."""
+    return strobes_at(n_reads) + 25 * total
+
+
+def strobe_views(buf: torch.Tensor, n_reads: int, total: int) -> Tuple[torch.Tensor, ...]:
+    """The arrays of a seeding buffer (uint8, on any device; the layout of
+    csrc/seed_randstrobes.cu): (counts (N,) int32, offsets (N,) int64,
+    hashes int64, starts int32, ends int32, is_rev uint8, positions
+    int64), views into `buf`, the strobe arrays `total` long, in the order
+    `chunk_a_fx_pre` takes them."""
+    at = strobes_at(n_reads)
+    c0 = 8
+    o0 = 8 + _a8(4 * n_reads)
+
+    def view(start: int, n: int, dtype: torch.dtype) -> torch.Tensor:
+        return buf[start:start + n * dtype.itemsize].view(dtype)
+
+    t = total
+    return (view(c0, n_reads, torch.int32), view(o0, n_reads, I64), view(at, t, I64),
+            view(at + 16 * t, t, torch.int32), view(at + 20 * t, t, torch.int32),
+            view(at + 24 * t, t, torch.uint8), view(at + 8 * t, t, I64))
+
+
+def seed_strobes_plain(codes: torch.Tensor, lengths: torch.Tensor, k: int, s: int, t: int,
+                       w_min: int, w_max: int, q: int, max_dist: int, M: int
+                       ) -> Tuple[torch.Tensor, int]:
+    """The plain version of csrc/seed_randstrobes.cu: `randstrobes_query_vec`
+    on the batch, then `compact_strobes`, written into a seeding buffer
+    (`strobe_views`) of `strobe_bytes` with the positions zero. codes
+    (N, L) uint8, lengths (N,) int32 (-1: longer than L). Returns
+    (buffer, total)."""
+    out = randstrobes_query_vec(codes, lengths.clamp(min=0), k, s, t, w_min, w_max, q,
+                                max_dist, M)
+    arrays = compact_strobes(*out, lengths, M)
+    n, total = codes.shape[0], arrays[2].numel()
+    buf = torch.zeros(strobe_bytes(n, total), dtype=torch.uint8, device=codes.device)
+    buf[:8].view(I64)[0] = total
+    for view, a in zip(strobe_views(buf, n, total), arrays):
+        view.copy_(a)
+    return buf, total
+
+
 def seed_and_find(codes: torch.Tensor, lengths: torch.Tensor, index_hashes: torch.Tensor,
                   bucket_starts: torch.Tensor, k: int, s: int, t: int, w_min: int, w_max: int,
-                  q: int, max_dist: int, M: int, bits: int) -> Tuple[torch.Tensor, ...]:
+                  q: int, max_dist: int, M: int, bits: int) -> Tuple[torch.Tensor, int]:
     """Device seeding and index lookup for one chunk (--device-seed), in
     the layout the engine's preseeded phase A reads.
 
     codes (N, L) uint8 and lengths (N,) int32 (-1: longer than L), as
     `NativeEngine.fx_codes` exports them, on the device of the resident
-    index arrays. The seeding kernel runs on the batch; the valid strobes
-    are compacted on the device (forward, then reverse, per read), and the
-    lookup kernel runs on those alone, so neither the lookup nor the copy
-    to the host carries the (N, 2M) slots. Returns (counts (N,) int32, -1
-    for a tie row or a read longer than L, which the engine seeds itself;
-    offsets (N,) int64; hashes int64 with uint64 bits, starts int32, ends
-    int32, is_rev uint8, positions int64, one entry per strobe). CPU
-    tensors take the plain versions."""
+    index arrays. The seeding kernel writes the counts, offsets and
+    compacted strobes into one buffer (the chunk's one host sync reads
+    their total), and the lookup kernel writes each strobe's index
+    position beside them. Returns (buffer, total): the buffer's first
+    `strobe_bytes(N, total)` bytes hold the arrays of `strobe_views`, so
+    one copy brings them to the host. CPU tensors take the plain
+    versions."""
     from .seed_cuda import index_find, seed_randstrobes
 
-    h, st, en, nf, nr, tie = seed_randstrobes(codes, lengths.clamp(min=0), k, s, t, w_min,
-                                              w_max, q, max_dist, M)
-    row_ok = ~(tie | (lengths < 0))
-    n_strobes = torch.where(row_ok, nf + nr, 0)
-    counts = torch.where(row_ok, nf + nr, -1).to(torch.int32)
-    offsets = torch.cumsum(n_strobes.to(I64), 0) - n_strobes
-    slot = torch.arange(2 * M, device=codes.device)[None, :]
-    valid = torch.where(slot < M, slot < nf[:, None], slot - M < nr[:, None]) & row_ok[:, None]
-    idx = valid.flatten().nonzero().squeeze(1)
-    hashes = h.flatten()[idx]
-    is_rev = (slot >= M).expand(valid.shape).flatten()[idx].to(torch.uint8)
-    positions = index_find(index_hashes, bucket_starts, bits, hashes)
-    return counts, offsets, hashes, st.flatten()[idx], en.flatten()[idx], is_rev, positions
+    buf, total = seed_randstrobes(codes, lengths, k, s, t, w_min, w_max, q, max_dist, M)
+    views = strobe_views(buf, codes.shape[0], total)
+    index_find(index_hashes, bucket_starts, bits, views[2], out=views[6])
+    return buf[:strobe_bytes(codes.shape[0], total)], total

@@ -34,24 +34,27 @@ def _counted() -> None:
 
 
 def find_runs(hashes: torch.Tensor, size: int, start: int, buckets: torch.Tensor, bits: int,
-              queries: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+              queries: torch.Tensor, top0: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
     """Search one shard for each query: (gpos, count) (nq,) int64, as
     `shard_find.find_runs_plain`. hashes (m,) int64 with the uint64 bits,
-    sorted as uint64, `size` real entries then padding; buckets (2**bits +
-    1,) int64, the global bucket table; queries (nq,) int64; on one
-    device. CPU tensors take the plain version; CUDA tensors launch the
-    kernel, one thread a query."""
+    sorted as uint64, `size` real entries then padding; buckets (nb,)
+    int64, rows top0 .. top0 + nb - 1 of the index's bucket table (the
+    whole table, 2**bits + 1 rows, with top0 = 0); queries (nq,) int64; on
+    one device. CPU tensors take the plain version; CUDA tensors launch
+    the kernel, one thread a query."""
     if hashes.dtype != torch.int64 or queries.dtype != torch.int64 or \
             buckets.dtype != torch.int64:
         raise ValueError("find_runs: int64 hashes, buckets and queries expected")
+    nb = buckets.shape[0] if buckets.dim() == 1 else 0
     if hashes.dim() != 1 or queries.dim() != 1 or not 0 <= size <= hashes.numel() or \
-            not hashes.numel() or buckets.shape != ((1 << bits) + 1,):
+            not hashes.numel() or not 2 <= nb <= (1 << bits) + 1 - top0 or top0 < 0:
         raise ValueError(f"find_runs: hashes (m,) with m > 0 and 0 <= size <= m, buckets "
-                         f"({(1 << bits) + 1},) and queries (nq,) expected")
+                         f"(nb,) with 2 <= nb <= {(1 << bits) + 1} - top0 and queries (nq,) "
+                         f"expected")
     if not hashes.device == buckets.device == queries.device:
         raise ValueError("find_runs: tensors on one device expected")
     if queries.device.type == "cpu":
-        return find_runs_plain(hashes, size, start, buckets, bits, queries)
+        return find_runs_plain(hashes, size, start, buckets, bits, queries, top0)
     lib = _kernels(queries, "find_runs")
     hashes, buckets, queries = (x.contiguous() for x in (hashes, buckets, queries))
     gpos = torch.empty_like(queries)
@@ -60,7 +63,7 @@ def find_runs(hashes: torch.Tensor, size: int, start: int, buckets: torch.Tensor
         return gpos, count
     with torch.cuda.device(queries.device):
         err = lib.find_runs_launch(
-            hashes.data_ptr(), hashes.shape[0], size, start, buckets.data_ptr(), bits,
+            hashes.data_ptr(), hashes.shape[0], size, start, buckets.data_ptr(), nb, bits, top0,
             queries.data_ptr(), queries.shape[0], gpos.data_ptr(), count.data_ptr(),
             torch.cuda.current_stream(queries.device).cuda_stream)
     _check_launch(err, "find_runs")
@@ -78,7 +81,7 @@ def gather_runs(positions: torch.Tensor, packed: torch.Tensor, gpos: torch.Tenso
     gpos, count (and dst, or None for row i * cap) (nq,) int64 from
     `find_runs`; out_pos and out_packed flat int32, long enough for every
     row written. CPU tensors take the plain version; CUDA tensors launch
-    the kernel, one warp a key, its lanes over the rows."""
+    the kernel, one thread a key (a warp for each run longer than 8 rows)."""
     nq = count.shape[0]
     if positions.dtype != torch.int32 or packed.dtype != torch.int32 or \
             out_pos.dtype != torch.int32 or out_packed.dtype != torch.int32:

@@ -21,20 +21,23 @@ from .seed_device import flip, lsr
 
 
 def find_runs_plain(hashes: torch.Tensor, size: int, start: int, buckets: torch.Tensor,
-                    bits: int, queries: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+                    bits: int, queries: torch.Tensor, top0: int = 0
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Search one shard: hashes (m,) sorted as uint64, its first `size`
     entries real and the rest 0xFF..F padding; `start` the global index of
-    its first entry; buckets (2**bits + 1,) the index's global bucket
-    table; queries (nq,). Returns (gpos, count), both (nq,) int64: the
-    global index of the key's first entry and the length of its run (over
-    the padded shard, as the JAX `local`), both 0 where the key is not
-    found. A key is found when its shard-wide lower bound holds it and lies
-    in its bucket's range, clipped to the shard's real entries: the JAX
-    package's reachable check, as buckets and shards start at runs."""
+    its first entry; buckets (nb,) rows top0 .. top0 + nb - 1 of the
+    index's global bucket table (all 2**bits + 1 with top0 = 0), a key's
+    row `top - top0` clipped to them; queries (nq,). Returns (gpos,
+    count), both (nq,) int64: the global index of the key's first entry
+    and the length of its run (over the padded shard, as the JAX `local`),
+    both 0 where the key is not found. A key is found when its shard-wide
+    lower bound holds it and lies in its bucket's range, clipped to the
+    shard's real entries: the JAX package's reachable check, as buckets
+    and shards start at runs."""
     fh, fq = flip(hashes), flip(queries)
     lo = torch.searchsorted(fh, fq)
     hi = torch.searchsorted(fh, fq, right=True)
-    top = lsr(queries, 64 - bits)
+    top = (lsr(queries, 64 - bits) - top0).clamp(0, buckets.shape[0] - 2)
     b_lo = buckets[top] - start
     b_hi = (buckets[top + 1] - start).clamp(max=size)
     in_b = (lo >= b_lo) & (lo < b_hi)

@@ -178,10 +178,11 @@ class PodShardedIndex:
     range. This host's keys are searched and gathered by the
     `ops/shard_cuda.py` pair `find_runs` and `gather_runs` (the kernel
     csrc/find_runs.cu, or its plain versions for CPU tensors) with the
-    slice's global start, so positions stay global, against the index's
-    global bucket table. Keys owned by another host go to it over a
-    persistent TCP connection, and a server thread answers the peers' keys
-    the same way, each connection on a CUDA stream of its own.
+    slice's global start, so positions stay global, against the rows of
+    the index's global bucket table that the slice's hashes span. Keys
+    owned by another host go to it over a persistent TCP connection, and a
+    server thread answers the peers' keys the same way, each connection on
+    a CUDA stream of its own.
 
     The wire protocol is the JAX package's: a request is the header
     ``<qqq`` (nq, cap, opcode 0) and nq uint64 keys; the reply is sparse:
@@ -220,9 +221,13 @@ class PodShardedIndex:
             k = np.array(index.packed[lo:hi], dtype=np.uint32)
         else:
             h, p, k = np.full(1, SENTINEL), np.zeros(1, np.uint32), np.zeros(1, np.uint32)
+        # the bucket table's rows of the slice's top-bits range only, as the
+        # JAX package trims it (~2**bits / N rows a host); top0 is the first
+        self.top0 = int(h[0]) >> (64 - self.bits) if hi > lo else 0
+        top_hi = int(h[-1]) >> (64 - self.bits) if hi > lo else 0
         with _UPLOAD_LOCK:
-            self._buckets = _put(
-                np.array(index.randstrobe_start_indices, np.uint64).view(np.int64), dev)
+            self._buckets = _put(np.array(index.randstrobe_start_indices[self.top0:top_hi + 2],
+                                          np.uint64).view(np.int64), dev)
             self._h = _put(h.view(np.int64), dev)
             self._p = _put(p.view(np.int32), dev)
             self._k = _put(k.view(np.int32), dev)
@@ -280,7 +285,8 @@ class PodShardedIndex:
             e = np.zeros(0, np.uint32)
             return np.zeros(0, np.uint8), np.zeros(0, np.int64), np.zeros(0, np.int64), e, e
         gpos, count = shard_cuda.find_runs(self._h, self.size, self.start, self._buckets,
-                                           self.bits, _put(keys.view(np.int64), self.device))
+                                           self.bits, _put(keys.view(np.int64), self.device),
+                                           self.top0)
         width = count.clamp(max=cap)
         ends = torch.cumsum(width, 0)
         n_rows = int(ends[-1])

@@ -49,7 +49,7 @@ import torch
 
 from ..native.engine import NativeEngine, NativeReader
 from ..ops.extend_device import extend_batch_packed_resident_q2, resident_ref_codes
-from ..ops.seed_device import seed_and_find
+from ..ops.seed_device import seed_and_find, strobe_views
 from ..ops.sw_cuda import SwParams
 from ..parallel.sharding import ShardedIndex, make_mesh
 from ..utils.logger import logger
@@ -245,19 +245,25 @@ class NativePipeline:
 
     def _preseed(self, fx, n_records: int, chunk_index: int):
         """Phase A of one reader chunk with its seeds and index hits from
-        the device: the chunk's codes go up, `seed_and_find` seeds, looks
-        up and compacts them there, and only the valid strobes come back,
-        in the arrays `chunk_a_fx_pre` reads (counts[i] = -1: the engine
-        seeds record i itself)."""
+        the device: the chunk's codes go up, `seed_and_find` seeds,
+        compacts and looks them up there into one buffer, and the arrays
+        `chunk_a_fx_pre` reads come back in one copy into pinned memory
+        (counts[i] = -1: the engine seeds record i itself)."""
         t0 = time.perf_counter()
         if self._seed_ix is None:
             self._seed_ix = _resident_seed_index(self._index, self.device)
         codes, lens = self.engine.fx_codes(fx, n_records, self.SEED_L)
         sp, rp = self._params.syncmer, self._params.randstrobe
-        out = seed_and_find(self._upload(codes), self._upload(lens), *self._seed_ix, sp.k, sp.s,
-                            sp.t_syncmer, rp.w_min, rp.w_max, rp.q, rp.max_dist, self.SEED_L,
-                            self._index.bits)
-        counts, offsets, hashes, starts, ends, is_rev, positions = (x.cpu().numpy() for x in out)
+        buf, total = seed_and_find(self._upload(codes), self._upload(lens), *self._seed_ix, sp.k,
+                                   sp.s, sp.t_syncmer, rp.w_min, rp.w_max, rp.q, rp.max_dist,
+                                   self.SEED_L, self._index.bits)
+        if buf.device.type == "cuda":  # the chunk's arrays back in one copy
+            host = torch.empty(buf.shape, dtype=torch.uint8, pin_memory=True)
+            host.copy_(buf, non_blocking=True)
+            torch.cuda.current_stream(buf.device).synchronize()
+            buf = host
+        counts, offsets, hashes, starts, ends, is_rev, positions = (
+            x.numpy() for x in strobe_views(buf, n_records, total))
         self.host_seeded += int((counts < 0).sum())
         self.device_seed_s += time.perf_counter() - t0
         return self.engine.chunk_a_fx_pre(

@@ -2,16 +2,22 @@
 the source list, the sources, the headers they include and the nvcc flags, so a library built from
 another list or other contents is rebuilt whatever the files' mtimes (an
 unpacked archive carries its commit's times). A stand-in nvcc records its
-calls; nothing is compiled. Also the test run's one build of the JAX
-package's engine (tests/torch_engine_cache.py), with a stand-in compiler."""
+calls; nothing is compiled. The port's engine the same way (its own copy of
+the sources, a digest stamp), and built for real from a copy of the port
+alone. Also the test run's one build of the JAX package's engine
+(tests/torch_engine_cache.py), with a stand-in compiler."""
 
 import os
+import shutil
+import subprocess
 import sys
 import threading
 import time
+from pathlib import Path
 
 import pytest
 
+from rabbitsalign_tpu_torch import native
 from rabbitsalign_tpu_torch.ops import cuda_build
 
 
@@ -79,6 +85,65 @@ def test_library_is_rebuilt_when_the_sources_change(fake_build, monkeypatch):
     assert builds() == 5
     assert sorted(p.name for p in build.iterdir()) == ["libsw_kernels.so",
                                                         "libsw_kernels.so.sha256"]
+
+
+def test_engine_is_rebuilt_when_its_sources_change(monkeypatch, tmp_path):
+    """The port's engine stamp: an edited source whose mtime goes back, or
+    other g++ flags, rebuild the library; an unchanged tree does not."""
+    src = tmp_path / "src"
+    src.mkdir()
+    for name in native.ENGINE_SOURCES:
+        (src / name).write_text(f"// {name}\n")
+    monkeypatch.setattr(native, "ENGINE_SRC_DIR", src)
+    monkeypatch.setenv("RABBITSALIGN_TPU_TORCH_CACHE", str(tmp_path / "cache"))
+    calls = []
+
+    def fake_compile(path, out):
+        calls.append(path.name)
+        out.write_text(f"built {len(calls)}")
+        return out
+
+    monkeypatch.setattr(native, "_compile", fake_compile)
+    lib = native.build_engine()
+    assert lib == tmp_path / "cache" / "engine.so" and calls == ["engine.cpp"]
+    assert (tmp_path / "cache" / "engine.so.sha256").read_text() == native.sources_digest()
+    native.build_engine()
+    assert len(calls) == 1  # up to date: not rebuilt
+    old = lib.stat().st_mtime - 3600
+    for name in native.ENGINE_SOURCES:  # each source, edited with its mtime set back
+        (src / name).write_text(f"// {name}, edited\n")
+        os.utime(src / name, (old, old))
+        native.build_engine()
+        native.build_engine()
+    assert len(calls) == 3
+    monkeypatch.setattr(native, "GXX_FLAGS", native.GXX_FLAGS + ("-g",))
+    native.build_engine()
+    assert len(calls) == 4 and lib.read_text() == "built 4"
+    assert sorted(p.name for p in lib.parent.iterdir()) == ["engine.lock", "engine.so",
+                                                            "engine.so.sha256"]
+
+
+def test_engine_builds_from_the_port_alone(tmp_path):
+    """The port's package copied alone, with nothing of the JAX package
+    beside it, builds and loads its engine (g++) into a fresh cache."""
+    root = Path(native.__file__).resolve().parents[1]
+    shutil.copytree(root, tmp_path / "rabbitsalign_tpu_torch",
+                    ignore=shutil.ignore_patterns("__pycache__", "build"))
+    assert not (tmp_path / "rabbitsalign_tpu").exists()
+    probe = ("import sys\n"
+             "from rabbitsalign_tpu_torch import native\n"
+             "lib = native.load_engine()\n"
+             "assert lib.engine_chunk_a_fx_pre and lib.engine_fx_seed_only\n"
+             "assert 'rabbitsalign_tpu' not in sys.modules and 'jax' not in sys.modules\n"
+             "print(native.ENGINE_SRC_DIR, native.build_engine())\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env.update(PYTHONPATH=str(tmp_path), RABBITSALIGN_TPU_TORCH_CACHE=str(tmp_path / "cache"))
+    res = subprocess.run([sys.executable, "-c", probe], cwd=tmp_path, env=env,
+                         capture_output=True, text=True, timeout=600)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert res.stdout.split() == [str(tmp_path / "rabbitsalign_tpu_torch" / "native"),
+                                  str(tmp_path / "cache" / "engine.so")]
+    assert (tmp_path / "cache" / "engine.so.sha256").is_file()
 
 
 @pytest.fixture

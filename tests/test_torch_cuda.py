@@ -24,6 +24,7 @@ from rabbitsalign_tpu_torch.ops.sw_cuda import SwParams
 
 from .torch_extend_cases import (READ_LEN, gap_pairs, mixed_pairs, q2_batch, revcomp, sim_read,
                                  write_fastq)
+from .torch_gather_lanes import RunsIndex
 from .torch_seed_cases import code_batch, edge_reads, sampled_reads
 
 
@@ -334,10 +335,13 @@ def _index_tensors(index, device):
 @pytest.mark.parametrize("B", [1, 33, 4096])
 @pytest.mark.parametrize("window", ["r150", "wide"])
 def test_seed_kernels_match_plain_versions(cuda, seed_world, B, window):
-    """Both seeding kernels against their plain versions on the card, every
-    output byte for byte (unused slots included): the edge reads first,
-    then reads of the genome; the lookup on the batch's valid strobes, the
-    smallest hash (unreachable: -1) and random misses."""
+    """Both seeding kernels against their plain versions on the card, byte
+    for byte: the seeding kernel's counts, offsets, total and compacted
+    strobes (the edge reads first, then reads of the genome; lengths -1
+    for reads over 256), with nothing written past the chunk's strobes in
+    its worst-case buffer; the lookup on those strobes, written into the
+    buffer's positions, the smallest hash (unreachable: -1) and random
+    misses."""
     from rabbitsalign_tpu_torch.index.params import IndexParameters
 
     genome, index = seed_world
@@ -346,32 +350,41 @@ def test_seed_kernels_match_plain_versions(cuda, seed_world, B, window):
     edge = edge_reads(B)
     reads = (edge + sampled_reads(genome, B, seed=B))[:B]
     codes, lens = (torch.from_numpy(a).to(cuda) for a in code_batch(reads))
-    lens = lens.clamp(min=0)
     args = _seed_args(params)
-    launches = seed_cuda.launches_seed
-    got = seed_cuda.seed_randstrobes(codes, lens, *args)
-    assert seed_cuda.launches_seed == launches + 1
-    want = seed_device.randstrobes_query_vec(codes, lens, *args)
-    for g, w in zip(got, want):
-        assert g.dtype == w.dtype and torch.equal(g, w)
-    if B >= 33:
-        assert got[5].any() and not got[5].all()  # tie rows and others
     M = args[-1]
-    slot = torch.arange(2 * M, device=cuda)[None, :]
-    valid = torch.where(slot < M, slot < got[3][:, None], slot - M < got[4][:, None])
+    launches = seed_cuda.launches_seed
+    buf, total = seed_cuda.seed_randstrobes(codes, lens, *args)
+    assert seed_cuda.launches_seed == launches + 1
+    want, want_total = seed_device.seed_strobes_plain(codes, lens, *args)
+    assert total == want_total
+    got_v, want_v = (seed_device.strobe_views(x, B, total) for x in (buf, want))
+    for g, w in zip(got_v[:6], want_v[:6]):  # the positions are the lookup's
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    counts = got_v[0]
+    if B >= 33:
+        assert (counts == -1).any() and (counts > 0).any()  # tie or long rows and others
+    # no (B, 2M) slot: past the chunk's strobes the buffer keeps its fill
+    filled = seed_cuda.seed_buffer(B, M, cuda).fill_(0xA5)
+    seed_cuda.launch_seed_randstrobes(codes, lens, *args, filled)
+    for g, w in zip(seed_device.strobe_views(filled, B, total)[:6], want_v[:6]):
+        assert torch.equal(g, w)
+    end = seed_device.strobe_bytes(B, total)
+    assert bool((filled[end:seed_cuda._scratch_at(B, M)] == 0xA5).all())
+
     hashes, buckets = _index_tensors(index, cuda)
     rng = np.random.RandomState(B)
     misses = torch.from_numpy(rng.randint(-(1 << 63), (1 << 63) - 1, 64, dtype=np.int64))
-    queries = torch.cat([got[0][valid], hashes[:1], misses.to(cuda)])
+    queries = torch.cat([got_v[2], hashes[:1], misses.to(cuda)])
     launches = seed_cuda.launches_find
     pos = seed_cuda.index_find(hashes, buckets, index.bits, queries)
     assert seed_cuda.launches_find == launches + 1
     assert torch.equal(pos, seed_device.index_find_device(hashes, buckets, index.bits, queries))
-    n = int(valid.sum())
-    assert int(pos[n]) == -1
+    assert int(pos[total]) == -1
+    in_buf = seed_cuda.index_find(hashes, buckets, index.bits, got_v[2], out=got_v[6])
+    assert in_buf.data_ptr() == got_v[6].data_ptr() and torch.equal(got_v[6], pos[:total])
     if window == "r150" and B > len(edge):  # most strobes of the genome's reads hit
-        of_genome = valid[len(edge):][valid[len(edge):]].numel()
-        assert int((pos[n - of_genome:n] >= 0).sum()) > of_genome // 2
+        of_genome = int(counts[len(edge):].clamp(min=0).sum())
+        assert int((pos[total - of_genome:total] >= 0).sum()) > of_genome // 2
 
 
 @pytest.mark.cuda
@@ -447,19 +460,22 @@ def _shard_keys(index, seed):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n_shards", [1, 4])
-@pytest.mark.parametrize("which", ["world", "sentinel"])
+@pytest.mark.parametrize("which", ["world", "sentinel", "runs"])
 def test_find_runs_kernels_match_plain_versions(cuda, seed_world, n_shards, which):
     """The find_runs.cu kernels against their plain versions, exact: the
     wrappers on one shard's CUDA tensors against the plain functions on
-    the same tensors, and a sharded index on cuda:0 (1 or 4 shards of the
-    one card) against the same index on the CPU: both dense lookups at the
-    filter cutoff and at cap 2 (runs longer than the cap), and the
-    compacted run records; with misses, the sentinel key and the smallest
-    hash."""
+    the same tensors (the gather at caps 3 and 40, dense, at the pod's
+    `ends - width` and compacted with keys skipped by dst < 0; runs of 1,
+    31, 32, 33 and over the cap rows), and a sharded index on cuda:0 (1
+    or 4 shards of the one card) against the same index on the CPU: both
+    dense lookups at the filter cutoff and at cap 2 (runs longer than the
+    cap), and the compacted run records; with misses, the sentinel key and
+    the smallest hash."""
     from rabbitsalign_tpu_torch.ops import shard_cuda, shard_find
     from rabbitsalign_tpu_torch.parallel.sharding import ShardedIndex, make_mesh
 
-    index = seed_world[1] if which == "world" else _SentinelIndex()
+    index = {"world": lambda: seed_world[1], "sentinel": _SentinelIndex,
+             "runs": RunsIndex}[which]()
     on_card = ShardedIndex(make_mesh(n_shards, "cuda"), index)
     on_cpu = ShardedIndex(make_mesh(n_shards, "cpu"), index)
     keys = _shard_keys(index, n_shards)
@@ -475,9 +491,11 @@ def test_find_runs_kernels_match_plain_versions(cuda, seed_world, n_shards, whic
     assert shard_cuda.launches_find_runs > launches
     if which == "world":
         assert (got["count"] > 2).any() and (got["run_off"] >= 0).sum() > 1000
-    else:
+    elif which == "sentinel":
         res = on_card.find_runs_routed(np.array([2**64 - 1], np.uint64), 30)
         assert res["position"][0] == 5 and res["count"][0] == 10
+    else:
+        assert {1, 31, 32, 33, 57, 120} <= set(got["count"].tolist())
 
     h, p, k = on_card._shards[0]
     search = (on_card.shard_sizes[0], on_card.starts[0], on_card._buckets, on_card.bits)
@@ -487,11 +505,18 @@ def test_find_runs_kernels_match_plain_versions(cuda, seed_world, n_shards, whic
     assert shard_cuda.launches_find_runs == launches + 1
     want = shard_find.find_runs_plain(h, *search, q)
     assert torch.equal(gpos, want[0]) and torch.equal(count, want[1])
-    outs = [torch.zeros(q.numel() * 3, dtype=torch.int32, device=cuda) for _ in range(4)]
-    shard_cuda.gather_runs(p, k, gpos, count, on_card.starts[0], 3, None, *outs[:2])
-    assert shard_cuda.launches_find_runs == launches + 2
-    shard_find.gather_runs_plain(p, k, gpos, count, on_card.starts[0], 3, None, *outs[2:])
-    assert torch.equal(outs[0], outs[2]) and torch.equal(outs[1], outs[3])
+    skip = torch.from_numpy(np.random.RandomState(n_shards).rand(q.numel()) < 0.3).to(cuda)
+    for cap in (3, 40):
+        width = count.clamp(max=cap)
+        ends = torch.cumsum(width, 0)
+        for dst in (None, ends - width, torch.where(skip, -1, ends - width)):
+            rows = q.numel() * cap if dst is None else max(int(ends[-1]), 1)
+            outs = [torch.zeros(rows, dtype=torch.int32, device=cuda) for _ in range(4)]
+            shard_cuda.gather_runs(p, k, gpos, count, on_card.starts[0], cap, dst, *outs[:2])
+            shard_find.gather_runs_plain(p, k, gpos, count, on_card.starts[0], cap, dst,
+                                         *outs[2:])
+            assert torch.equal(outs[0], outs[2]) and torch.equal(outs[1], outs[3])
+    assert shard_cuda.launches_find_runs == launches + 7
 
 
 @pytest.mark.cuda

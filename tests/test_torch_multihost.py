@@ -314,6 +314,23 @@ def test_empty_slices_are_empty(pods):
     assert pods["empty-first"][1][0]._h.numel() == 1
 
 
+def test_pod_bucket_table_is_trimmed(pods):
+    """Each host keeps only the bucket table's rows of its slice's top-bits
+    range, as the JAX pod does: the same length and first row, and the
+    same bounds once clipped to the slice."""
+    for case in POD_CASES:
+        index, port_pods, jax_pods, _ = pods[case]
+        for pod, jpod in zip(port_pods, jax_pods):
+            table = pod._buckets.numpy()
+            assert table.shape == jpod._bt.shape and pod.top0 == jpod._top0
+            lo = pod.start
+            np.testing.assert_array_equal(np.clip(table, lo, lo + pod.size) - lo, jpod._bt)
+    world = pods["world"][1]
+    full = (1 << world[0].bits) + 1
+    assert all(2 <= p._buckets.numel() < full for p in world)
+    assert sum(p._buckets.numel() for p in world) <= full + len(world)
+
+
 def test_pod_index_close_frees_its_ports(world_index):
     """close() ends the server and its connections: a new pod binds the
     same ports and answers across them again."""

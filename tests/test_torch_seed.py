@@ -29,6 +29,9 @@ from rabbitsalign_tpu_torch.seed import hash as phash
 from rabbitsalign_tpu_torch.seed import randstrobes as prs
 from rabbitsalign_tpu_torch.seed import syncmers as psy
 
+from . import torch_cuda_emu
+from .torch_seed_cases import code_batch, edge_reads, sampled_reads
+from .torch_seed_lanes import seed_lanes
 from .util import random_dna
 
 MP = {"A": 0, "C": 1, "G": 2, "T": 3}
@@ -143,9 +146,6 @@ def test_randstrobes_query_vec_matches_jax(case):
     jh, js, je, jnf, jnr, jtie = (np.asarray(x) for x in jsd.randstrobes_query_vec(
         jnp.asarray(codes), jnp.asarray(lens), *args))
     plain = psd.randstrobes_query_vec(torch.from_numpy(codes), torch.from_numpy(lens), *args)
-    wrapped = seed_cuda.seed_randstrobes(torch.from_numpy(codes), torch.from_numpy(lens), *args)
-    for a, b in zip(plain, wrapped):  # the wrapper takes the plain version on the CPU
-        assert torch.equal(a, b)
     ph, ps, pe, pnf, pnr, ptie = (x.numpy() for x in plain)
     assert np.array_equal(pnf, jnf) and np.array_equal(pnr, jnr) and np.array_equal(ptie, jtie)
     assert ph.dtype == np.int64 and ps.dtype == pe.dtype == pnf.dtype == np.int32
@@ -156,11 +156,101 @@ def test_randstrobes_query_vec_matches_jax(case):
     assert (ph[~valid] == 0).all() and (ps[~valid] == -1).all() and (pe[~valid] == -1).all()
     assert ptie.sum() < len(reads) // 2 and valid.sum() > 20 * len(reads)
     assert ptie.sum() > 0 or case == "wide-window"  # the mix's tandem repeats tie
+    # the seeding kernel's wrapper takes its plain version on the CPU: the
+    # JAX valid slots compacted, forward then reverse a read, tie rows out
+    buf, total = seed_cuda.seed_randstrobes(torch.from_numpy(codes), torch.from_numpy(lens), *args)
+    counts, offsets, hashes, starts, ends, is_rev, _ = (
+        x.numpy() for x in psd.strobe_views(buf, len(reads), total))
+    keep = valid & ~jtie[:, None]
+    want_counts = np.where(jtie, -1, jnf + jnr)
+    assert counts.dtype == np.int32 and np.array_equal(counts, want_counts)
+    assert offsets.dtype == np.int64
+    assert np.array_equal(offsets, np.cumsum(np.maximum(want_counts, 0)) - np.maximum(want_counts, 0))
+    assert total == keep.sum() == int(buf[:8].view(torch.int64)[0])
+    assert np.array_equal(hashes.view(np.uint64), jh[keep])
+    assert np.array_equal(starts, js[keep]) and np.array_equal(ends, je[keep])
+    assert np.array_equal(is_rev, np.broadcast_to(slot >= M, keep.shape)[keep].astype(np.uint8))
+    assert buf.numel() == psd.strobe_bytes(len(reads), total)
     # non-tie rows are the host's randstrobes
     for i in np.flatnonzero(~ptie):
         g = prs.randstrobes_query(reads[i], p)
         assert list(ph[i][valid[i]].view(np.uint64)) == list(g.hash)
         assert list(ps[i][valid[i]]) == list(g.start) and list(pe[i][valid[i]]) == list(g.end)
+
+
+@pytest.mark.parametrize("M", [256, 12])
+@pytest.mark.parametrize("window", ["r150", "wide"])
+def test_seed_lane_replay_matches_plain(window, M):
+    """The lane-by-lane replay of csrc/seed_randstrobes.cu (tests/
+    torch_seed_lanes.py: lane runs, rolled values, the warp scan, the
+    tiles' scan and offsets, the linking lanes) writes the bytes of
+    `seed_strobes_plain` on the edge reads (lengths 0 to 300, N's, tie
+    rows) and reads of a genome; with M = 12 < L - k + 1 the rows with
+    more than M syncmers are tie rows too."""
+    p = (IndexParameters.from_read_length(150) if window == "r150" else
+         IndexParameters.from_read_length(150, l=0, u=19, max_seed_len=255))
+    sp, rp = p.syncmer, p.randstrobe
+    args = (sp.k, sp.s, sp.t_syncmer, rp.w_min, rp.w_max, rp.q, rp.max_dist, M)
+    genome = random_dna(20000, seed=5).encode()
+    reads = edge_reads(2) + sampled_reads(genome, 40, seed=3) + [genome[:50], genome[:256]]
+    codes, lens = code_batch(reads)
+    got, total, lanes = seed_lanes(codes, lens, *args)
+    want, want_total = psd.seed_strobes_plain(torch.from_numpy(codes), torch.from_numpy(lens),
+                                              *args)
+    assert total == want_total > 0
+    assert np.array_equal(got, want.numpy())
+    counts = psd.strobe_views(want, len(reads), total)[0].numpy()
+    assert (counts == -1).sum() >= 3 and (counts > 0).any()
+    if M == 12:  # over M syncmers: tie rows
+        assert (counts[len(edge_reads(2)):] == -1).sum() > 30
+    else:
+        assert (counts > 0).sum() >= 30
+    ran = [ln for ln in lanes if ln is not None]
+    assert max(ln["per"] for ln in ran) == 8 and min(ln["per"] for ln in ran) == 1
+    assert max((ln["lane_counts"] > 0).sum() for ln in ran) > 16  # syncmers on many lanes
+
+
+@pytest.fixture(scope="module")
+def seed_emu(tmp_path_factory):
+    """csrc/seed_randstrobes.cu built for the host (tests/torch_cuda_emu.py)."""
+    from rabbitsalign_tpu_torch.ops import cuda_build
+
+    lib = torch_cuda_emu.build("seed_randstrobes", tmp_path_factory.mktemp("seed_emu"))
+    cuda_build.declare(lib, ("seed_randstrobes_launch",))
+    return lib
+
+
+@pytest.mark.parametrize("M", [256, 12])
+@pytest.mark.parametrize("window", ["r150", "wide"])
+def test_seed_kernel_source_on_host_matches_plain(seed_emu, window, M):
+    """The seeding kernel's own source, run on the host by the thread-a-lane
+    emulation, writes the bytes of `seed_strobes_plain` through the
+    wrapper's buffer layout (counts, offsets, total and strobes), and
+    nothing between the strobes and its scratch."""
+    import ctypes
+
+    p = (IndexParameters.from_read_length(150) if window == "r150" else
+         IndexParameters.from_read_length(150, l=0, u=19, max_seed_len=255))
+    sp, rp = p.syncmer, p.randstrobe
+    args = (sp.k, sp.s, sp.t_syncmer, rp.w_min, rp.w_max, rp.q, rp.max_dist, M)
+    genome = random_dna(20000, seed=6).encode()
+    reads = edge_reads(5) + sampled_reads(genome, 60, seed=4) + [genome[:40], genome[:70]]
+    codes, lens = (torch.from_numpy(a) for a in code_batch(reads))
+    N, L = codes.shape
+    want, total = psd.seed_strobes_plain(codes, lens, *args)
+    buf = seed_cuda.seed_buffer(N, M, "cpu").fill_(0xA5)
+    at, scratch = psd.strobes_at(N), seed_cuda._scratch_at(N, M)
+    ptr = buf.data_ptr()
+    assert seed_emu.seed_randstrobes_launch(
+        codes.data_ptr(), lens.data_ptr(), N, L, *args[:5], ctypes.c_uint64(args[5]), args[6], M,
+        ptr + 8, ptr + at - 8 * N, ptr, ptr + at, ptr + scratch + 8 * N * M, ptr + scratch,
+        ptr + seed_cuda._tiles_at(N, M), None) == 0
+    assert int(buf[:8].view(torch.int64)[0]) == total
+    for g, w in zip(psd.strobe_views(buf, N, total)[:6], psd.strobe_views(want, N, total)[:6]):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    assert bool((buf[psd.strobe_bytes(N, total):scratch] == 0xA5).all())
+    counts = psd.strobe_views(buf, N, total)[0]
+    assert (counts == -1).any() and (counts > 0).any()
 
 
 def _jax_index(genome: str, bits: int = -1):

@@ -26,7 +26,9 @@ from rabbitsalign_tpu_torch.map.common import MappingParameters
 from rabbitsalign_tpu_torch.parallel import sharding as psh
 from rabbitsalign_tpu_torch.pipeline import native_pipeline as pnp
 
+from . import torch_cuda_emu
 from .test_sharded_index import _repetitive_world
+from .torch_gather_lanes import K_WARP_RUN, RunsIndex, gather_lanes
 from .util import random_dna
 
 COMP = {"A": "T", "C": "G", "G": "C", "T": "A"}
@@ -189,6 +191,112 @@ def test_lookups_and_compaction_on_stub_indexes_match_jax(case):
         assert (port_si._start_hash == psh.SENTINEL).sum() > 1  # empty shards share it
         res = port_si.find_runs_routed(np.array([2**64 - 1], np.uint64), 30)
         assert res["position"][0] == 6 and res["count"][0] == 10  # found, with its run
+
+
+@pytest.mark.parametrize("layout", ["dense", "compacted", "dst<0"])
+@pytest.mark.parametrize("n_shards", [1, 3, 8])
+def test_gather_lane_replay_matches_plain(n_shards, layout):
+    """The lane-by-lane replay of gather_runs_kernel (tests/
+    torch_gather_lanes.py: short runs by their thread, long runs by the
+    warp) writes what `gather_runs_plain` writes, shard by shard, on the
+    random, sentinel and run-length stubs: the dense (NQ, cap) rows, the
+    compacted rows at an exclusive cumsum, and the same with some keys'
+    dst < 0 (skipped)."""
+    import torch
+
+    from rabbitsalign_tpu_torch.ops.shard_find import find_runs_plain, gather_runs_plain
+
+    rng = np.random.RandomState(n_shards)
+    cap = 40
+    stubs = [_random_stub(rng), _random_stub(rng), _sentinel_stub(), RunsIndex(cap)]
+    seen = {"thread_rows": 0, "warp_rows": 0}
+    for stub in stubs:
+        si = psh.ShardedIndex(psh.make_mesh(n_shards, "cpu"), stub)
+        keys = _keys(stub, rng)
+        q = torch.from_numpy(keys.view(np.int64))
+        for s in range(n_shards):
+            h, p, k = si._shards[s]
+            gpos, count = find_runs_plain(h, si.shard_sizes[s], si.starts[s], si._buckets,
+                                          si.bits, q)
+            n = count.clamp(max=cap)
+            if layout == "dense":
+                dst, rows = None, keys.size * cap
+            else:
+                dst = torch.cumsum(n, 0) - n
+                if layout == "dst<0":
+                    dst[torch.from_numpy(rng.rand(keys.size) < 0.3)] = -1
+                rows = max(int(n.sum()), 1)
+            want = [torch.zeros(rows, dtype=torch.int32) for _ in range(2)]
+            gather_runs_plain(p, k, gpos, count, si.starts[s], cap, dst, *want)
+            got = [np.zeros(rows, np.int32) for _ in range(2)]
+            st = gather_lanes(p.numpy(), k.numpy(), gpos.numpy(), count.numpy(), si.starts[s],
+                              cap, None if dst is None else dst.numpy(), *got)
+            for g, w in zip(got, want):
+                np.testing.assert_array_equal(g, w.numpy())
+            for key in seen:
+                seen[key] += st[key]
+    assert seen["thread_rows"] > 0 and seen["warp_rows"] > 2 * cap
+
+
+@pytest.fixture(scope="module")
+def runs_emu(tmp_path_factory):
+    """csrc/find_runs.cu built for the host (tests/torch_cuda_emu.py)."""
+    from rabbitsalign_tpu_torch.ops import cuda_build
+
+    lib = torch_cuda_emu.build("find_runs", tmp_path_factory.mktemp("runs_emu"))
+    cuda_build.declare(lib, ("find_runs_launch", "gather_runs_launch"))
+    return lib
+
+
+@pytest.mark.parametrize("n_shards", [1, 3])
+def test_find_runs_kernel_source_on_host_matches_plain(runs_emu, n_shards):
+    """find_runs.cu's own source, run on the host by the thread-a-lane
+    emulation: its search equals `find_runs_plain` with the whole bucket
+    table and with a table trimmed to rows top0 onwards, and its gather
+    `gather_runs_plain` at caps 3 and 40, dense, at the pod's offsets and
+    with keys skipped, on the random, sentinel and run-length stubs."""
+    import torch
+
+    from rabbitsalign_tpu_torch.ops.shard_find import find_runs_plain, gather_runs_plain
+
+    rng = np.random.RandomState(10 + n_shards)
+    for stub in (_random_stub(rng), _sentinel_stub(), RunsIndex(40)):
+        si = psh.ShardedIndex(psh.make_mesh(n_shards, "cpu"), stub)
+        q = torch.from_numpy(_keys(stub, rng).view(np.int64))
+        for s in range(n_shards):
+            h, p, k = si._shards[s]
+            size, start = si.shard_sizes[s], si.starts[s]
+            for top0 in (0, 1):
+                b = si._buckets[top0:].contiguous()
+                want = find_runs_plain(h, size, start, b, si.bits, q, top0)
+                got = [torch.empty_like(q), torch.empty_like(q)]
+                assert runs_emu.find_runs_launch(
+                    h.data_ptr(), h.numel(), size, start, b.data_ptr(), b.numel(), si.bits, top0,
+                    q.data_ptr(), q.numel(), got[0].data_ptr(), got[1].data_ptr(), None) == 0
+                assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+            gpos, count = want
+            for cap in (3, 40):
+                width = count.clamp(max=cap)
+                ends = torch.cumsum(width, 0)
+                for dst in (None, ends - width, torch.where(q % 3 == 0, -1, ends - width)):
+                    rows = q.numel() * cap if dst is None else max(int(ends[-1]), 1)
+                    outs = [torch.zeros(rows, dtype=torch.int32) for _ in range(4)]
+                    gather_runs_plain(p, k, gpos, count, start, cap, dst, *outs[:2])
+                    assert runs_emu.gather_runs_launch(
+                        p.data_ptr(), k.data_ptr(), gpos.data_ptr(), count.data_ptr(), start,
+                        None if dst is None else dst.data_ptr(), q.numel(), cap,
+                        outs[2].data_ptr(), outs[3].data_ptr(), None) == 0
+                    assert torch.equal(outs[0], outs[2]) and torch.equal(outs[1], outs[3])
+
+
+def test_run_stub_lengths():
+    """The run-length stub holds the runs the gather test needs: 1, 31,
+    32, 33 rows, runs past the cap, and short ones on either side of the
+    warp threshold."""
+    stub = RunsIndex(40)
+    _, lens = np.unique(stub.hashes, return_counts=True)
+    assert {1, 31, 32, 33, K_WARP_RUN, K_WARP_RUN + 1} <= set(lens.tolist())
+    assert (lens > 40).sum() == 2
 
 
 def _jax_compaction(jax_si, hashes):

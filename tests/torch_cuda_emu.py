@@ -1,0 +1,36 @@
+"""Build a CUDA source of rabbitsalign_tpu_torch/csrc for the host, over
+the thread-a-lane emulation of tests/torch_cuda_emu.h, into a shared
+library loaded with ctypes: each `kernel<<<grid, block, smem, stream>>>(...)`
+becomes `emu_launch(grid, block, smem, kernel, ...)` and the dynamic
+shared memory a buffer of the launch's size. g++ (C++20, for
+std::barrier) only; no CUDA."""
+
+import ctypes
+import re
+import subprocess
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parents[1] / "rabbitsalign_tpu_torch" / "csrc"
+HERE = Path(__file__).resolve().parent
+
+
+def _launch(m: re.Match) -> str:
+    cfg = [c.strip() for c in m.group(2).split(",")] + ["0"]
+    return f"emu_launch({cfg[0]}, {cfg[1]}, {cfg[2]}, {m.group(1)}, "
+
+
+def build(name: str, out_dir: Path) -> ctypes.CDLL:
+    """csrc/<name>.cu compiled for the host into out_dir, loaded."""
+    src = (CSRC / f"{name}.cu").read_text()
+    src = src.replace("#include <cuda_runtime.h>", '#include "torch_cuda_emu.h"')
+    src = src.replace("extern __shared__ __align__(16) unsigned char smem[];",
+                      "unsigned char* smem = g_smem;")
+    src = re.sub(r"(\w+)<<<(.*?)>>>\(", _launch, src, flags=re.S)
+    cpp, lib = out_dir / f"{name}_emu.cpp", out_dir / f"lib{name}_emu.so"
+    cpp.write_text(src)
+    res = subprocess.run(["g++", "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread",
+                          "-I", str(HERE), "-I", str(CSRC), str(cpp), "-o", str(lib)],
+                         capture_output=True, text=True, timeout=300)
+    if res.returncode:
+        raise RuntimeError(f"host build of {name}.cu failed:\n{res.stderr[-3000:]}")
+    return ctypes.CDLL(str(lib))

@@ -11,9 +11,9 @@ itself as tried, so that worker runs without the engine for the rest of
 its life: the tests it runs that need the engine fail ("native engine
 unavailable") or skip.
 
-`prebuild_jax_engine` compiles the library first, with the package's own
-g++ flags (the port's `native._compile`: a private temporary file renamed
-into place), under a file lock. The processes that wait find a complete
+`prebuild_jax_engine` compiles the library first from the JAX package's
+own sources, with its g++ flags (the port's `native._compile`: a private
+temporary file renamed into place), under a file lock. The processes that wait find a complete
 library newer than its sources, which the package's loader takes as it
 is. tests/test_torch_engine_cache/conftest.py calls it before any test
 module is collected.
@@ -24,7 +24,9 @@ import os
 import sys
 from pathlib import Path
 
-from rabbitsalign_tpu_torch.native import ENGINE_SOURCES, ENGINE_SRC_DIR, _compile
+from rabbitsalign_tpu_torch.native import ENGINE_SOURCES, _compile
+
+JAX_ENGINE_DIR = Path(__file__).resolve().parents[1] / "rabbitsalign_tpu" / "native"
 
 
 def jax_engine_path() -> Path:
@@ -44,7 +46,7 @@ def prebuild_jax_engine(compile_engine=_compile) -> bool:
     if os.environ.get("RABBITSALIGN_TPU_NO_NATIVE"):
         return False
     out = jax_engine_path()
-    newest = max((ENGINE_SRC_DIR / s).stat().st_mtime for s in ENGINE_SOURCES)
+    newest = max((JAX_ENGINE_DIR / s).stat().st_mtime for s in ENGINE_SOURCES)
 
     def fresh() -> bool:
         return out.exists() and out.stat().st_mtime >= newest
@@ -56,7 +58,7 @@ def prebuild_jax_engine(compile_engine=_compile) -> bool:
         with open(out.with_name("engine.lock"), "w") as lock:
             fcntl.flock(lock, fcntl.LOCK_EX)
             if not fresh():
-                compile_engine(ENGINE_SRC_DIR / ENGINE_SOURCES[0], out)
+                compile_engine(JAX_ENGINE_DIR / ENGINE_SOURCES[0], out)
     except (OSError, RuntimeError) as e:  # e.g. a cache that cannot be written
         print(f"tests: building {out} failed: {e}", file=sys.stderr)
         return False
