@@ -10,9 +10,11 @@ Phases, in order; any failure exits non-zero without the result line:
    limit (nvidia-smi), torch, CUDA and nvcc versions; g++ links -lz (the
    native engine needs zlib).
 2. Build: the CUDA kernels (csrc/, one nvcc per source, all started
-   together, for sm_90a; ptxas register, shared memory and spill lines;
-   any spill fails) and the native engine (g++), from the checkout's
-   sources; build times.
+   together, for sm_90a; ptxas register, shared memory and spill lines,
+   and each forward instantiation's registers and spills; a spill fails,
+   except in the split forward at R = 16 and 4 pairs a warp, which is
+   printed) and the native engine
+   (g++), from the checkout's sources; build times.
 3. Kernels against their plain PyTorch versions on the card, at each
    engine bucket shape at its production batch width, on planted, indel,
    N-run, tandem-repeat, junk, empty and >32-run pairs: forward outputs
@@ -24,10 +26,11 @@ Phases, in order; any failure exits non-zero without the result line:
    int32 kernel byte for byte at the same shapes; a span-violating
    scoring must stay on int32; the int16 probe kernel must equal its
    plain version exactly on seeded tiles with the int16 extremes. The
-   cross-pair ILP forward (`sw_forward_split`, 2 and 4 pairs per thread,
-   (Q, T, B) dirs) must equal its plain version and the production forward
-   (one warp per pair, (B, Q, T) dirs, read through `permute_dirs`) byte
-   for byte.
+   cross-pair ILP forward (`sw_forward_split`, 2 and 4 pairs a warp) must
+   equal its plain version and the production forward (one warp per pair)
+   byte for byte, dirs (B, Q, T) on valid cells. An empty kernel
+   (csrc/launch_floor.cu) is timed on the card at the probe's and the
+   traceback's grids: the floor of a launch that does no work.
    Kernel and plain times with CUDA events at the tight bucket, beside
    each kernel's bound (the larger of its bytes over 3.35 TB/s and its
    integer operations over the int32 rate) for this run's inputs. A
@@ -42,8 +45,11 @@ Phases, in order; any failure exits non-zero without the result line:
    timed there, and ns per step of the longest walk is printed.
 ILP. The ILP probe harness (tools/ilp_probe.py) as its user runs it, with
    the launch counts set to 0 before it: the split kernels held bit-exact
-   against the production kernel on the harness's inputs, then paired-slope
-   times at (152, 256) x 1024 for production, split2 and split4.
+   against the production kernel and (here) their plain versions on the
+   harness's inputs, then paired-slope
+   times at (152, 256) x 1024 for production, split2 and split4, and each
+   split's time over production's; then the three on the card, queued
+   behind a sleep kernel, in turns.
 Data. A 40 Mbp simulated genome (bench.py's generator), 240k x 150 bp SE
    reads and 120k x 2x150 bp PE pairs (24 chunks each, so each of 3 workers
    maps several); the index built once with `-i` (which also writes the
@@ -61,7 +67,10 @@ Seed. The seeding kernels of `--device-seed` against their plain PyTorch
    (the seeding also after an L2 flush and host-paced with its read of the
    total), plain times, the bound at this run's s-mers, syncmers and
    candidates, and for the lookup one `torch.searchsorted` over the
-   sign-flipped hashes as the library call.
+   sign-flipped hashes as the library call, the distinct 32-byte sectors
+   its queries touch (the bucket pair's, the binary search's and the
+   equality read's, replayed with torch ops) as a floor beside the bound,
+   and an empty kernel at the lookup's grid.
 Shard. The run lookup of `--shard-index` (csrc/find_runs.cu, a search
    bounded by the bucket table, then a compacting gather) on the 40 Mbp
    index cut into 1 and 4 shards of the one card: the three lookups of
@@ -269,12 +278,24 @@ def build():
     cuda_build.build_kernels(extra_flags=("-Xptxas", "-v"))
     say(f"CUDA kernels built in {cuda_build.build_seconds:.2f} s -> "
         f"{cuda_build.LIB_PATH.relative_to(ROOT)}")
-    spills = []
     for line in cuda_build.build_log.splitlines():
         if "registers" in line or "Compiling entry" in line or "spill" in line:
             say("  " + line.strip())
-        spills += [int(n) for n in re.findall(r"(\d+) bytes spill", line)]
-    check(not any(spills), "ptxas reports register spills")
+    entries = ptxas_entries(cuda_build.build_log)
+    for name, (regs, spill) in entries.items():
+        m = re.search(r"sw_forward_warp_kernelI([is])Li(\d+)EE", name)
+        if m:
+            say(f"sw_forward_warp_kernel<{'int32' if m.group(1) == 'i' else 'int16'}, "
+                f"R = {m.group(2)}>: {regs} registers, {spill} bytes spilled")
+        m = re.search(r"sw_forward_split_kernelILi(\d+)ELi(\d+)EE", name)
+        if m:
+            say(f"sw_forward_split_kernel<R = {m.group(1)}, PAIRS = {m.group(2)}>: {regs} "
+                f"registers, {spill} bytes spilled")
+    # the split forward (off the mapping path) at R = 16 and 4 pairs a
+    # warp spills: printed above, not a failure; any other spill is
+    spilled = [name for name, (_, spill) in entries.items()
+               if spill and "sw_forward_split_kernelILi16ELi4EE" not in name]
+    check(not spilled, f"ptxas reports register spills in {spilled}")
     # a fresh engine cache inside the checkout: always built from its sources
     os.environ["RABBITSALIGN_TPU_TORCH_CACHE"] = str(WORK / "engine_cache")
     from rabbitsalign_tpu_torch.native import build_engine
@@ -282,6 +303,39 @@ def build():
     t0 = time.perf_counter()
     path = build_engine()
     say(f"native engine built in {time.perf_counter() - t0:.2f} s -> {path.relative_to(ROOT)}")
+
+
+def ptxas_entries(log: str):
+    """{function: (registers, spill store + load bytes)} from the
+    `-Xptxas -v` lines of a build (each spill line is the function's named
+    just before it)."""
+    entries, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function '|Function properties for )([^'\s]+)", line)
+        if m:
+            name = m.group(1)
+            entries.setdefault(name, [0, 0])
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and name:
+            entries[name][1] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            entries[name][0] = int(m.group(1))
+    return {k: tuple(v) for k, v in entries.items()}
+
+
+def empty_ms(torch, blocks: int, threads: int) -> float:
+    """Milliseconds on the card of an empty kernel of `blocks` x `threads`
+    (csrc/launch_floor.cu): the fixed cost of a launch at that grid."""
+    from rabbitsalign_tpu_torch.ops.cuda_build import load_kernels
+
+    lib = load_kernels()
+
+    def call():
+        check(lib.empty_launch(blocks, threads, torch.cuda.current_stream().cuda_stream) == 0,
+              "the empty kernel's launch failed")
+
+    return device_ms(torch, call, 100)
 
 
 def time_ms(torch, fn, reps: int) -> float:
@@ -470,18 +524,17 @@ def kernels(torch, card):
             f"per 4-warp block) max_abs_err {e_f}, traceback (both epilogues) max_abs_err {e_t}, "
             f"fused output byte-equal {same}, int16 forward against plain int16 and int32 kernel "
             f"max_abs_err {e_16}, {n_aligned} pairs aligned, {n_overflow} over 32 runs")
-        # the cross-pair ILP forward ((Q, T, B) dirs): against its plain
-        # version and the production int32 kernel through permute_dirs
+        # the cross-pair ILP forward: against its plain version and the
+        # production int32 kernel, dirs (B, Q, T) on valid cells
         e_s = 0
-        valid_qtb = sw_cuda.permute_dirs(valid, "qtb")
-        k_qtb = torch.where(valid_qtb, sw_cuda.permute_dirs(k[3], "qtb"), 0)
+        k_valid = torch.where(valid, k[3], 0)
         for split in sw_cuda.SPLITS:
             ks = sw_cuda.sw_forward_split(q_t, t_t, qlen, tlen, sw, split)
             ps = sw_cuda.sw_forward_split_plain(q_t, t_t, qlen, tlen, sw, split)
-            e_s = max(e_s, max_abs_err(torch, list(zip(ks[:3], ps[:3])) + list(zip(ks[:3], k[:3])) + [
-                (torch.where(valid_qtb, ks[3], 0), ps[3]), (torch.where(valid_qtb, ks[3], 0),
-                                                            k_qtb)]))
-        say(f"bucket ({Q}, {T}) B={B}: split forward (2 and 4 pairs per thread) against its "
+            ks_valid = torch.where(valid, ks[3], 0)
+            e_s = max(e_s, max_abs_err(torch, list(zip(ks[:3], ps[:3])) + list(zip(ks[:3], k[:3]))
+                                       + [(ks_valid, ps[3]), (ks_valid, k_valid)]))
+        say(f"bucket ({Q}, {T}) B={B}: split forward (2 and 4 pairs a warp) against its "
             f"plain version and the production kernel max_abs_err {e_s}")
         check(e_f == 0 and e_t == 0 and same and e_16 == 0 and e_s == 0,
               f"kernel and plain version disagree at ({Q}, {T})")
@@ -512,8 +565,13 @@ def kernels(torch, card):
                 q_t, t_t, qlen, tlen, sw, split), 20) for split in sw_cuda.SPLITS}
             times["sw_forward_split"] = (split_ms[2], time_ms(
                 torch, lambda: sw_cuda.sw_forward_split_plain(q_t, t_t, qlen, tlen, sw, 2), 3))
-            say(f"sw_forward_split at ({Q}, {T}) B={B}: 4 pairs per thread {split_ms[4]:.4f} ms "
-                f"({split_ms[4] * 1e3 / B:.4f} us/pair) [{card}]")
+            say(f"sw_forward_split at ({Q}, {T}) B={B}: 4 pairs a warp {split_ms[4]:.4f} ms "
+                f"({split_ms[4] * 1e3 / B:.4f} us/pair); split2 / production "
+                f"{split_ms[2] / times['sw_forward'][0]:.3f}, split4 / production "
+                f"{split_ms[4] / times['sw_forward'][0]:.3f} [{card}]")
+            tb_floor = empty_ms(torch, (B + 3) // 4, 128)
+            say(f"empty kernel at the traceback's grid ({(B + 3) // 4} blocks x 128 threads): "
+                f"{tb_floor:.4f} ms on the card [{card}]")
             def fused_call():
                 return px.extend_batch_packed_resident_q2(buf, ref, Q, T, sw, bcap)
 
@@ -542,9 +600,12 @@ def kernels(torch, card):
                             time_ms(torch, lambda: probe.int16_probe_plain(a), 100))
     bounds["int16_probe"] = bound(2 * a.numel() * a.element_size(),
                                   OPS_PER_PROBE_ELEM * a.numel())
+    probe_floor = empty_ms(torch, (a.numel() + 255) // 256, 256)
     say(f"int16 probe {tuple(a.shape)}: kernel equals plain (max_abs_err 0) on 3 seeded tiles; "
         f"kernel {times['int16_probe'][0]:.4f} ms, plain {times['int16_probe'][1]:.4f} ms, "
-        f"bound {bounds['int16_probe'][0]:.6f} ms [{card}]")
+        f"bound {bounds['int16_probe'][0]:.6f} ms; an empty kernel at its grid "
+        f"({(a.numel() + 255) // 256} blocks x 256 threads) {probe_floor:.4f} ms, at one block "
+        f"of 32 threads {empty_ms(torch, 1, 32):.4f} ms [{card}]")
     return err, times, bounds
 
 
@@ -556,13 +617,37 @@ def ilp(torch, card):
 
     with sw16(None):
         sw_cuda.launches_split = 0
-        medians = ilp_probe.run(card, tuple(x.to(DEVICE) for x in ilp_probe.probe_inputs()))
+        inputs = tuple(x.to(DEVICE) for x in ilp_probe.probe_inputs())
+        medians = ilp_probe.run(card, inputs)
         torch.cuda.synchronize()
         launches = sw_cuda.launches_split
+        # each split against its plain version on the harness's inputs
+        # (check_exact held it to production), tolerance 0
+        q_t, t_t, qlen, tlen = inputs
+        valid = sw_cuda.valid_cells(qlen, tlen, q_t.shape[0], t_t.shape[0])
+        for split in sw_cuda.SPLITS:
+            ks = sw_cuda.sw_forward_split(*inputs, ilp_probe.PARAMS, split)
+            ps = sw_cuda.sw_forward_split_plain(*inputs, ilp_probe.PARAMS, split)
+            e = max_abs_err(torch, list(zip(ks[:3], ps[:3])) + [(torch.where(valid, ks[3], 0),
+                                                                 ps[3])])
+            check(e == 0, f"ILP probe inputs: split {split} differs from its plain version ({e})")
+        say(f"ILP probe inputs: split2 and split4 equal to their plain versions (max_abs_err 0) "
+            f"and to production [{card}]")
+        # the same three on the card, queued behind a sleep kernel (the
+        # paired slopes are paced by the host's chained launches), in turns
+        on_card = {tag: [] for tag in ilp_probe.VARIANTS}
+        for tag in ilp_probe.VARIANTS + ilp_probe.VARIANTS[::-1]:
+            fn = ilp_probe._variant(tag)
+            on_card[tag].append(device_ms(torch, lambda: fn(*inputs), 20))
     check(launches > 0, "the ILP probe never launched the split kernel")
     say(f"ILP probe: sw_forward_split launched {launches} times; split2 / production "
         f"{medians['split2'] / medians['production']:.3f}, split4 / production "
         f"{medians['split4'] / medians['production']:.3f} [{card}]")
+    prod = sum(on_card["production"]) / 2
+    say("ILP probe inputs on the card (ms, in turns there and back): " + ", ".join(
+        f"{tag} {a:.4f} / {b:.4f}" for tag, (a, b) in on_card.items())
+        + f"; split2 / production {sum(on_card['split2']) / 2 / prod:.3f}, split4 / production "
+        f"{sum(on_card['split4']) / 2 / prod:.3f} [{card}]")
     return launches
 
 
@@ -695,6 +780,32 @@ def lookup_probes(torch, h, size: int, start: int, buckets, bits: int, q):
         same = h[mid.clamp(max=m - 1)] == q
         a, b = torch.where(act & same, mid + 1, a), torch.where(act & ~same, mid, b)
     return steps, int(eq.sum()), gallop
+
+
+def find_sectors(torch, h, buckets, bits: int, q) -> int:
+    """The distinct 32-byte sectors that index_find reads for the queries
+    q, replayed with torch ops and summed over the queries: each query's
+    bucket pair (8-byte rows of the table), the binary search over its
+    bucket (csrc/bucket_search.cuh) and the equality read. Allocations
+    start at 256-byte boundaries, so row i lies in sector i // 4."""
+    from rabbitsalign_tpu_torch.ops.seed_device import flip, lsr
+
+    n = h.numel()
+    fh, fq = flip(h), flip(q)
+    top = lsr(q, 64 - bits)
+    lo, hi = buckets[top], buckets[top + 1].clamp(max=n)
+    a, b = lo.clone(), hi.clone()
+    cols = []  # sector ids of the hash array, -1 for no read
+    while bool((act := a < b).any()):
+        mid = a + ((b - a) >> 1)
+        cols.append(torch.where(act, mid // 4, -1))
+        less = fh[mid.clamp(max=n - 1)] < fq
+        a, b = torch.where(act & less, mid + 1, a), torch.where(act & ~less, mid, b)
+    cols.append(torch.where(a < hi, a // 4, -1))  # the equality read
+    ids = torch.stack(cols, 1).sort(dim=1).values
+    fresh = torch.cat([ids[:, :1] >= 0, (ids[:, 1:] != ids[:, :-1]) & (ids[:, 1:] >= 0)], 1)
+    pair = 1 + (top // 4 != (top + 1) // 4).long()
+    return int(fresh.sum()) + int(pair.sum())
 
 
 def load_index(ref):
@@ -850,6 +961,16 @@ def seed_kernels(torch, card, index, se_fastq):
         f"{find_ms:.4f} ms after an L2 flush (flush alone {flush_ms:.4f} ms), {warm_ms:.4f} ms "
         f"back to back; torch.searchsorted over the sign-flipped hashes "
         f"{library['index_find']:.4f} ms after a flush, {library_warm:.4f} ms back to back [{card}]")
+    # the sectors the lookup moves: each query's distinct 32-byte sectors,
+    # beside its 8 bytes in and 8 out (coalesced); and an empty kernel at a
+    # grid of a thread a query and at the kernel's (two queries a thread)
+    n_sec = find_sectors(torch, hashes, buckets, bits, chunk_q)
+    floor_ms = (32 * n_sec + 16 * nq) / HBM_BYTES_PER_S * 1e3
+    grids = ((nq + 255) // 256, (nq + 511) // 512)
+    say(f"index_find sectors of {nq} queries: {n_sec} 32-byte sectors ({n_sec / nq:.3f} a "
+        f"query), a floor of {floor_ms:.6f} ms (bound {bounds['index_find'][0]:.6f} ms) [{card}]")
+    say(f"empty kernel of {grids[0]} x 256 threads {empty_ms(torch, grids[0], 256):.4f} ms, of "
+        f"{grids[1]} x 256 {empty_ms(torch, grids[1], 256):.4f} ms on the card [{card}]")
     return err, times, bounds, library
 
 

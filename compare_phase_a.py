@@ -7,6 +7,8 @@ index as one shard. For each checkout, in a process of its own:
   * the run lookup (`shard_cuda.find_runs` and `gather_runs`): search and
     gather together and each alone, after an L2 flush and back to back, on
     the card (calls queued behind a sleep kernel);
+  * the index lookup (`seed_cuda.index_find`) of the chunk's host-seeded
+    strobes, after an L2 flush and back to back, on the card;
   * the seeding kernel on the card, back to back and after a flush, and
     `seed_device.seed_and_find` with the copy of its arrays to the host,
     host-paced (as `_preseed` makes it); for a checkout whose seeding kernel
@@ -50,7 +52,8 @@ def make_inputs() -> Path:
     codes, lens = code_batch(chunk)
     sp, rp = index.parameters.syncmer, index.parameters.randstrobe
     out = WORK / "inputs.npz"
-    np.savez(out, keys=keys.view(np.int64), hashes=index.hashes.view(np.int64),
+    np.savez(out, keys=keys.view(np.int64), n_strobes=strobes.size,
+             hashes=index.hashes.view(np.int64),
              positions=index.positions.view(np.int32), packed=index.packed.view(np.int32),
              buckets=np.asarray(index.randstrobe_start_indices, np.uint64).view(np.int64),
              bits=index.bits, fc=index.filter_cutoff, codes=codes, lens=lens,
@@ -151,6 +154,13 @@ def measure(tree: Path, inputs: Path, tag: str) -> dict:
            "gather_cold": device_ms(lambda: (flush(), gather())) - flush_ms,
            "find_runs_warm": device_ms(lookup), "search_warm": device_ms(search),
            "gather_warm": device_ms(gather), "find_runs_kernels_us": kernel_us(lookup)}
+    strobes = q[:int(d["n_strobes"])]
+
+    def find():
+        seed_cuda.index_find(h, b, bits, strobes)
+
+    res.update(index_find_cold=device_ms(lambda: (flush(), find())) - flush_ms,
+               index_find_warm=device_ms(find), index_find_kernels_us=kernel_us(find))
 
     if hasattr(seed_cuda, "launch_seed_randstrobes"):  # compacted strobes in one buffer
         buf = seed_cuda.seed_buffer(codes.shape[0], args[-1], dev)

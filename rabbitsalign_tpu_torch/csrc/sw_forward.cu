@@ -61,10 +61,33 @@
 // keeps every passed value in range, so wherever it holds the int16
 // outputs equal the int32 ones byte for byte.
 //
-// sw_forward_split_kernel below walks each pair row by row on one thread,
-// 2 or 4 pairs per thread, with the previous row's H and E in device memory
-// and dirs in the (Q, T, B) layout (the cross-pair ILP probe; not on the
-// mapping path).
+// sw_forward_split_kernel<R, PAIRS> below is the cross-pair ILP variant
+// (sw_forward_split_launch, int32; not on the mapping path). It replaces
+// the Pallas kernel of tests/sanitize/ilp_probe.py (`make_variant(SPLIT)`
+// :33 -> `_kernel_split` :42, pallas_call :162), which splits the batch
+// into SPLIT lane groups and interleaves their anti-diagonal recurrences
+// in one step. Here one warp holds PAIRS = 2 or 4 pairs, warp w the pairs
+// w + p * (B / PAIRS) (the column groups of `_kernel_split`), with the
+// production design for each: R rows a lane in registers, column s - l of
+// every pair at step s, a shuffle chain a pair, a ring of direction bytes
+// and the staged target codes in shared memory for each (a block holds 4 /
+// PAIRS warps: the same 4 pairs and bytes as a production block), dirs
+// (B, Q, T) in the same 16-byte stores, the same best-cell reduction; its
+// outputs equal the int32 warp kernel's byte for byte on valid cells. The
+// pairs' chains are independent, and every lane computes every step
+// (`lane_column`: selects keep an idle lane's state), so a step's cells of
+// all pairs form one basic block and the scheduler can put one pair's
+// shuffle and DPX latency under another's arithmetic: the Hopper
+// counterpart of the interleaved lane groups. What that costs: 2R + 3
+// selects a pair and step, and the steps of the warp's longest pair for
+// all of them. What it tests: whether a warp with 2 or 4 chains runs
+// faster than as many warps with one (tools/ilp_probe.py; PERF.md).
+// It is a kernel of its own, sharing sw_cell, flush_block and the ring
+// layout, because as one template with the production kernel (PAIRS = 1)
+// ptxas gave the production kernels 72 registers at R = 5 instead of 70,
+// and in one arrangement spilled 12 bytes at R = 8. ptxas registers and
+// spills of every instantiation are printed by chip_smoke.py phase 2 (at R
+// = 16 the split spills).
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -107,17 +130,6 @@ __device__ __forceinline__ Cell sw_cell(int qc, int tc, int h_diag, int h_up, in
     const int src = H == 0 ? 0 : (H == dsub ? 1 : (E > F ? 2 : 3));
     // bit 4: raw code equality, so N against N walks as '='
     return {H, E, F, src | ((E == e_ext) << 2) | ((F == f_ext) << 3) | ((qc == tc) << 4)};
-}
-
-// A finished row folds into the pair's result: max score, then min t,
-// then min q (rows come in increasing q, so a tie on both keeps the first)
-__device__ __forceinline__ void fold_row(int row_h, int row_t, int q, int& best_h,
-                                         int& best_t, int& best_q) {
-    if (row_h > best_h || (row_h == best_h && row_t < best_t)) {
-        best_h = row_h;
-        best_t = row_t;
-        best_q = q;
-    }
 }
 
 constexpr unsigned kFull = 0xffffffffu;
@@ -273,128 +285,185 @@ __global__ void __launch_bounds__(kWarps * 32) sw_forward_warp_kernel(
     }
 }
 
-// Cross-pair ILP forward, int32: each thread walks its pairs' rows in
-// order (q outer, t inner), the previous row's H and E in (T, B) scratch in
-// device memory, with PAIRS pairs on each thread. Replaces the Pallas kernel of
-// tests/sanitize/ilp_probe.py (`make_variant(SPLIT)` -> `_kernel_split`),
-// which splits the batch into SPLIT lane groups and interleaves their
-// diagonal recurrences in one step. Here thread i carries the pairs
-// i + s * (B / PAIRS), s < PAIRS (group s is columns [s*B/PAIRS,
-// (s+1)*B/PAIRS), as in `_kernel_split`), so each of a warp's PAIRS loads
-// and stores per cell step stays coalesced. The pairs' cells are
-// interleaved one step at a time over the largest qlen and tlen of the
-// thread: all PAIRS loads first, then the PAIRS independent cell updates,
-// then the stores, so the loads overlap and the compiler never has to
-// prove that two pairs' scratch words differ. A cell outside a pair's
-// valid region does nothing for that pair: no dirs or scratch write, no
-// row best, no fold. dirs are (Q, T, B); outputs equal
-// sw_forward_warp_kernel<int32_t, R>'s byte for byte on valid cells, its
-// dirs read through ops/sw_cuda.py:permute_dirs.
-//
-// Block size: one warp. The kernel is bound by latency (each pair is a
-// chain of dependent cells whose scratch loads come from L2), so the
-// B / PAIRS threads are spread over as many SMs as possible, one warp each:
-// at (152, 256) x 1024 that is 16 SMs for PAIRS = 2 and 8 for PAIRS = 4,
-// where 128-thread blocks would give 4 and 2. A warp's row scratch (32 x
-// PAIRS x T x 8 bytes, 128 KiB at PAIRS = 2, T = 256) then has an SM's L1
-// to itself.
-constexpr int kSplitThreads = 32;
+// The DP state one lane of the split kernel keeps for one pair: per row
+// its query code and the H and F of column t-1; H of the row above at
+// column t-1 (the diagonal of the lane's first row); its bottom row's H and
+// E at its last column, which the next lane reads; and its best cell.
+template <int R>
+struct LaneState {
+    int qc[R], h_left[R], f_left[R];
+    int h_top, out_h, out_e;
+    int best_h, best_t, best_q;
+};
 
-template <int PAIRS>
-__global__ void __launch_bounds__(kSplitThreads) sw_forward_split_kernel(
+// Column t of the lane's R rows of one pair, top to bottom, from the H and
+// E of the row above at column t (h_up, e_up), as the production kernel's
+// step computes them; each cell's byte goes to `col`, the lane's ring slot
+// of column t. Every lane calls it at every step, and `on` (the lane is
+// busy and t lies in [0, tl)) decides by selects whether the state takes
+// the results, so that a step's cells of all the warp's pairs form one
+// basic block. An idle lane's bytes land in ring slots that no flush reads
+// before the lane's next real write there.
+template <int R>
+__device__ __forceinline__ void lane_column(LaneState<R>& st, int h_up, int e_up, int tc, int t,
+                                            bool on, int rows, int q0, uint8_t* col, int A,
+                                            int Bm, int O, int Eg) {
+    int h_diag = st.h_top;
+    st.h_top = on ? h_up : st.h_top;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+        const Cell c = sw_cell(st.qc[r], tc, h_diag, h_up, e_up, st.h_left[r], st.f_left[r], A,
+                               Bm, O, Eg);
+        col[r * kRing] = (uint8_t)c.dir;
+        if (on && r < rows && c.H > st.best_h) {  // strict: smallest t, then q
+            st.best_h = c.H;
+            st.best_t = t;
+            st.best_q = q0 + r;
+        }
+        h_diag = st.h_left[r];
+        st.h_left[r] = on ? c.H : st.h_left[r];
+        st.f_left[r] = on ? c.F : st.f_left[r];
+        h_up = c.H;
+        e_up = c.E;
+    }
+    st.out_h = on ? h_up : st.out_h;
+    st.out_e = on ? e_up : st.out_e;
+}
+
+// H and E of row q0 - 1 at column t: lane - 1's bottom row, last step
+// (row -1 on lane 0)
+__device__ __forceinline__ void row_above(int out_h, int out_e, int lane, int& h_up, int& e_up) {
+    h_up = __shfl_up_sync(kFull, out_h, 1);
+    e_up = __shfl_up_sync(kFull, out_e, 1);
+    if (lane == 0) {
+        h_up = 0;
+        e_up = NegInf<int32_t>::value;
+    }
+}
+
+// The cross-pair ILP forward, int32: one warp for PAIRS pairs, pair p of
+// warp w being w + p * (B / PAIRS), the column groups of `_kernel_split`.
+// A block holds kWarps pairs (kWarps / PAIRS warps), so its shared memory
+// is the production block's.
+template <int R, int PAIRS>
+__global__ void __launch_bounds__(kWarps / PAIRS * 32) sw_forward_split_kernel(
     const uint8_t* __restrict__ q_t, const uint8_t* __restrict__ t_t,
-    const int32_t* __restrict__ qlen, const int32_t* __restrict__ tlen, int Q, int T,
-    int B, int A, int Bm, int O, int Eg, uint8_t* __restrict__ dirs,
-    int32_t* __restrict__ h_row, int32_t* __restrict__ e_row,
-    int32_t* __restrict__ score, int32_t* __restrict__ t_end,
-    int32_t* __restrict__ q_end) {
+    const int32_t* __restrict__ qlen, const int32_t* __restrict__ tlen, int Q, int T, int B,
+    int A, int Bm, int O, int Eg, uint8_t* __restrict__ dirs, int32_t* __restrict__ score,
+    int32_t* __restrict__ t_end, int32_t* __restrict__ q_end) {
     constexpr int kNeg = NegInf<int32_t>::value;
+    constexpr int kLane = R * kRing + kLanePad;
+    constexpr int kBlockWarps = kWarps / PAIRS;
+    extern __shared__ __align__(16) uint8_t smem[];
+    const int lane = threadIdx.x & 31;
     const int Bp = B / PAIRS;
-    const int i = blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= Bp) return;
+    const int w = blockIdx.x * kBlockWarps + (threadIdx.x >> 5);
+    if (w >= Bp) return;  // the whole warp
+    uint8_t* wsmem = smem + (threadIdx.x >> 5) * PAIRS * warp_smem(R, T);
     const size_t sB = (size_t)B;
-    int b[PAIRS], ql[PAIRS], tl[PAIRS];
-    int q_max = 0, t_max = 0;
+    const int q0 = lane * R;
+    LaneState<R> st[PAIRS];
+    int b[PAIRS], ql[PAIRS], tl[PAIRS], rows[PAIRS];
+    bool busy[PAIRS];
+    uint8_t *ring[PAIRS], *tcode[PAIRS], *my_rows[PAIRS], *out[PAIRS];
+    int steps = 0;
 #pragma unroll
-    for (int s = 0; s < PAIRS; ++s) {
-        b[s] = i + s * Bp;
-        ql[s] = max(0, min(qlen[b[s]], Q));
-        tl[s] = max(0, min(tlen[b[s]], T));
-        q_max = max(q_max, ql[s]);
-        t_max = max(t_max, tl[s]);
+    for (int p = 0; p < PAIRS; ++p) {
+        b[p] = w + p * Bp;
+        ring[p] = wsmem + p * warp_smem(R, T);
+        tcode[p] = ring[p] + 32 * kLane;
+        ql[p] = max(0, min(qlen[b[p]], Q));
+        tl[p] = max(0, min(tlen[b[p]], T));
+        for (int t = lane; t < tl[p]; t += 32) tcode[p][t] = t_t[t * sB + b[p]];
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+            st[p].qc[r] = q0 + r < ql[p] ? q_t[(q0 + r) * sB + b[p]] : 4;
+            st[p].h_left[r] = 0;
+            st[p].f_left[r] = kNeg;
+        }
     }
-    for (int t = 0; t < t_max; ++t) {
+    __syncwarp();
 #pragma unroll
-        for (int s = 0; s < PAIRS; ++s) {
-            if (t < tl[s]) {
-                h_row[t * sB + b[s]] = 0;
-                e_row[t * sB + b[s]] = kNeg;
+    for (int p = 0; p < PAIRS; ++p) {
+        rows[p] = ql[p] - q0;  // the lane's valid rows (clamped by R in lane_column)
+        const int lanes = (ql[p] + R - 1) / R;
+        steps = max(steps, ql[p] > 0 && tl[p] > 0 ? tl[p] + lanes - 1 : 0);
+        busy[p] = lane < lanes;
+        my_rows[p] = ring[p] + lane * kLane;
+        out[p] = dirs + (size_t)b[p] * Q * T;
+        st[p].h_top = 0;
+        st[p].out_h = 0;
+        st[p].out_e = kNeg;
+        st[p].best_h = 0;
+        st[p].best_t = -1;
+        st[p].best_q = 0;
+    }
+    for (int s = 0; s < steps; ++s) {
+        int h_up[PAIRS], e_up[PAIRS];
+#pragma unroll
+        for (int p = 0; p < PAIRS; ++p) row_above(st[p].out_h, st[p].out_e, lane, h_up[p], e_up[p]);
+        const int t = s - lane;
+#pragma unroll
+        for (int p = 0; p < PAIRS; ++p) {
+            const bool on = busy[p] && t >= 0 && t < tl[p];
+            lane_column<R>(st[p], h_up[p], e_up[p], on ? tcode[p][t] : 4, t, on, rows[p], q0,
+                           my_rows[p] + (t & (kRing - 1)), A, Bm, O, Eg);
+        }
+        if ((s & 31) == 31) {  // every lane is past column 32 * (s >> 5) - 1
+            __syncwarp();
+#pragma unroll
+            for (int p = 0; p < PAIRS; ++p)
+                flush_block<R>(ring[p], out[p], (s >> 5) - 1, ql[p], tl[p], T, lane);
+            __syncwarp();
+        }
+    }
+    // the blocks not yet written: at most the last two
+    __syncwarp();
+#pragma unroll
+    for (int p = 0; p < PAIRS; ++p) {
+        flush_block<R>(ring[p], out[p], (steps >> 5) - 1, ql[p], tl[p], T, lane);
+        flush_block<R>(ring[p], out[p], steps >> 5, ql[p], tl[p], T, lane);
+    }
+    // each pair's best: max score, then min t, then min q
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+#pragma unroll
+        for (int p = 0; p < PAIRS; ++p) {
+            const int oh = __shfl_xor_sync(kFull, st[p].best_h, off);
+            const int ot = __shfl_xor_sync(kFull, st[p].best_t, off);
+            const int oq = __shfl_xor_sync(kFull, st[p].best_q, off);
+            if (oh > st[p].best_h ||
+                (oh == st[p].best_h && (ot < st[p].best_t ||
+                                        (ot == st[p].best_t && oq < st[p].best_q)))) {
+                st[p].best_h = oh;
+                st[p].best_t = ot;
+                st[p].best_q = oq;
             }
         }
     }
+    if (lane == 0) {
+#pragma unroll
+        for (int p = 0; p < PAIRS; ++p) {
+            score[b[p]] = st[p].best_h;
+            t_end[b[p]] = st[p].best_t;
+            q_end[b[p]] = st[p].best_q;
+        }
+    }
+}
 
-    int best_h[PAIRS], best_t[PAIRS], best_q[PAIRS];
-#pragma unroll
-    for (int s = 0; s < PAIRS; ++s) {
-        best_h[s] = 0;
-        best_t[s] = -1;
-        best_q[s] = 0;
-    }
-    for (int q = 0; q < q_max; ++q) {
-        bool row_on[PAIRS];
-        int qc[PAIRS], h_diag[PAIRS], h_left[PAIRS], f_left[PAIRS], row_h[PAIRS],
-            row_t[PAIRS];
-#pragma unroll
-        for (int s = 0; s < PAIRS; ++s) {
-            row_on[s] = q < ql[s];
-            qc[s] = row_on[s] ? q_t[q * sB + b[s]] : 4;
-            h_diag[s] = 0;
-            h_left[s] = 0;
-            f_left[s] = kNeg;
-            row_h[s] = 0;
-            row_t[s] = -1;
-        }
-        uint8_t* drow = dirs + (size_t)q * T * sB;
-        for (int t = 0; t < t_max; ++t) {
-            bool on[PAIRS];
-            int tc[PAIRS], h_up[PAIRS], e_up[PAIRS];
-#pragma unroll
-            for (int s = 0; s < PAIRS; ++s) {
-                on[s] = row_on[s] && t < tl[s];
-                const size_t k = t * sB + b[s];
-                tc[s] = on[s] ? t_t[k] : 0;
-                h_up[s] = on[s] ? h_row[k] : 0;
-                e_up[s] = on[s] ? e_row[k] : 0;
-            }
-#pragma unroll
-            for (int s = 0; s < PAIRS; ++s) {
-                if (!on[s]) continue;
-                const size_t k = t * sB + b[s];
-                const Cell c = sw_cell(qc[s], tc[s], h_diag[s], h_up[s], e_up[s], h_left[s],
-                                       f_left[s], A, Bm, O, Eg);
-                drow[k] = (uint8_t)c.dir;
-                if (c.H > row_h[s]) {
-                    row_h[s] = c.H;
-                    row_t[s] = t;
-                }
-                h_diag[s] = h_up[s];
-                h_row[k] = c.H;
-                e_row[k] = c.E;
-                h_left[s] = c.H;
-                f_left[s] = c.F;
-            }
-        }
-#pragma unroll
-        for (int s = 0; s < PAIRS; ++s) {
-            if (row_on[s]) fold_row(row_h[s], row_t[s], q, best_h[s], best_t[s], best_q[s]);
-        }
-    }
-#pragma unroll
-    for (int s = 0; s < PAIRS; ++s) {
-        score[b[s]] = best_h[s];
-        t_end[b[s]] = best_t[s];
-        q_end[b[s]] = best_q[s];
-    }
+// Allow `kernel` the device's opt-in maximum of shared memory, the same
+// value on every call (so calls from several threads never race on it); a
+// launch that needs more than that is refused and its error returned
+template <typename K>
+int allow_max_smem(K kernel) {
+    int dev = 0, max_smem = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+        err = cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (err == cudaSuccess)
+        err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, max_smem);
+    if (err != cudaSuccess) cudaGetLastError();
+    return (int)err;
 }
 
 template <typename Acc, int R>
@@ -402,19 +471,7 @@ int launch_warp(const void* q_t, const void* t_t, const void* qlen, const void* 
                 int Q, int T, int B, int A, int Bm, int O, int Eg, void* dirs,
                 void* score, void* t_end, void* q_end, void* stream) {
     const auto kernel = sw_forward_warp_kernel<Acc, R>;
-    // allow the device's opt-in maximum, the same value on every call (so
-    // calls from several threads never race on it); a launch that needs
-    // more shared memory than that is refused and its error returned
-    int dev = 0, max_smem = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err == cudaSuccess)
-        err = cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-    if (err == cudaSuccess)
-        err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, max_smem);
-    if (err != cudaSuccess) {
-        cudaGetLastError();
-        return (int)err;
-    }
+    if (const int err = allow_max_smem(kernel)) return err;
     kernel<<<(B + kWarps - 1) / kWarps, kWarps * 32, kWarps * warp_smem(R, T),
              (cudaStream_t)stream>>>((const uint8_t*)q_t, (const uint8_t*)t_t,
                                      (const int32_t*)qlen, (const int32_t*)tlen, Q, T, B, A,
@@ -423,15 +480,36 @@ int launch_warp(const void* q_t, const void* t_t, const void* qlen, const void* 
     return (int)cudaGetLastError();
 }
 
-template <typename Acc>
+template <int R, int PAIRS>
+int launch_split(const void* q_t, const void* t_t, const void* qlen, const void* tlen,
+                 int Q, int T, int B, int A, int Bm, int O, int Eg, void* dirs,
+                 void* score, void* t_end, void* q_end, void* stream) {
+    const auto kernel = sw_forward_split_kernel<R, PAIRS>;
+    constexpr int kBlockWarps = kWarps / PAIRS;
+    if (const int err = allow_max_smem(kernel)) return err;
+    kernel<<<(B / PAIRS + kBlockWarps - 1) / kBlockWarps, kBlockWarps * 32,
+             kWarps * warp_smem(R, T), (cudaStream_t)stream>>>(
+        (const uint8_t*)q_t, (const uint8_t*)t_t, (const int32_t*)qlen, (const int32_t*)tlen, Q,
+        T, B, A, Bm, O, Eg, (uint8_t*)dirs, (int32_t*)score, (int32_t*)t_end, (int32_t*)q_end);
+    return (int)cudaGetLastError();
+}
+
+// The forward (PAIRS = 0: one warp a pair, in Acc) or the split (PAIRS 2
+// or 4, int32) at the R that covers Q
+template <typename Acc, int PAIRS>
 int launch(const void* q_t, const void* t_t, const void* qlen, const void* tlen, int Q,
            int T, int B, int A, int Bm, int O, int Eg, void* dirs, void* score,
            void* t_end, void* q_end, void* stream) {
-    if (Q < 0 || T < 0 || B < 0 || Q > kMaxQ) return (int)cudaErrorInvalidValue;
+    if (Q < 0 || T < 0 || B < 0 || Q > kMaxQ || (PAIRS && B % PAIRS != 0))
+        return (int)cudaErrorInvalidValue;
     if (B == 0) return (int)cudaGetLastError();
-#define RSB_LAUNCH(R)                                                                   \
-    return launch_warp<Acc, R>(q_t, t_t, qlen, tlen, Q, T, B, A, Bm, O, Eg, dirs, score, \
-                               t_end, q_end, stream)
+#define RSB_LAUNCH(R)                                                                         \
+    if constexpr (PAIRS == 0)                                                                  \
+        return launch_warp<Acc, R>(q_t, t_t, qlen, tlen, Q, T, B, A, Bm, O, Eg, dirs, score,   \
+                                   t_end, q_end, stream);                                      \
+    else                                                                                       \
+        return launch_split<R, PAIRS>(q_t, t_t, qlen, tlen, Q, T, B, A, Bm, O, Eg, dirs, score, \
+                                      t_end, q_end, stream)
     if (Q <= 32) RSB_LAUNCH(1);
     if (Q <= 64) RSB_LAUNCH(2);
     if (Q <= 128) RSB_LAUNCH(4);
@@ -449,8 +527,8 @@ extern "C" int sw_forward_launch(const void* q_t, const void* t_t, const void* q
                                  const void* tlen, int Q, int T, int B, int A, int Bm,
                                  int O, int Eg, void* dirs, void* score, void* t_end,
                                  void* q_end, void* stream) {
-    return launch<int32_t>(q_t, t_t, qlen, tlen, Q, T, B, A, Bm, O, Eg, dirs, score,
-                           t_end, q_end, stream);
+    return launch<int32_t, 0>(q_t, t_t, qlen, tlen, Q, T, B, A, Bm, O, Eg, dirs, score,
+                              t_end, q_end, stream);
 }
 
 // the int16 configuration; only for shapes and scores within the span
@@ -459,35 +537,23 @@ extern "C" int sw_forward_i16_launch(const void* q_t, const void* t_t, const voi
                                      const void* tlen, int Q, int T, int B, int A, int Bm,
                                      int O, int Eg, void* dirs, void* score, void* t_end,
                                      void* q_end, void* stream) {
-    return launch<int16_t>(q_t, t_t, qlen, tlen, Q, T, B, A, Bm, O, Eg, dirs, score,
-                           t_end, q_end, stream);
+    return launch<int16_t, 0>(q_t, t_t, qlen, tlen, Q, T, B, A, Bm, O, Eg, dirs, score,
+                              t_end, q_end, stream);
 }
 
-// The cross-pair ILP forward, `pairs` pairs per thread; h_row and e_row
-// are (T, B) int32 scratch. `pairs` must be 2 or 4 and divide B: anything
-// else returns cudaErrorInvalidValue and launches nothing.
+// The cross-pair ILP forward, int32, `pairs` pairs a warp; dirs (B, Q, T)
+// as above. `pairs` must be 2 or 4 and divide B, and Q at most 512:
+// anything else returns cudaErrorInvalidValue and launches nothing.
 extern "C" int sw_forward_split_launch(const void* q_t, const void* t_t,
                                        const void* qlen, const void* tlen, int Q,
                                        int T, int B, int A, int Bm, int O, int Eg,
-                                       int pairs, void* dirs, void* h_row,
-                                       void* e_row, void* score, void* t_end,
+                                       int pairs, void* dirs, void* score, void* t_end,
                                        void* q_end, void* stream) {
-    if ((pairs != 2 && pairs != 4) || B < 0 || B % pairs != 0)
-        return (int)cudaErrorInvalidValue;
-    if (B > 0) {
-        const int blocks = (B / pairs + kSplitThreads - 1) / kSplitThreads;
-        if (pairs == 2)
-            sw_forward_split_kernel<2><<<blocks, kSplitThreads, 0, (cudaStream_t)stream>>>(
-                (const uint8_t*)q_t, (const uint8_t*)t_t, (const int32_t*)qlen,
-                (const int32_t*)tlen, Q, T, B, A, Bm, O, Eg, (uint8_t*)dirs,
-                (int32_t*)h_row, (int32_t*)e_row, (int32_t*)score, (int32_t*)t_end,
-                (int32_t*)q_end);
-        else
-            sw_forward_split_kernel<4><<<blocks, kSplitThreads, 0, (cudaStream_t)stream>>>(
-                (const uint8_t*)q_t, (const uint8_t*)t_t, (const int32_t*)qlen,
-                (const int32_t*)tlen, Q, T, B, A, Bm, O, Eg, (uint8_t*)dirs,
-                (int32_t*)h_row, (int32_t*)e_row, (int32_t*)score, (int32_t*)t_end,
-                (int32_t*)q_end);
-    }
-    return (int)cudaGetLastError();
+    if (pairs == 2)
+        return launch<int32_t, 2>(q_t, t_t, qlen, tlen, Q, T, B, A, Bm, O, Eg, dirs, score,
+                                  t_end, q_end, stream);
+    if (pairs == 4)
+        return launch<int32_t, 4>(q_t, t_t, qlen, tlen, Q, T, B, A, Bm, O, Eg, dirs, score,
+                                  t_end, q_end, stream);
+    return (int)cudaErrorInvalidValue;
 }

@@ -27,7 +27,7 @@ from typing import Optional
 PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PKG_DIR / "csrc"
 SOURCES = ("sw_forward.cu", "sw_traceback.cu", "int16_probe.cu", "seed_randstrobes.cu",
-           "index_find.cu", "find_runs.cu")
+           "index_find.cu", "find_runs.cu", "launch_floor.cu")
 HEADERS = ("bucket_search.cuh",)  # included by SOURCES, so in the digest too
 BUILD_DIR = PKG_DIR / "build"
 LIB_PATH = BUILD_DIR / "libsw_kernels.so"
@@ -111,7 +111,7 @@ def _signatures() -> dict:
     return {
         "sw_forward_launch": fwd,
         "sw_forward_i16_launch": fwd,
-        "sw_forward_split_launch": [p, p, p, p, i, i, i, i, i, i, i, i, p, p, p, p, p, p, p],
+        "sw_forward_split_launch": [p, p, p, p, i, i, i, i, i, i, i, i, p, p, p, p, p],
         "sw_traceback_launch": [p, p, p, p, i, i, i, p, p, p, p],
         "sw_traceback_packed_launch": [p, p, p, p, i, i, i, p, p],
         "int16_probe_launch": [p, p, i, i, p],
@@ -120,6 +120,7 @@ def _signatures() -> dict:
         "index_find_launch": [p, i64, p, i, p, i64, p, p],
         "find_runs_launch": [p, i64, i64, i64, p, i64, i, i64, p, i64, p, p, p],
         "gather_runs_launch": [p, p, p, p, i64, p, i64, i64, p, p, p],
+        "empty_launch": [i, i, p],
     }
 
 

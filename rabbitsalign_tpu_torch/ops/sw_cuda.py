@@ -25,8 +25,8 @@ contiguous and row-major (the forward kernel is one warp per pair and
 writes them in whole 32-byte sectors). Lengths past Q or T are clamped to
 the bucket. Only cells inside the valid region are defined in the
 kernel's dirs (the plain version writes 0 elsewhere). `permute_dirs`
-turns them into the split kernels' (Q, T, B) and the Pallas kernel's
-(Dpad, Q, B) layouts for comparisons; the mapping path never calls it.
+turns them into the Pallas kernels' (Dpad, Q, B) layout for comparisons;
+the mapping path never calls it.
 
 Accumulator: int32, or int16 under ``RSB_SW16`` where the span bound of
 `pick_dtype` holds (the rule of sw_pallas._pick_dtype). The int16
@@ -34,10 +34,10 @@ configuration starts E and F at NEG16 and passes the H and E of a lane's
 bottom row to the next lane as two int16 halves of one shuffle; wherever
 the bound holds its outputs equal the int32 ones.
 
-`sw_forward_split` is the cross-pair ILP variant (2 or 4 pairs per CUDA
-thread, int32, (Q, T, B) dirs, row scratch in device memory), the
-counterpart of tests/sanitize/ilp_probe.py's `_kernel_split`; only the
-ILP probe (tools/ilp_probe.py) runs it.
+`sw_forward_split` is the cross-pair ILP variant (a warp for 2 or 4
+pairs, int32, (B, Q, T) dirs), the counterpart of
+tests/sanitize/ilp_probe.py's `_kernel_split`; only the ILP probe
+(tools/ilp_probe.py) runs it.
 """
 
 from __future__ import annotations
@@ -58,7 +58,7 @@ NEG16 = -(1 << 14)
 launches = 0
 launches_i16 = 0
 launches_split = 0
-SPLITS = (2, 4)  # pairs per thread of sw_forward_split
+SPLITS = (2, 4)  # pairs per warp of sw_forward_split
 MAX_Q = 512  # the forward kernel's rows: 32 lanes x 16
 _count_lock = threading.Lock()
 
@@ -118,8 +118,6 @@ def sw_forward(q_t: torch.Tensor, t_t: torch.Tensor, qlen: torch.Tensor,
     if q_t.device.type == "cpu":
         return sw_forward_plain(q_t, t_t, qlen, tlen, params, acc)
     lib = _cuda_lib(q_t, "sw_forward")
-    if Q > MAX_Q:
-        raise ValueError(f"sw_forward: the kernel takes Q <= {MAX_Q}, not {Q}")
     i16 = acc == torch.int16
     out = _launch_forward(lib.sw_forward_i16_launch if i16 else lib.sw_forward_launch,
                           "sw_forward", q_t, t_t, qlen, tlen, params, (B, Q, T))
@@ -134,13 +132,12 @@ def sw_forward(q_t: torch.Tensor, t_t: torch.Tensor, qlen: torch.Tensor,
 def sw_forward_split(q_t: torch.Tensor, t_t: torch.Tensor, qlen: torch.Tensor,
                      tlen: torch.Tensor, params: SwParams, split: int
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The int32 forward with `split` (2 or 4) pairs per CUDA thread: pair
-    b belongs to column group b // (B / split), as the lane groups of
-    `_kernel_split`. Same arguments as `sw_forward`; dirs are (Q, T, B).
-    It equals the int32 `sw_forward` byte for byte on valid cells, whose
-    dirs `permute_dirs(dirs, "qtb")` puts in this layout. CPU tensors take
-    `sw_forward_split_plain`; CUDA tensors launch the split kernel, with
-    (T, B) int32 row scratch for H and E."""
+    """The int32 forward with `split` (2 or 4) pairs a warp: pair b
+    belongs to column group b // (B / split), as the lane groups of
+    `_kernel_split`. Same arguments and outputs as `sw_forward`, dirs
+    (B, Q, T); it equals the int32 `sw_forward` byte for byte on valid
+    cells. CPU tensors take `sw_forward_split_plain`; CUDA tensors launch
+    the split kernel (Q at most MAX_Q)."""
     global launches_split
     _check_inputs(q_t, t_t, qlen, tlen)
     _check_split(q_t.shape[1], split)
@@ -149,11 +146,8 @@ def sw_forward_split(q_t: torch.Tensor, t_t: torch.Tensor, qlen: torch.Tensor,
     lib = _cuda_lib(q_t, "sw_forward_split")
     Q, B = q_t.shape
     T = t_t.shape[0]
-    h_row = torch.empty((T, B), dtype=torch.int32, device=q_t.device)
-    e_row = torch.empty_like(h_row)
     out = _launch_forward(lib.sw_forward_split_launch, "sw_forward_split", q_t, t_t, qlen,
-                          tlen, params, (Q, T, B), before=(split,),
-                          after=(h_row.data_ptr(), e_row.data_ptr()))
+                          tlen, params, (B, Q, T), before=(split,))
     with _count_lock:
         launches_split += 1
     return out
@@ -175,13 +169,15 @@ def _cuda_lib(q_t: torch.Tensor, name: str):
 
 
 def _launch_forward(launch, name: str, q_t, t_t, qlen, tlen, params: SwParams,
-                    dirs_shape, before=(), after=()):
+                    dirs_shape, before=()):
     """Allocate the outputs (dirs of `dirs_shape`), launch `launch` on the
     current stream of q_t's device and raise if the launch was refused.
-    `before` goes between the scoring arguments and dirs, `after` between
-    dirs and the results."""
+    `before` goes between the scoring arguments and dirs. The kernels take
+    Q up to MAX_Q."""
     Q, B = q_t.shape
     T = t_t.shape[0]
+    if Q > MAX_Q:
+        raise ValueError(f"{name}: the kernel takes Q <= {MAX_Q}, not {Q}")
     q_t, t_t = q_t.contiguous(), t_t.contiguous()
     qlen, tlen = qlen.contiguous(), tlen.contiguous()
     dev = q_t.device
@@ -192,7 +188,7 @@ def _launch_forward(launch, name: str, q_t, t_t, qlen, tlen, params: SwParams,
         err = launch(
             q_t.data_ptr(), t_t.data_ptr(), qlen.data_ptr(), tlen.data_ptr(),
             Q, T, B, params.match, params.mismatch, params.gap_open,
-            params.gap_extend, *before, dirs.data_ptr(), *after, score.data_ptr(),
+            params.gap_extend, *before, dirs.data_ptr(), score.data_ptr(),
             t_end.data_ptr(), q_end.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"{name} kernel launch failed (CUDA error {err})")
@@ -201,14 +197,12 @@ def _launch_forward(launch, name: str, q_t, t_t, qlen, tlen, params: SwParams,
 
 def permute_dirs(dirs: torch.Tensor, layout: str) -> torch.Tensor:
     """The forward's (B, Q, T) dirs in another layout, for comparisons:
-    "qtb", the split kernels' (Q, T, B) (a view); "dqb", the Pallas
-    kernel's (Dpad, Q, B) with cell (q, t) at [q + t, q, b], Dpad = Q + T
-    - 1 rounded up to 8, and 0 where t = d - q is outside [0, T)."""
+    "dqb", the Pallas kernels' (Dpad, Q, B) with cell (q, t) at
+    [q + t, q, b], Dpad = Q + T - 1 rounded up to 8, and 0 where t = d - q
+    is outside [0, T)."""
     B, Q, T = dirs.shape
-    if layout == "qtb":
-        return dirs.permute(1, 2, 0)
     if layout != "dqb":
-        raise ValueError(f"layout must be 'qtb' or 'dqb', not {layout!r}")
+        raise ValueError(f"layout must be 'dqb', not {layout!r}")
     out = torch.zeros(((Q + T - 1 + 7) // 8 * 8, Q, B), dtype=dirs.dtype, device=dirs.device)
     for q in range(Q):
         out[q:q + T, q, :] = dirs[:, q, :].T
@@ -309,11 +303,11 @@ def sw_forward_split_plain(q_t: torch.Tensor, t_t: torch.Tensor, qlen: torch.Ten
                            tlen: torch.Tensor, params: SwParams, split: int
                            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """`sw_forward_plain` (int32) on each of the `split` column groups,
-    concatenated: the lane groups of `_kernel_split`; dirs (Q, T, B), as
+    concatenated: the lane groups of `_kernel_split`; dirs (B, Q, T), as
     the split kernel writes them."""
     _check_split(q_t.shape[1], split)
     parts = [sw_forward_plain(*(x.chunk(split, dim=-1)[s] for x in (q_t, t_t, qlen, tlen)),
                               params)
              for s in range(split)]
     score, t_end, q_end, dirs = (torch.cat(xs, dim=0) for xs in zip(*parts))
-    return score, t_end, q_end, permute_dirs(dirs, "qtb").contiguous()
+    return score, t_end, q_end, dirs

@@ -344,11 +344,14 @@ class PodShardedIndex:
                     keys = np.frombuffer(self._recv_exact(conn, 8 * nq), dtype=np.uint64)
                     t0 = time.perf_counter()
                     found, gpos, count, ent_p, ent_k = self._lookup_sparse(keys, cap)
-                    conn.sendall(found.tobytes() + gpos.tobytes() + count.tobytes()
-                                 + struct.pack("<q", ent_p.shape[0]) + ent_p.tobytes()
-                                 + ent_k.tobytes())
+                    reply = (found.tobytes() + gpos.tobytes() + count.tobytes()
+                             + struct.pack("<q", ent_p.shape[0]) + ent_p.tobytes()
+                             + ent_k.tobytes())
+                    # counted before the reply leaves: a requester holding
+                    # its answer reads this lookup's time
                     with self._stats_lock:
                         self.stats["served_s"] += time.perf_counter() - t0
+                    conn.sendall(reply)
         except (ConnectionError, OSError):
             pass
         finally:

@@ -1,23 +1,29 @@
 """Cross-pair ILP probe of the forward kernel on an NVIDIA GPU: the
 counterpart of tests/sanitize/ilp_probe.py.
 
-Hypothesis: a forward that gives each pair one thread runs it as one
-chain of dependent cells whose scratch loads wait on memory. Giving each
-thread 2 or 4 independent chains, interleaved cell by cell
-(`sw_cuda.sw_forward_split`), lets one chain's loads and arithmetic fill
-the others' stalls, at the price of fewer threads on the card. The
-production variant is the mapping path's forward (`sw_forward`, one warp
-per pair), so the timings set the split kernels beside it.
+Hypothesis: the production forward (`sw_forward`, one warp per pair, the
+DP state in registers) runs each pair as one chain of dependent steps: a
+lane waits for the previous lane's bottom row through a shuffle, then
+computes its R cells, each waiting on the one above. A warp that holds 2
+or 4 pairs (`sw_cuda.sw_forward_split`: the production design for each, a
+shuffle chain a pair, the pairs' cells of a step in one basic block) gives
+the scheduler independent chains to interleave, so one pair's shuffle and
+DPX latency can hide under another's arithmetic, at the price of fewer
+warps on the card and the selects that keep idle lanes' state. If the
+per-step chain latency is exposed at B = 1024, split2 / production falls
+below 1.
 
 Method, as the TPU harness: the inputs of ilp_probe.py:216-227 (seed 7,
 (Q, T, B) = (152, 256, 1024), an alignment planted in every third pair,
 SwParams(2, 8, 12, 1)); the split kernels held bit-exact against the
-production int32 kernel (score, t_end, q_end, and dirs on valid cells);
-then paired-slope timing: K = 2 and K = 10 chained launches on one stream,
-each writing (sum of the previous scores and t_ends) & 3 into q[0, 0] on
-the device so no launch can start before the previous one ends, timed with
-CUDA events; the slope over K cancels the fixed costs. Nine trials with
-the variants interleaved; the median slope is reported.
+production int32 kernel (score, t_end, q_end, and the (B, Q, T) dirs on
+valid cells, compared directly); then paired-slope timing: K = 2 and
+K = 10 chained launches on one stream, each writing (sum of the previous
+scores and t_ends) & 3 into q[0, 0] on the device so no launch can start
+before the previous one ends, timed with CUDA events; the slope over K
+cancels the fixed costs. Nine trials with the variants interleaved; the
+median slope is reported, and each split's median over production's, with
+the card's name and power limit.
 
 Run on a machine with an NVIDIA GPU (it refuses to run without one):
 
@@ -69,16 +75,16 @@ def _variant(tag: str):
 
 
 def check_exact(inputs) -> None:
-    """Raise unless sw_forward_split with 2 and 4 pairs per thread gives
-    the production int32 kernel's score, t_end, q_end and valid-cell dirs
-    (its (B, Q, T) dirs read as (Q, T, B) through permute_dirs)."""
+    """Raise unless sw_forward_split with 2 and 4 pairs a warp gives the
+    production int32 kernel's score, t_end, q_end and (B, Q, T) dirs on
+    valid cells."""
     q_t, t_t, qlen, tlen = inputs
     (Qi, _), Ti = q_t.shape, t_t.shape[0]
     if sw_cuda.pick_dtype(Qi, Ti, PARAMS) != torch.int32:
         raise RuntimeError("the production variant is the int32 kernel: unset RSB_SW16")
     ref = _variant("production")(*inputs)
-    valid = sw_cuda.permute_dirs(sw_cuda.valid_cells(qlen, tlen, Qi, Ti), "qtb")
-    ref_dirs = torch.where(valid, sw_cuda.permute_dirs(ref[3], "qtb"), 0)
+    valid = sw_cuda.valid_cells(qlen, tlen, Qi, Ti)
+    ref_dirs = torch.where(valid, ref[3], 0)
     for tag in VARIANTS[1:]:
         got = _variant(tag)(*inputs)
         for name, a, b in zip(("score", "t_end", "q_end"), got[:3], ref[:3]):
@@ -136,6 +142,8 @@ def run(card: str, inputs) -> Dict[str, float]:
         medians[tag] = med = p[len(p) // 2]
         print(f"{tag}: {med:.4f} ms/dispatch ({med * 1e3 / Bi:.4f} us/pair; paired slopes "
               f"{[f'{x:.4f}' for x in p]}) [{card}]", flush=True)
+    print(", ".join(f"{tag} / production {medians[tag] / medians['production']:.3f}"
+                    for tag in VARIANTS[1:]) + f" [{card}]", flush=True)
     return medians
 
 

@@ -162,20 +162,19 @@ def test_int16_kernel_matches_plain_and_int32_kernel(cuda, monkeypatch, Q, T):
 @pytest.mark.parametrize("Q,T", [(q, t) for q, t, _, _ in engine_buckets(150)])
 @pytest.mark.parametrize("split", sw_cuda.SPLITS)
 def test_split_kernel_matches_plain_and_one_pair_kernel(cuda, monkeypatch, Q, T, split):
-    """The split kernels ((Q, T, B) dirs) against their plain version and
-    the production forward (one warp per pair) through permute_dirs."""
+    """The split kernels (2 and 4 pairs a warp) against their plain
+    version and the production forward (one warp per pair), dirs (B, Q, T)
+    on valid cells."""
     monkeypatch.delenv("RSB_SW16", raising=False)
     buf, genome = q2_batch(mixed_pairs(Q, T, 72, seed=Q + split), Q, seed=Q)
     q_t, t_t, qlen, tlen = px.unpack_q2(
         torch.from_numpy(buf).to(cuda), px.resident_ref_codes(genome, cuda), Q, T)
     sw = SwParams(2, 8, 12, 1)
-    valid = sw_cuda.permute_dirs(_valid(Q, T, qlen, tlen, cuda), "qtb")
+    valid = _valid(Q, T, qlen, tlen, cuda)
     launches = sw_cuda.launches_split
     got = sw_cuda.sw_forward_split(q_t, t_t, qlen, tlen, sw, split)
     assert sw_cuda.launches_split == launches + 1
-    # the production forward's (B, Q, T) dirs read as (Q, T, B)
     production = sw_cuda.sw_forward(q_t, t_t, qlen, tlen, sw)
-    production = (*production[:3], sw_cuda.permute_dirs(production[3], "qtb"))
     for other in (sw_cuda.sw_forward_split_plain(q_t, t_t, qlen, tlen, sw, split), production):
         _assert_forward_equal(got, other, valid)
     with pytest.raises(ValueError):
@@ -193,8 +192,7 @@ def test_forward_edges_match_plain_and_split(cuda, monkeypatch, Q, T, acc):
     """The one-warp-per-pair forward at every bucket and at Q not a
     multiple of 32 (and T not a multiple of 16), with qlen 0, tlen 0,
     qlen = Q, tlen = T and lengths past them, in both configurations:
-    equal to its plain version and, for int32, to the split kernel
-    through permute_dirs."""
+    equal to its plain version and, for int32, to the split kernel."""
     monkeypatch.setenv("RSB_SW16", "1" if acc == "int16" else "0")
     q_t, t_t, qlen, tlen = _codes(Q, T, 96, seed=Q + T, device=cuda)
     qlen[1], tlen[2], qlen[3], tlen[3], qlen[4], tlen[4] = 0, 0, Q, T, Q + 9, T + 2
@@ -208,10 +206,7 @@ def test_forward_edges_match_plain_and_split(cuda, monkeypatch, Q, T, acc):
     assert [int(x[i]) for i in (1, 2, 5) for x in got[:3]] == [0, -1, 0] * 3
     if acc == "int32":
         split = sw_cuda.sw_forward_split(q_t, t_t, qlen, tlen, sw, 2)
-        assert torch.equal(torch.where(sw_cuda.permute_dirs(valid, "qtb"), split[3], 0),
-                           sw_cuda.permute_dirs(torch.where(valid, got[3], 0), "qtb"))
-        for k, p in zip(got[:3], split[:3]):
-            assert torch.equal(k, p)
+        _assert_forward_equal(split, got, valid)
 
 
 @pytest.mark.cuda

@@ -292,14 +292,12 @@ def test_walk_plain_matches_traceback_rle_mixed(sw):
 
 
 def test_permute_dirs_and_valid_cells():
-    """permute_dirs puts cell (b, q, t) at [q, t, b] ("qtb", a view) and at
-    [q + t, q, b] ("dqb", Dpad = Q + T - 1 rounded up to 8, 0 elsewhere);
+    """permute_dirs puts cell (b, q, t) at [q + t, q, b] ("dqb", Dpad =
+    Q + T - 1 rounded up to 8, 0 elsewhere) and takes no other layout;
     valid_cells marks q < qlen and t < tlen."""
     rng = np.random.RandomState(2)
     B, Q, T = 5, 13, 21
     dirs = torch.from_numpy(rng.randint(1, 256, (B, Q, T)).astype(np.uint8))
-    qtb = sw_cuda.permute_dirs(dirs, "qtb")
-    assert qtb.shape == (Q, T, B) and qtb.data_ptr() == dirs.data_ptr()
     dqb = sw_cuda.permute_dirs(dirs, "dqb").numpy()
     assert dqb.shape == (40, Q, B)
     d = dirs.numpy()
@@ -307,11 +305,12 @@ def test_permute_dirs_and_valid_cells():
     for b in range(B):
         for q in range(Q):
             for t in range(T):
-                assert qtb[q, t, b] == d[b, q, t] and dqb[q + t, q, b] == d[b, q, t]
+                assert dqb[q + t, q, b] == d[b, q, t]
                 seen[q + t, q, b] = True
     assert (dqb[~seen] == 0).all()
-    with pytest.raises(ValueError):
-        sw_cuda.permute_dirs(dirs, "tqb")
+    for layout in ("tqb", "qtb"):
+        with pytest.raises(ValueError):
+            sw_cuda.permute_dirs(dirs, layout)
     qlen = torch.tensor([0, 4, 13, 20, -1], dtype=torch.int32)
     tlen = torch.tensor([5, 0, 21, 9, 3], dtype=torch.int32)
     valid = sw_cuda.valid_cells(qlen, tlen, Q, T)

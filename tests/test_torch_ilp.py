@@ -2,9 +2,9 @@
 plain version of `sw_forward_split` against the Pallas `_kernel_split` of
 tests/sanitize/ilp_probe.py in interpret mode (x64 off, as the harness
 traces it), the wrapper's routing and checks, and the probe's inputs.
-Pallas dirs are (Dpad, Q, B) indexed [q + t, q, b] and are compared on
-valid cells only. Everything is integer and made from a seed: every
-comparison is exact."""
+Pallas dirs are (Dpad, Q, B) indexed [q + t, q, b]; they are read into
+the port's (B, Q, T) and compared on valid cells only. Everything is
+integer and made from a seed: every comparison is exact."""
 
 import importlib.util
 from pathlib import Path
@@ -35,6 +35,12 @@ def _jax_ilp_probe():
     return mod
 
 
+def _pallas_dirs_bqt(jd, Q, T):
+    """Pallas (Dpad, Q, B) dirs as (B, Q, T): cell (q, t) from [q + t, q]."""
+    qs, ts = np.meshgrid(np.arange(Q), np.arange(T), indexing="ij")
+    return np.ascontiguousarray(jd[qs + ts, qs, :].transpose(2, 0, 1))
+
+
 def _codes(Q, T, B, seed):
     """(q_t, t_t, qlen, tlen) CPU tensors of the mixed pair set."""
     buf, genome = q2_batch(mixed_pairs(Q, T, B, seed=seed), Q, seed=seed)
@@ -56,10 +62,9 @@ def test_split_plain_matches_pallas_kernel_split(split):
     np.testing.assert_array_equal(pte, jte)
     np.testing.assert_array_equal(pqe, jqe)
     assert (ps > 0).sum() > B // 2
-    ql, tl = qlen.numpy(), tlen.numpy()
-    for b in range(B):
-        qs, ts = np.meshgrid(np.arange(ql[b]), np.arange(tl[b]), indexing="ij")
-        np.testing.assert_array_equal(pd[qs, ts, b], jd[qs + ts, qs, b])
+    valid = sw_cuda.valid_cells(qlen, tlen, Q, T).numpy()
+    assert pd.shape == (B, Q, T)
+    np.testing.assert_array_equal(pd[valid], _pallas_dirs_bqt(jd, Q, T)[valid])
 
 
 @pytest.mark.parametrize("split", [2, 4])
@@ -71,12 +76,12 @@ def test_split_wrapper_on_cpu_runs_the_plain_version(split):
     for a, b in zip(got, sw_cuda.sw_forward_split_plain(q_t, t_t, qlen, tlen, SW, split)):
         assert torch.equal(a, b)
     # column groups are independent: the split equals the one-pair forward,
-    # whose (B, Q, T) dirs read as (Q, T, B) through permute_dirs
+    # dirs in the same (B, Q, T) layout
     one = sw_cuda.sw_forward_plain(q_t, t_t, qlen, tlen, SW)
     for a, b in zip(got[:3], one[:3]):
         assert torch.equal(a, b)
-    assert got[3].shape == (32, 48, 28)
-    assert torch.equal(got[3], sw_cuda.permute_dirs(one[3], "qtb"))
+    assert got[3].shape == (28, 32, 48)
+    assert torch.equal(got[3], one[3])
 
 
 @pytest.mark.parametrize("split,B", [(3, 24), (8, 24), (4, 30), (2, 27)],

@@ -351,6 +351,24 @@ def test_pod_index_close_frees_its_ports(world_index):
         assert not any(pod._server.is_alive() for pod in pods)
 
 
+def test_pod_index_counts_served_time_before_replying(world_index):
+    """The server adds a lookup's time to `served_s` before its reply
+    leaves: right after each of 50 lookups the requester holds, the peer's
+    counter has grown (and the requester's own `remote_s` with it)."""
+    index, _ = world_index
+    peers = [f"127.0.0.1:{_free_port()}" for _ in range(2)]
+    keys = np.asarray(index.hashes)[97::97]
+    pods = [pmh.PodShardedIndex(index, p, 2, peers) for p in range(2)]
+    try:
+        for _ in range(50):
+            served, remote = pods[1].stats["served_s"], pods[0].stats["remote_s"]
+            pods[0].find_runs_compact(keys)
+            assert pods[1].stats["served_s"] > served and pods[0].stats["remote_s"] > remote
+    finally:
+        for pod in pods:
+            pod.close()
+
+
 # --- the CLI, two processes --------------------------------------------------
 
 @pytest.fixture(scope="module")

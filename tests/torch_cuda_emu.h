@@ -1,5 +1,6 @@
-// A host emulation of the CUDA features that the port's phase-A kernels
-// use (rabbitsalign_tpu_torch/csrc/seed_randstrobes.cu, find_runs.cu), so
+// A host emulation of the CUDA features that the port's kernels use
+// (rabbitsalign_tpu_torch/csrc/seed_randstrobes.cu, find_runs.cu,
+// index_find.cu, sw_forward.cu), so
 // that their sources run on a CPU: tests/torch_cuda_emu.py turns each
 // launch into `emu_launch`. The blocks of a launch run one after the
 // other, one std::thread a CUDA thread; warp primitives meet at a barrier
@@ -28,10 +29,36 @@ using std::min;
 #define __shared__ static
 struct Dim { unsigned x = 0, y = 0, z = 0; };
 inline thread_local Dim threadIdx, blockIdx;
-inline Dim blockDim;
+inline Dim blockDim, gridDim;
 typedef void* cudaStream_t;
-enum { cudaErrorInvalidValue = 1 };
+typedef int cudaError_t;
+enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
+enum { cudaDevAttrMaxSharedMemoryPerBlockOptin, cudaDevAttrMultiProcessorCount };
+enum { cudaFuncAttributeMaxDynamicSharedMemorySize };
+// the device the launches see: EMU_SMS multiprocessors, each holding
+// EMU_BLOCKS_PER_SM blocks of any kernel (small, so that a kernel sized to
+// one wave strides over its grid here)
+constexpr int EMU_SMS = 2, EMU_BLOCKS_PER_SM = 3;
 inline int cudaGetLastError() { return 0; }
+inline int cudaGetDevice(int* d) { *d = 0; return 0; }
+inline int cudaDeviceGetAttribute(int* v, int attr, int) {
+    *v = attr == cudaDevAttrMultiProcessorCount ? EMU_SMS : 232448;
+    return 0;
+}
+template <class K> int cudaFuncSetAttribute(K, int, int) { return 0; }
+template <class K> int cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, K, int, size_t) {
+    *n = EMU_BLOCKS_PER_SM;
+    return 0;
+}
+struct uint4 { unsigned x, y, z, w; };
+// Hopper's DPX integer instructions, as the CUDA Math API defines them
+// (the sums wrap as 32-bit two's complement)
+inline int wrap_add(int a, int b) { return (int)((unsigned)a + (unsigned)b); }
+inline int __viaddmax_s32(int a, int b, int c) { return max(wrap_add(a, b), c); }
+inline int __viaddmax_s32_relu(int a, int b, int c) { return max(max(wrap_add(a, b), c), 0); }
+inline int __vimax3_s32(int a, int b, int c) { return max(max(a, b), c); }
+inline int __vimax3_s32_relu(int a, int b, int c) { return max(max(max(a, b), c), 0); }
+inline int __vimax_s32_relu(int a, int b) { return max(max(a, b), 0); }
 inline int cudaMemsetAsync(void* p, int v, size_t n, cudaStream_t) { memset(p, v, n); return 0; }
 inline void __trap() { abort(); }
 
@@ -88,6 +115,7 @@ inline unsigned long long atomicExch(unsigned long long* a, unsigned long long v
 template <class K, class... A>
 void emu_launch(unsigned grid, unsigned block, size_t smem, K kernel, A... args) {
     blockDim.x = block;
+    gridDim.x = grid;
     std::vector<unsigned char> sm(smem + 16);
     g_smem = sm.data();
     for (unsigned bx = 0; bx < grid; ++bx) {

@@ -14,17 +14,35 @@ CSRC = Path(__file__).resolve().parents[1] / "rabbitsalign_tpu_torch" / "csrc"
 HERE = Path(__file__).resolve().parent
 
 
+def _top_level_split(text: str):
+    """`text` cut at the commas outside parentheses."""
+    parts, depth, cur = [], 0, ""
+    for ch in text:
+        depth += (ch == "(") - (ch == ")")
+        if ch == "," and depth == 0:
+            parts.append(cur.strip())
+            cur = ""
+        else:
+            cur += ch
+    return parts + [cur.strip()]
+
+
 def _launch(m: re.Match) -> str:
-    cfg = [c.strip() for c in m.group(2).split(",")] + ["0"]
+    cfg = _top_level_split(m.group(2)) + ["0"]
     return f"emu_launch({cfg[0]}, {cfg[1]}, {cfg[2]}, {m.group(1)}, "
 
 
 def build(name: str, out_dir: Path) -> ctypes.CDLL:
     """csrc/<name>.cu compiled for the host into out_dir, loaded."""
-    src = (CSRC / f"{name}.cu").read_text()
+    return build_source(name, (CSRC / f"{name}.cu").read_text(), out_dir)
+
+
+def build_source(name: str, src: str, out_dir: Path) -> ctypes.CDLL:
+    """CUDA source text `src` compiled for the host into out_dir as
+    lib<name>_emu.so, loaded."""
     src = src.replace("#include <cuda_runtime.h>", '#include "torch_cuda_emu.h"')
-    src = src.replace("extern __shared__ __align__(16) unsigned char smem[];",
-                      "unsigned char* smem = g_smem;")
+    src = re.sub(r"extern __shared__ __align__\(16\) (?:unsigned char|uint8_t) smem\[\];",
+                 "unsigned char* smem = g_smem;", src)
     src = re.sub(r"(\w+)<<<(.*?)>>>\(", _launch, src, flags=re.S)
     cpp, lib = out_dir / f"{name}_emu.cpp", out_dir / f"lib{name}_emu.so"
     cpp.write_text(src)
