@@ -4,7 +4,9 @@ NVIDIA GPU. Run it from the root of a checkout, with no arguments:
 
     python3 chip_smoke.py
 
-Phases, in order; any failure exits non-zero without the result line:
+Phases, in order; any failure (a check, or an exception) exits non-zero
+without the result line, and its last line, on stdout and on stderr, is
+`chip_smoke: FAILED in phase <phase>: <the check>`:
 
 1. Environment: a CUDA device is present; the card's name and power
    limit (nvidia-smi), torch, CUDA and nvcc versions; g++ links -lz (the
@@ -114,6 +116,18 @@ Shard. The run lookup of `--shard-index` (csrc/find_runs.cu, a search
    and its tie-or-long reads, and each `--shard-index` run's lookup time,
    are printed beside its phase times.
 
+Multi. The CLI's 3-worker runs on a host whose local devices are the card
+   named twice (`local_devices` made to return [cuda:0, cuda:0], as a
+   two-card host's would name two cards): SE and PE (`--deterministic -t
+   3`) with and without `--shard-index`. Each SAM must equal phase 4's
+   `t3` or `t3-shard` SAM apart from @PG; the genome is uploaded once (one
+   distinct card); each worker's extend batches are split over the two
+   entries in turn (ceil(n/2), floor(n/2)) on one stream of its own on the
+   card; the sharded index has one shard an entry; the forward, the
+   traceback and, with --shard-index only, find_runs launched. The real
+   `local_devices()` and the card count are printed; with one card, that
+   no copy between cards ran.
+
 Pod. The multi-host pod run on the one card: two CLI processes
    (`python -m rabbitsalign_tpu_torch.cli --num-nodes 2`, the checkout on
    PYTHONPATH, a free coordinator port from the OS, `-t 1`, `-v`, `-o`),
@@ -128,7 +142,7 @@ Pod. The multi-host pod run on the one card: two CLI processes
    and the pod index's traffic are printed.
 
 The line before last is a JSON object with each kernel's launches in its
-path (phases 4 and Pod; the ILP phase for sw_forward_split), its phase-3 error,
+path (phases 4, Multi and Pod; the ILP phase for sw_forward_split), its phase-3 error,
 times, bound and library call; the last line is {"ok": true, "device":
 {...}}. Work files go to build/chip_smoke/.
 """
@@ -224,8 +238,18 @@ SHARD_KEY_BYTES = 8 + 16 + 16
 SHARD_ROW_BYTES = 16
 
 
+PHASE = "start"  # the phase running now, named by a failure
+
+
 def fail(msg: str) -> None:
+    """Print the failure in full on stderr, then one line that names the
+    phase and the check on stderr and stdout, the last of both, and exit
+    1, so that the failed check ends the output whatever runs after."""
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
+    check_line = " ".join(msg.strip().splitlines()[0].split())[:300] if msg.strip() else "?"
+    line = f"chip_smoke: FAILED in phase {PHASE}: {check_line}"
+    print(line, file=sys.stderr, flush=True)
+    print(line, flush=True)
     sys.exit(1)
 
 
@@ -238,12 +262,18 @@ def say(msg: str) -> None:
     print(msg, flush=True)
 
 
+def phase(name: str) -> None:
+    global PHASE
+    PHASE = name
+    say(f"== phase {name}")
+
+
 def run_cmd(cmd, **kw) -> subprocess.CompletedProcess:
     return subprocess.run(cmd, capture_output=True, text=True, timeout=600, **kw)
 
 
 def environment():
-    say("== phase 1: environment")
+    phase("1: environment")
     missing = [rel for rel in REQUIRED if not (ROOT / rel).is_file()]
     check(not missing, f"not a checkout of the repository (missing {missing})")
     sys.path.insert(0, str(ROOT))
@@ -272,7 +302,7 @@ def environment():
 
 
 def build():
-    say("== phase 2: build")
+    phase("2: build")
     from rabbitsalign_tpu_torch.ops import cuda_build
 
     cuda_build.build_kernels(extra_flags=("-Xptxas", "-v"))
@@ -474,7 +504,7 @@ def sw16(value):
 
 
 def kernels(torch, card):
-    say("== phase 3: kernels against their plain versions")
+    phase("3: kernels against their plain versions")
     from rabbitsalign_tpu_torch.native.engine import engine_buckets
     from rabbitsalign_tpu_torch.ops import extend_device as px
     from rabbitsalign_tpu_torch.ops import int16_probe as probe
@@ -611,7 +641,7 @@ def kernels(torch, card):
 
 def ilp(torch, card):
     """The ILP probe harness on its own path: counts set to 0 before it."""
-    say("== phase ILP: cross-pair ILP probe (tools/ilp_probe.py)")
+    phase("ILP: cross-pair ILP probe (tools/ilp_probe.py)")
     from rabbitsalign_tpu_torch.ops import sw_cuda
     from rabbitsalign_tpu_torch.tools import ilp_probe
 
@@ -706,7 +736,7 @@ def make_data():
     """The 40 Mbp genome, SE reads and PE pairs as FASTA/FASTQ under WORK,
     and its index, built with -i. Returns (reference path, {"SE": argv,
     "PE": argv})."""
-    say("== phase data: genome, reads and index")
+    phase("data: genome, reads and index")
     import bench
     from rabbitsalign_tpu_torch.cli import main
 
@@ -823,7 +853,7 @@ def load_index(ref):
 def seed_kernels(torch, card, index, se_fastq):
     """Phase Seed: the seeding and lookup kernels against their plain
     versions on the card, times, bounds and the library call."""
-    say("== phase Seed: the --device-seed kernels against their plain versions")
+    phase("Seed: the --device-seed kernels against their plain versions")
     import numpy as np
 
     from rabbitsalign_tpu_torch.index.strobemer_index import StrobemerIndex
@@ -1048,7 +1078,7 @@ def shard_kernels(torch, card, index, se_fastq):
     """Phase Shard: the run lookup of --shard-index against its plain
     versions on the card, at 1 and 4 shards of the one card; times, bound
     and the library call at 1 shard, the main path's shape."""
-    say("== phase Shard: the --shard-index run lookup against its plain versions")
+    phase("Shard: the --shard-index run lookup against its plain versions")
     import numpy as np
 
     from rabbitsalign_tpu_torch.ops import seed_device, shard_cuda, shard_find
@@ -1176,7 +1206,7 @@ def shard_kernels(torch, card, index, se_fastq):
 
 
 def main_path(torch, card, reads):
-    say("== phase 4: main path")
+    phase("4: main path")
     from rabbitsalign_tpu_torch.cli import main
     from rabbitsalign_tpu_torch.native import cache_dir
     from rabbitsalign_tpu_torch.ops import extend_device as px
@@ -1295,6 +1325,105 @@ def main_path(torch, card, reads):
     return {k: sum(launches[path][k] for path in paths) for k in counters}, runs
 
 
+MULTI_ENTRIES = 2  # phase Multi: a device list naming the card twice
+
+
+@contextlib.contextmanager
+def local_devices_as(torch, entries):
+    """The port sees `entries` as its local devices for --device cuda, as
+    on a host with that many cards; the NativePipelines made meanwhile and
+    the devices the genome is uploaded to are recorded."""
+    from rabbitsalign_tpu_torch.parallel import sharding
+    from rabbitsalign_tpu_torch.pipeline import native_pipeline as pnp
+
+    real = sharding.local_devices, pnp.NativePipeline.__init__, pnp.resident_ref_codes
+    pipes, uploads = [], []
+
+    def local(device="cuda"):
+        return list(entries) if torch.device(device).type == entries[0].type else real[0](device)
+
+    def init(self, *args, **kw):
+        real[1](self, *args, **kw)
+        pipes.append(self)
+
+    def upload(codes, device):
+        uploads.append(str(device))
+        return real[2](codes, device)
+
+    sharding.local_devices = pnp.local_devices = local
+    pnp.NativePipeline.__init__ = init
+    pnp.resident_ref_codes = upload
+    try:
+        yield pipes, uploads
+    finally:
+        sharding.local_devices = pnp.local_devices = real[0]
+        pnp.NativePipeline.__init__ = real[1]
+        pnp.resident_ref_codes = real[2]
+
+
+def multi(torch, card, reads, runs):
+    """Phase Multi: the CLI's 3-worker runs with a local device list of
+    two entries of the card. Returns the kernels' launches in it."""
+    phase("Multi: the extend round-robin and --shard-index over a device list naming the card "
+          "twice")
+    from rabbitsalign_tpu_torch.cli import main
+    from rabbitsalign_tpu_torch.ops import shard_cuda, sw_cuda, tb_cuda
+    from rabbitsalign_tpu_torch.parallel.sharding import local_devices
+
+    cards = local_devices(DEVICE)
+    say(f"local_devices({DEVICE!r}) = {[str(d) for d in cards]}, torch.cuda.device_count() = "
+        f"{torch.cuda.device_count()} [{card}]")
+    if len(cards) == 1:
+        say("one card: no copy between cards ran (the extend's uploads and the shards' merge "
+            "across cards are held only by the CPU tests and test_torch_cuda.py)")
+    entries = [torch.device(DEVICE, 0)] * MULTI_ENTRIES
+    base = ["--use-index", "--no-progress", "--device", DEVICE]
+    paths = {"multi2": {"SE": [], "PE": ["--deterministic", "-t", "3"]},
+             "multi2-shard": {"SE": ["--shard-index"],
+                              "PE": ["--deterministic", "-t", "3", "--shard-index"]}}
+    totals = {"sw_forward": 0, "sw_traceback": 0, "find_runs": 0}
+    for path, flags in paths.items():
+        sw_cuda.launches = tb_cuda.launches = shard_cuda.launches_find_runs = 0
+        for name, extra in flags.items():
+            with local_devices_as(torch, entries) as (pipes, uploads):
+                run = map_run(main, f"{name}.{path}.cuda",
+                              [*reads[name], *base, *extra])
+            key = f"{path} {name}"
+            check(uploads == [str(entries[0])], f"{key}: genome uploads {uploads}, one a "
+                  f"distinct card expected")
+            split = [p.dispatched for p in pipes]
+            check(len(pipes) == 3 and all(
+                d == [(sum(d) + 1) // 2, sum(d) // 2] for d in split) and all(
+                sum(col) > 0 for col in zip(*split)),
+                f"{key}: the workers' dispatches an entry {split} are not split in turn over "
+                f"both entries")
+            check(all(list(p.streams) == entries[:1] for p in pipes) or entries[0].type != "cuda",
+                  f"{key}: streams a card {[list(p.streams) for p in pipes]}")
+            if "--shard-index" in extra:
+                si = pipes[0].sharded_index
+                check(si.devices == entries and all(p.sharded_index is si for p in pipes),
+                      f"{key}: shards on {si.devices}, one shard an entry expected")
+                check(run[7].endswith("feed misses 0"), f"{key}: the engine missed run records: "
+                      f"{run[7]}")
+            plain = "t3-shard" if "--shard-index" in extra else "t3"
+            check(run[0] == runs[plain, name][0], f"SAM of {key} differs from {plain} {name}")
+            say(f"SAM {key} == {plain} {name} apart from @PG; {run[1]} reads, mapping loop "
+                f"{run[2]} reads/s against {runs[plain, name][2]} ({plain}); dispatches an entry "
+                f"by worker {split}; genome uploads {uploads}"
+                + (f"; sharded lookups {run[7]}" if run[7] else "") + f" [{card}]")
+        torch.cuda.synchronize()
+        launched = {"sw_forward": sw_cuda.launches, "sw_traceback": tb_cuda.launches,
+                    "find_runs": shard_cuda.launches_find_runs}
+        say(f"{path}: kernel launches {launched}")
+        check(launched["sw_forward"] > 0 and launched["sw_traceback"] > 0,
+              f"{path}: the extend kernels never launched: {launched}")
+        check((launched["find_runs"] > 0) == path.endswith("-shard"),
+              f"{path}: find_runs launches {launched['find_runs']}")
+        for k, v in launched.items():
+            totals[k] += v
+    return totals
+
+
 def free_ports(n: int):
     """n ports the OS has free now (bound to port 0, then released)."""
     import socket
@@ -1369,7 +1498,7 @@ def pod(card, reads, runs):
     """Phase Pod: three pods of two processes on the card, and the PE one
     with --no-tpu as its reference. Returns the device pods' kernel
     launches, summed over their processes."""
-    say("== phase Pod: two hosts of a --num-nodes 2 pod on the one card")
+    phase("Pod: two hosts of a --num-nodes 2 pod on the one card")
     base = ["--use-index", "--no-progress", "--device", DEVICE]
     specs = {("pod2", "SE"): (reads["SE"], False, []),
              ("pod2-shard", "SE"): (reads["SE"], True, []),
@@ -1438,6 +1567,8 @@ def main() -> int:
     bounds.update(seed_bounds, **shard_bounds)
     library.update(shard_library)
     launches, runs = main_path(torch, card, reads)
+    for k, v in multi(torch, card, reads, runs).items():
+        launches[k] += v
     for k, v in pod(card, reads, runs).items():
         if k in launches:
             launches[k] += v
@@ -1458,4 +1589,11 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        code = main()
+    except Exception as e:  # named by the failure line, after its traceback
+        import traceback
+
+        traceback.print_exc()
+        fail(f"{type(e).__name__}: {e}")
+    sys.exit(code)

@@ -166,12 +166,12 @@ def parse_command_line_arguments(argv: Optional[List[str]] = None) -> CommandLin
     # device extensions
     p.add_argument("--device-seed", action="store_true",
                    help="Run seeding + index lookup on the device given by "
-                        "--device")
+                        "--device (its first card)")
     p.add_argument("--shard-index", action="store_true",
                    help="Serve every index lookup from a hash-sharded "
-                        "index on the device given by --device instead "
-                        "of the host arrays; takes precedence over "
-                        "--device-seed")
+                        "index on the device given by --device (one shard "
+                        "a card) instead of the host arrays; takes "
+                        "precedence over --device-seed")
     p.add_argument("--pe-ref-async", action="store_true",
                    help="Replicate the reference binary's async PE "
                         "insert-size semantics exactly (per-chunk "
@@ -186,8 +186,10 @@ def parse_command_line_arguments(argv: Optional[List[str]] = None) -> CommandLin
                    help="Disable the device extend path (host alignment only)")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                    help="Device of the kernels (the extend, --device-seed "
-                        "and --shard-index) [cuda]; cpu runs their plain "
-                        "PyTorch versions")
+                        "and --shard-index) [cuda]; cuda uses every card "
+                        "the process sees (CUDA_VISIBLE_DEVICES), the "
+                        "extend batches going to them in turn; cpu runs "
+                        "their plain PyTorch versions")
     p.add_argument("--profile", metavar="DIR", default=None,
                    help="Write a torch.profiler trace of the mapping run to "
                         "DIR (view with TensorBoard / Perfetto)")
@@ -211,7 +213,10 @@ def parse_command_line_arguments(argv: Optional[List[str]] = None) -> CommandLin
                         "order); each host keeps only its hash-range "
                         "slice and serves it to the others. With "
                         "--mmap-index a host never materializes the full "
-                        "index in RAM")
+                        "index in RAM. A host dials a peer for up to "
+                        "RSB_POD_CONNECT_TIMEOUT seconds (600) the first "
+                        "time, and for RSB_POD_REDIAL_TIMEOUT seconds (5) "
+                        "after a peer it reached refuses")
     p.add_argument("ref_filename", metavar="reference",
                    help="Reference in FASTA format")
     p.add_argument("reads1", nargs="?", default="", help="Reads 1 (FASTA/FASTQ, may be .gz)")

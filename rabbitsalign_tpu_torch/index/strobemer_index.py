@@ -461,6 +461,10 @@ class StrobemerIndex:
                 elif hdr["sti_sha64"] != self._sti_fingerprint(filename,
                                                                probes=64):
                     return False
+                else:
+                    # the dense check vouches for the rewritten .sti: record
+                    # its mtime, so the next open takes the sparse check
+                    self._record_sti_mtime(d, hdr, st.st_mtime_ns)
             elif hdr.get("sti_mtime_ns") != st.st_mtime_ns:
                 # sidecars written before the fingerprint existed
                 return False
@@ -517,6 +521,28 @@ class StrobemerIndex:
         return True
 
 
+    @staticmethod
+    def _record_sti_mtime(d: str, hdr: dict, mtime_ns: int) -> None:
+        """Rewrite the sidecar's header.json with `mtime_ns` as its
+        sti_mtime_ns (a private file renamed into place). A sidecar that
+        cannot be written stays as it is: the next open checks densely
+        again."""
+        import json
+        import os
+        import tempfile
+
+        try:
+            fd, tmp = tempfile.mkstemp(dir=d, prefix=".header.")
+        except OSError:
+            return
+        try:
+            with os.fdopen(fd, "w") as f:
+                json.dump({**hdr, "sti_mtime_ns": mtime_ns}, f)
+            os.replace(tmp, os.path.join(d, "header.json"))
+        except OSError:
+            os.unlink(tmp)
+
+
 def _madvise_willneed(arr) -> None:
     """Hint the kernel to schedule readahead for a memmap'd column."""
     import ctypes
@@ -561,6 +587,24 @@ def _warm_page_cache(files, arrays=None) -> None:
             f"index warmer: random-access warm {time.perf_counter()-t0:.1f}s")
 
 
+def _warm_budget_s(default: float = 8.0) -> float:
+    """RSB_INDEX_WARM_S as seconds; a value that is not a number warns
+    and gives the default, so the warmer thread runs on."""
+    import os
+
+    from ..utils.logger import logger
+
+    value = os.environ.get("RSB_INDEX_WARM_S", "")
+    if not value:
+        return default
+    try:
+        return float(value)
+    except ValueError:
+        logger.warning(f"RSB_INDEX_WARM_S={value!r} is not a number of seconds; "
+                       f"warming for {default:g} s")
+        return default
+
+
 def warm_index_random_access(hashes, positions, buckets,
                              budget_s: float = None) -> None:
     """Burn off the first-pass page-mapping penalty on a freshly-loaded
@@ -583,7 +627,7 @@ def warm_index_random_access(hashes, positions, buckets,
     import time
 
     if budget_s is None:
-        budget_s = float(os.environ.get("RSB_INDEX_WARM_S", "8"))
+        budget_s = _warm_budget_s()
     n = len(hashes)
     if budget_s <= 0 or n == 0:
         return

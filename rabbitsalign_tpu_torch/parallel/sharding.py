@@ -7,9 +7,11 @@ answers with the full `StrobemerIndex::find` semantics (reference
 src/index.hpp:57-147): first-occurrence position, run length, the
 repetitive filter, and the run's (position, packed) records, which the
 engine's run-fed phase A walks instead of the host index arrays. This is
-the whole-genome scale-out design of the JAX package; here every shard
-lives on one device (several shards of one card, or of the CPU in tests),
-as no multi-card run has tested a merge across cards yet.
+the whole-genome scale-out design of the JAX package: by default
+(`make_mesh()`, `local_devices`) every card this process sees holds one
+shard, as every device of the JAX mesh does; a list may also name one
+device several times (several shards of one card, or of the CPU in
+tests).
 
 Counterpart of rabbitsalign_tpu/parallel/sharding.py. `SENTINEL`,
 `shard_bounds` and `shard_index_by_hash` are numpy copies of the functions
@@ -17,11 +19,13 @@ there (without the reachable flags: the lookup bounds its search by the
 bucket table, which gives the same answers). The mesh is a plain list of
 `torch.device`s (`make_mesh`); one shard's lookup is the
 `ops/shard_cuda.py` pair `find_runs` and `gather_runs` (the kernel
-`csrc/find_runs.cu`, or its plain PyTorch version for CPU tensors). Where
-the JAX package psums the shards' answers over the mesh, `find_runs` here
-adds them up; `find_runs_routed` sends each key only to its owner, and
-`find_runs_compact`, the pipeline's lookup, does that and also builds on
-the device the compacted run records the engine reads.
+`csrc/find_runs.cu`, or its plain PyTorch version for CPU tensors), on
+the shard's device. Where the JAX package psums the shards' answers over
+the mesh, `find_runs` here adds them up on the host; `find_runs_routed`
+sends each key only to its owner, and `find_runs_compact`, the pipeline's
+lookup, does that and also builds the compacted run records the engine
+reads: on the device when every shard is on one device, else each device
+gathers its own keys' runs and the host places them by key.
 """
 
 from __future__ import annotations
@@ -43,17 +47,58 @@ SENTINEL = np.uint64(0xFFFFFFFFFFFFFFFF)
 _UPLOAD_LOCK = threading.Lock()
 
 
-def make_mesh(n_devices: int = 1, device="cuda") -> List[torch.device]:
-    """The devices that hold the shards: `n_devices` entries of the given
-    device (several shards on one card, or on the CPU in tests). A CUDA
-    mesh without a card raises."""
+def local_devices(device="cuda") -> List[torch.device]:
+    """The counterpart of `jax.local_devices()`: for "cuda" every card
+    this process sees ([cuda:0 ... cuda:k-1], as CUDA_VISIBLE_DEVICES
+    selects them), for an indexed "cuda:i" that card, for "cpu" [cpu].
+    CUDA without a card raises."""
     device = torch.device(device)
-    if device.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError("--shard-index on cuda: no CUDA device is available (use "
-                               "--device cpu for the plain PyTorch lookup)")
-        device = torch.device("cuda", device.index or 0)
-    return [device] * n_devices
+    if device.type != "cuda":
+        return [device]
+    if device.index is not None:
+        return check_devices([device])
+    _require_cards()
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
+def _require_cards() -> None:
+    if not torch.cuda.is_available():
+        raise RuntimeError("--device cuda: no CUDA device is available (use --device cpu "
+                           "for the plain PyTorch versions, or --no-tpu for host alignment)")
+
+
+def check_devices(devices, what: str = "every entry") -> List[torch.device]:
+    """`devices` as a list of `torch.device`s, a CUDA one with its index
+    (cuda -> cuda:0). Raises for an empty list, a list that mixes device
+    types or names one other than cpu and cuda, and a card that this
+    process does not see. Entries may repeat."""
+    devices = [torch.device(d) for d in devices]
+    types = {d.type for d in devices}
+    if not devices or len(types) != 1 or not types <= {"cpu", "cuda"}:
+        raise ValueError(f"{what} on one device type, cpu or cuda, expected, got {devices}")
+    if types == {"cuda"}:
+        _require_cards()
+        devices = [torch.device("cuda", d.index or 0) for d in devices]
+        n = torch.cuda.device_count()
+        absent = sorted({str(d) for d in devices if d.index >= n})
+        if absent:
+            raise RuntimeError(f"no such CUDA device: {', '.join(absent)} (this process sees "
+                               f"{n} card(s))")
+    return devices
+
+
+def make_mesh(n_devices: Optional[int] = None, device="cuda") -> List[torch.device]:
+    """The devices that hold the shards: with no count every local device
+    (`local_devices`), one shard each, as the JAX package's `make_mesh()`;
+    else `n_devices` entries of the given device (several shards on one
+    card, or on the CPU in tests). A CUDA mesh without a card raises."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("--shard-index on cuda: no CUDA device is available (use "
+                           "--device cpu for the plain PyTorch lookup)")
+    if n_devices is None:
+        return local_devices(device)
+    return check_devices([device], "the mesh") * n_devices
 
 
 def shard_bounds(hashes: np.ndarray, n_shards: int) -> np.ndarray:
@@ -108,32 +153,31 @@ class ShardedIndex:
 
     `index` is any object with ``hashes`` (uint64), ``positions`` and
     ``packed`` (uint32), ``randstrobe_start_indices`` (its bucket table),
-    ``bits`` and ``filter_cutoff``. Every entry of `devices` must be one
-    device. Shard s holds hashes as int64 with the uint64 bits, positions
-    and packed as int32 with the uint32 bits; the bucket table is there
-    once, as int64. They are uploaded once, when the object is made; one
-    object serves every mapping worker, each looking up on its own
-    stream."""
+    ``bits`` and ``filter_cutoff``. Shard s lives on `devices[s]`; the
+    entries are of one device type and may repeat. Shard s holds hashes as
+    int64 with the uint64 bits, positions and packed as int32 with the
+    uint32 bits; the bucket table is there once a distinct device, as
+    int64. They are uploaded once, when the object is made; one object
+    serves every mapping worker, each looking up on its own streams."""
 
     def __init__(self, devices, index):
         t0 = time.perf_counter()
-        self.devices = [torch.device(d) for d in devices]
-        if not self.devices or len(set(self.devices)) != 1:
-            raise ValueError(f"every shard on one device expected, got {self.devices}: shards "
-                             f"on several cards are not supported")
-        dev = self.device = self.devices[0]
+        self.devices = check_devices(devices, "every shard")
+        self.device = self.devices[0]
         n_shards = self.n_shards = len(self.devices)
         h, p, k, starts = shard_index_by_hash(index.hashes, index.positions, index.packed,
                                               n_shards)
         self.bits = int(index.bits)
         with _UPLOAD_LOCK:
             # a copy: the table may be a read-only memmap (--mmap-index)
-            self._buckets = _put(
-                np.array(index.randstrobe_start_indices, np.uint64).view(np.int64), dev)
-            self._shards = [(_put(h[s].view(np.int64), dev), _put(p[s].view(np.int32), dev),
-                             _put(k[s].view(np.int32), dev)) for s in range(n_shards)]
-            if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
+            table = np.array(index.randstrobe_start_indices, np.uint64).view(np.int64)
+            self._tables = {d: _put(table, d) for d in dict.fromkeys(self.devices)}
+            self._buckets = self._tables[self.device]
+            self._shards = [(_put(h[s].view(np.int64), d), _put(p[s].view(np.int32), d),
+                             _put(k[s].view(np.int32), d)) for s, d in enumerate(self.devices)]
+            for d in self._tables:
+                if d.type == "cuda":
+                    torch.cuda.synchronize(d)
         self.starts = [int(x) for x in starts]
         self.width = int(h.shape[1])  # entries a shard, padding included
         n = index.hashes.shape[0]
@@ -157,11 +201,11 @@ class ShardedIndex:
         self.build_s = time.perf_counter() - t0
 
     def _lookup(self, s: int, keys: np.ndarray):
-        """Search shard s for `keys` (uint64) on the device: (gpos,
+        """Search shard s for `keys` (uint64) on its device: (gpos,
         count), (nq,) int64 tensors there."""
+        dev = self.devices[s]
         return shard_cuda.find_runs(self._shards[s][0], self.shard_sizes[s], self.starts[s],
-                                    self._buckets, self.bits,
-                                    _put(keys.view(np.int64), self.device))
+                                    self._tables[dev], self.bits, _put(keys.view(np.int64), dev))
 
     def _gather(self, s: int, gpos, count, cap: int, dst, out_pos, out_packed) -> None:
         _, p, k = self._shards[s]
@@ -178,7 +222,7 @@ class ShardedIndex:
         runk = np.zeros((nq, cap), np.int32)
         for s, idx in routes(keys):
             g, c = self._lookup(s, np.ascontiguousarray(keys[idx]))
-            rp = torch.zeros(c.numel() * cap, dtype=torch.int32, device=self.device)
+            rp = torch.zeros(c.numel() * cap, dtype=torch.int32, device=self.devices[s])
             rk = torch.zeros_like(rp)
             self._gather(s, g, c, cap, None, rp, rk)
             gpos[idx] += g.cpu().numpy()
@@ -228,10 +272,9 @@ class ShardedIndex:
 
     def find_runs_compact(self, keys: np.ndarray, cap: Optional[int] = None):
         """The routed lookup in the layout the engine's run feed reads,
-        built on the device so that no dense (NQ, cap) matrix is made or
-        copied: the run records of each key that is walked (found, with
-        count <= cap; cap defaults to the filter cutoff) back to back in
-        key order.
+        built so that no dense (NQ, cap) matrix is made or copied: the run
+        records of each key that is walked (found, with count <= cap; cap
+        defaults to the filter cutoff) back to back in key order.
 
         Returns a dict of numpy arrays: count (NQ,) int64; filtered (NQ,)
         bool (count > filter_cutoff); run_off (NQ,) int64, the offset of
@@ -241,10 +284,12 @@ class ShardedIndex:
         `find_runs_routed(keys, cap)` on the host."""
         cap = self.filter_cutoff if cap is None else int(cap)
         keys = np.ascontiguousarray(np.asarray(keys, dtype=np.uint64))
-        nq = keys.shape[0]
-        dev = self.device
         parts = [(s, idx, *self._lookup(s, np.ascontiguousarray(keys[idx])))
                  for s, idx in self._route(keys)]
+        if len(self._tables) > 1:
+            return self._compact_across_devices(keys.shape[0], cap, parts)
+        nq = keys.shape[0]
+        dev = self.device
         if self.n_shards == 1:
             count = parts[0][3]  # every key on the one shard, in order
             at = {0: None}
@@ -270,4 +315,50 @@ class ShardedIndex:
             "run_off": run_off.cpu().numpy(),
             "run_positions": run_pos.cpu().numpy().view(np.uint32),
             "run_packed": run_packed.cpu().numpy().view(np.uint32),
+        }
+
+    def _compact_across_devices(self, nq: int, cap: int, parts) -> dict:
+        """`find_runs_compact` over shards on several devices. The counts
+        come to the host, which lays out the run offsets; each shard
+        gathers its own walked keys' runs back to back into a buffer on
+        its device, which comes back in one copy (pinned on a card); the
+        host places each key's rows at its offset."""
+        count = np.zeros(nq, np.int64)
+        for _, idx, _, c in parts:
+            count[idx] = c.cpu().numpy()
+        walk = (count > 0) & (count <= cap)
+        width = np.where(walk, count, 0)
+        ends = np.cumsum(width)
+        run_off = np.where(walk, ends - width, -1)
+        rows = np.zeros((2, max(int(ends[-1]) if nq else 0, 1)), np.int32)
+        copies = []
+        for s, idx, gpos, c in parts:
+            w = width[idx]
+            local_ends = np.cumsum(w)
+            n_local = int(local_ends[-1])
+            if not n_local:
+                continue
+            dev = self.devices[s]
+            local = torch.empty((2, n_local), dtype=torch.int32, device=dev)
+            self._gather(s, gpos, c, cap, _put(np.where(w > 0, local_ends - w, -1), dev),
+                         local[0], local[1])
+            host = local
+            if dev.type == "cuda":
+                host = torch.empty(local.shape, dtype=local.dtype, pin_memory=True)
+                host.copy_(local, non_blocking=True)
+            # local row j of the shard's walked keys goes to global row
+            # run_off[key] + (j - its local offset)
+            walked = idx[w > 0]
+            shift = np.repeat(run_off[walked] - (local_ends - w)[w > 0], width[walked])
+            copies.append((dev, host, shift + np.arange(n_local)))
+        for dev, host, dst in copies:
+            if dev.type == "cuda":
+                torch.cuda.current_stream(dev).synchronize()
+            rows[:, dst] = host.numpy()
+        return {
+            "count": count,
+            "filtered": count > self.filter_cutoff,
+            "run_off": run_off,
+            "run_positions": rows[0].view(np.uint32),
+            "run_packed": rows[1].view(np.uint32),
         }

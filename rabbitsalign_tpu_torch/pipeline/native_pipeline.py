@@ -10,8 +10,15 @@ C++ phase B then finishes the chunk and writes its SAM/PAF bytes. Device
 work is queued on the current CUDA stream and its results are copied into
 pinned host memory behind a CUDA event, so phase A of the next chunks
 runs while the GPU extends this one; `finish_chunk` waits on the event.
-Each threaded worker enqueues on a CUDA stream of its own (the current
-stream is per thread), as GASAL2 gives each host thread its own streams.
+Each threaded worker enqueues on a CUDA stream of its own on every card
+(the current stream is per thread), as GASAL2 gives each host thread its
+own streams.
+
+A pipeline's device list defaults to every local card (`local_devices`,
+the counterpart of `jax.local_devices()`): the extend batches go to its
+entries in turn, each card holding one copy of the genome for the whole
+run, as the JAX package's `_dispatch` spreads them over its local
+devices. Seeding (``--device-seed``) stays on the first entry.
 
 With ``--device-seed`` phase A takes each chunk's seeds and index hits
 from the device (ops/seed_device.py:seed_and_find, two kernels against
@@ -21,7 +28,7 @@ by the engine itself.
 
 With ``--shard-index`` (which takes precedence over ``--device-seed``)
 every index lookup of phase A is served by the hash-sharded index
-(parallel/sharding.py, one shard on the device): the engine seeds the chunk
+(parallel/sharding.py, one shard an entry of the device list): the engine seeds the chunk
 without touching the index, the strobes' hashes go through one batched
 lookup, and the engine maps the chunk from the prefetched run records.
 In a multi-host pod (``--num-nodes``, parallel/multihost.py) one
@@ -51,7 +58,7 @@ from ..native.engine import NativeEngine, NativeReader
 from ..ops.extend_device import extend_batch_packed_resident_q2, resident_ref_codes
 from ..ops.seed_device import seed_and_find, strobe_views
 from ..ops.sw_cuda import SwParams
-from ..parallel.sharding import ShardedIndex, make_mesh
+from ..parallel.sharding import ShardedIndex, check_devices, local_devices, make_mesh
 from ..utils.logger import logger
 
 
@@ -98,14 +105,7 @@ def pin_worker_thread(wid: int):
         return None
 
 
-def require_cuda(device: torch.device) -> None:
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "--device cuda: no CUDA device is available (use --device cpu "
-            "for the plain PyTorch extend, or --no-tpu for host alignment)")
-
-
-# one resident genome per run, shared by every worker's pipeline
+# one resident genome per run and device, shared by every worker's pipeline
 _RESIDENT_CACHE: dict = {}
 _RESIDENT_LOCK = threading.Lock()
 
@@ -119,12 +119,13 @@ def _resident_ref_codes(references, engine, device: torch.device) -> torch.Tenso
         cached = _RESIDENT_CACHE.get(key)
         if cached is not None:
             return cached[1]
+        for other in [k for k in _RESIDENT_CACHE if k[0] != key[0]]:
+            del _RESIDENT_CACHE[other]  # one genome per run; the other cards' copies stay
         codes = resident_ref_codes(engine.ref_codes(), device)
         if device.type == "cuda":
             # the copy was queued on this thread's stream; the workers
             # read the tensor from streams of their own
             torch.cuda.synchronize(device)
-        _RESIDENT_CACHE.clear()  # one genome per run; no stale copies
         # a strong ref to `references` keeps the id() key valid
         _RESIDENT_CACHE[key] = (references, codes)
         return codes
@@ -168,10 +169,11 @@ def _resident_seed_index(index, device: torch.device) -> Tuple[torch.Tensor, tor
 RESCUE_RUN_CAP = 1000
 
 
-def build_sharded_index(index, device: torch.device) -> ShardedIndex:
-    """The --shard-index index: one shard on `device` (a CUDA device
-    without a card raises)."""
-    return ShardedIndex(make_mesh(1, device), index)
+def build_sharded_index(index, device: torch.device, devices=None) -> ShardedIndex:
+    """The --shard-index index: one shard an entry of `devices`, by
+    default of `local_devices(device)` (a CUDA device without a card
+    raises)."""
+    return ShardedIndex(make_mesh(None, device) if devices is None else devices, index)
 
 
 def _at_least_one(a: np.ndarray) -> np.ndarray:
@@ -194,6 +196,7 @@ class NativePipeline:
         device_seed: bool = False,
         shard_index: bool = False,
         sharded_index: Optional[ShardedIndex] = None,
+        devices=None,
     ):
         self.engine = NativeEngine(
             index, index_parameters, references, aln_params, map_param,
@@ -213,35 +216,50 @@ class NativePipeline:
         self.use_device = use_device
         # --device-seed needs the device path: --no-tpu keeps host seeding
         self.device_seed = device_seed and use_device
-        self.device = torch.device(device)
+        # --shard-index: the shards stay on the devices even with --no-tpu,
+        # which turns off only the extend
+        self.shard_index = bool(shard_index)
+        # the extend's devices, round-robin (`_dispatch`): the devices
+        # given, else every local one where the run needs a device; the
+        # first one also seeds (--device-seed)
+        if devices is not None:
+            self._devices = check_devices(devices)
+        elif use_device or self.shard_index:
+            self._devices = local_devices(device)
+        else:
+            self._devices = [torch.device(device)]
+        self.device = self._devices[0]
+        self._next_dev = 0  # dispatches to a list of more than one entry
+        self.dispatched = [0] * len(self._devices)  # extend batches an entry
+        self.streams = {}  # a mapping thread's stream a card (stream_context)
         self._index = index
         self._params = index_parameters
         self._map_param = map_param
         self._seed_ix = None
         self.device_seed_s = 0.0  # wall time of _preseed before the engine
         self.host_seeded = 0  # records the engine seeded under --device-seed
-        # --shard-index: the shards stay on --device even with --no-tpu,
-        # which turns off only the extend
-        self.shard_index = bool(shard_index)
         self.sharded_index = sharded_index
         if self.shard_index and sharded_index is None:
-            self.sharded_index = build_sharded_index(index, self.device)
+            self.sharded_index = build_sharded_index(index, self.device, self._devices)
         self.shard_lookup_s = 0.0  # wall time of the sharded lookups
         self.rescue_preflight_s = 0.0  # and of the host's rescue preflight
         if use_device:
-            require_cuda(self.device)
             self._sw = SwParams(aln_params.match, aln_params.mismatch,
                                 aln_params.gap_open, aln_params.gap_extend)
-            # the genome stays resident on the device for the whole run
-            self._ref_codes = _resident_ref_codes(references, self.engine, self.device)
+            # the genome stays resident on each device for the whole run,
+            # one copy a distinct device
+            copies = {d: _resident_ref_codes(references, self.engine, d)
+                      for d in dict.fromkeys(self._devices)}
+            self._ref_codes = [copies[d] for d in self._devices]
 
     SEED_L = 256  # longest read seeded on the device (longer: host)
 
-    def _upload(self, a: np.ndarray) -> torch.Tensor:
+    @staticmethod
+    def _upload(a: np.ndarray, device: torch.device) -> torch.Tensor:
         host = torch.from_numpy(a)
-        if self.device.type != "cuda":
+        if device.type != "cuda":
             return host
-        return host.pin_memory().to(self.device, non_blocking=True)
+        return host.pin_memory().to(device, non_blocking=True)
 
     def _preseed(self, fx, n_records: int, chunk_index: int):
         """Phase A of one reader chunk with its seeds and index hits from
@@ -254,7 +272,8 @@ class NativePipeline:
             self._seed_ix = _resident_seed_index(self._index, self.device)
         codes, lens = self.engine.fx_codes(fx, n_records, self.SEED_L)
         sp, rp = self._params.syncmer, self._params.randstrobe
-        buf, total = seed_and_find(self._upload(codes), self._upload(lens), *self._seed_ix, sp.k,
+        buf, total = seed_and_find(self._upload(codes, self.device),
+                                   self._upload(lens, self.device), *self._seed_ix, sp.k,
                                    sp.s, sp.t_syncmer, rp.w_min, rp.w_max, rp.q, rp.max_dist,
                                    self.SEED_L, self._index.bits)
         if buf.device.type == "cuda":  # the chunk's arrays back in one copy
@@ -382,17 +401,24 @@ class NativePipeline:
         return self.engine.chunk_a_fx(fx, chunk_index)
 
     def _dispatch(self, buf: np.ndarray, Q: int, T: int, sub: int):
-        """Upload one q2 batch, extend it on the device and start the copy
-        of its packed output to the host. Returns (host tensor, event);
-        the event is None on the CPU, where the result is ready."""
-        out = extend_batch_packed_resident_q2(self._upload(buf), self._ref_codes, Q, T,
+        """Upload one q2 batch to the next device (round-robin), extend it
+        there against that device's genome and start the copy of its
+        packed output to the host. Returns (host tensor, event); the event
+        is None on the CPU, where the result is ready."""
+        di = 0
+        if len(self._devices) > 1:
+            di = self._next_dev % len(self._devices)
+            self._next_dev += 1
+        self.dispatched[di] += 1
+        dev = self._devices[di]
+        out = extend_batch_packed_resident_q2(self._upload(buf, dev), self._ref_codes[di], Q, T,
                                               self._sw, sub)
-        if self.device.type != "cuda":
+        if dev.type != "cuda":
             return out, None
         out_host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
         out_host.copy_(out, non_blocking=True)
         event = torch.cuda.Event()
-        event.record(torch.cuda.current_stream(self.device))
+        event.record(torch.cuda.current_stream(dev))
         return out_host, event
 
     def _plan_and_dispatch(self, chunk) -> list:
@@ -500,6 +526,10 @@ class NativePipeline:
     def counters(self) -> dict:
         return {**self.engine.counters(), "host_seeded": self.host_seeded}
 
+    def dispatches(self) -> list:
+        """Extend batches dispatched to each entry of the device list."""
+        return list(self.dispatched)
+
     def timers(self) -> dict:
         return {**self.engine.timers(), "device_seed_s": self.device_seed_s,
                 "shard_lookup_s": self.shard_lookup_s,
@@ -507,22 +537,29 @@ class NativePipeline:
 
     @contextlib.contextmanager
     def stream_context(self):
-        """Enter on a mapping thread: a CUDA stream of its own when the
-        pipeline extends or looks up on a CUDA device (the current stream
-        is per thread, so workers that shared the default stream would
-        serialize their kernels); nothing otherwise."""
-        if not ((self.use_device or self.shard_index) and self.device.type == "cuda"):
+        """Enter on a mapping thread: a CUDA stream of its own on each
+        distinct card of the device list when the pipeline extends or
+        looks up on CUDA (the current stream is per thread and card, so
+        workers that shared a card's default stream would serialize their
+        kernels there), with the first card current; nothing otherwise.
+        `streams` keeps the last context's streams by card."""
+        cards = [d for d in dict.fromkeys(self._devices) if d.type == "cuda"]
+        if not ((self.use_device or self.shard_index) and cards):
             yield
             return
-        with torch.cuda.device(self.device), torch.cuda.stream(torch.cuda.Stream(self.device)):
+        with contextlib.ExitStack() as stack:
+            self.streams = {d: torch.cuda.Stream(d) for d in cards}
+            for stream in self.streams.values():
+                stack.enter_context(torch.cuda.stream(stream))
+            stack.enter_context(torch.cuda.device(self.device))
             yield
 
 
 class DevicePrewarm(threading.Thread):
     """The device prewarm of `prewarm_device`. It keeps its exception:
     `result()` joins the thread and re-raises it, so a kernel library
-    that does not build, or a probe that does not launch, fails the run
-    before any output is written."""
+    that does not build, a card that is absent, or a probe that does not
+    launch, fails the run before any output is written."""
 
     def __init__(self, device: torch.device):
         super().__init__(name="device-prewarm")
@@ -532,7 +569,7 @@ class DevicePrewarm(threading.Thread):
 
     def run(self) -> None:
         try:
-            self.probe_ok = _warm_device(self.device)
+            self.probe_ok = _warm_device(local_devices(self.device))
         except Exception as e:  # re-raised by result() on the caller's thread
             self.error = e
 
@@ -545,28 +582,33 @@ class DevicePrewarm(threading.Thread):
         return self.probe_ok
 
 
-def _warm_device(device: torch.device) -> Optional[bool]:
-    """Build or load the kernel library, create the CUDA context on the
-    device and run the int16 probe. The CPU has nothing to build or
-    probe."""
-    if device.type != "cuda":
+def _warm_device(devices) -> Optional[bool]:
+    """Build or load the kernel library, create the CUDA context on every
+    card of the device list and run the int16 probe on the first, as the
+    JAX prewarm probes its default device. The CPU has nothing to build
+    or probe."""
+    cards = [d for d in dict.fromkeys(devices) if d.type == "cuda"]
+    if not cards:
         return None
-    require_cuda(device)
     from ..ops.cuda_build import load_kernels
     from ..ops.int16_probe import probe_int16_lowering
 
     load_kernels()
-    with torch.cuda.device(device):
-        torch.cuda.init()
-        return probe_int16_lowering(device)
+    torch.cuda.init()
+    for card in cards:
+        torch.empty(1, device=card)  # the card's context, made here
+        torch.cuda.synchronize(card)
+    with torch.cuda.device(cards[0]):
+        return probe_int16_lowering(cards[0])
 
 
 def prewarm_device(device) -> DevicePrewarm:
     """Start the device prewarm in a background thread, so the one-off
-    kernel build, the CUDA context and the probe overlap reference and
-    index loading (the counterpart of rabbitsalign_tpu's
+    kernel build, the cards' CUDA contexts and the probe overlap
+    reference and index loading (the counterpart of rabbitsalign_tpu's
     prewarm_extend_programs, which compiles the extend programs and runs
-    its probe there). Call `result()` before the first chunk is mapped."""
+    its probe there) on `local_devices(device)`, the pipelines' default
+    list. Call `result()` before the first chunk is mapped."""
     t = DevicePrewarm(torch.device(device))
     t.start()
     return t
@@ -610,16 +652,17 @@ class ThreadedNativePipeline:
         device_seed: bool = False,
         shard_index: bool = False,
         pin_workers: bool = False,
+        devices=None,
     ):
         # one sharded index serves every worker: its shards are uploaded
-        # once, and each worker looks up on its own stream
-        self.sharded_index = (build_sharded_index(index, torch.device(device))
+        # once, and each worker looks up on its own streams
+        self.sharded_index = (build_sharded_index(index, torch.device(device), devices)
                               if shard_index else None)
         self._mk = lambda: NativePipeline(
             index, index_parameters, references, aln_params, map_param,
             read_group_id, use_device=use_device, batch_size=batch_size,
             device=device, device_seed=device_seed, shard_index=shard_index,
-            sharded_index=self.sharded_index,
+            sharded_index=self.sharded_index, devices=devices,
         )
         self.n_workers = max(1, n_workers)
         self.queue_depth = queue_depth
@@ -628,6 +671,7 @@ class ThreadedNativePipeline:
         self.pinned_cpus = []  # (wid, cpu) telemetry, filled by workers
         self._counters = []
         self._timers = []
+        self.worker_dispatched = []  # each worker's extend batches an entry
 
     def map_file(self, path1, path2, interleaved, chunk_size, write,
                  progress=None) -> int:
@@ -635,6 +679,7 @@ class ThreadedNativePipeline:
         # the previous map_file call's counters twice
         self._counters = []
         self._timers = []
+        self.worker_dispatched = []
 
         # deterministic mode: one queue per worker, chunks routed by
         # index % n_workers; default: one shared queue, first free worker
@@ -695,6 +740,7 @@ class ThreadedNativePipeline:
                 if pipe is not None:
                     self._counters.append(pipe.counters())
                     self._timers.append(pipe.timers())
+                    self.worker_dispatched.append(pipe.dispatched)
 
         reader = NativeReader(path1, path2, interleaved, chunk_size)
         threads = [threading.Thread(target=worker, args=(w,), daemon=True,
@@ -763,6 +809,11 @@ class ThreadedNativePipeline:
         for ci in sorted(out_buf):
             write(out_buf.pop(ci))
         return n_reads
+
+    def dispatches(self) -> list:
+        """Extend batches dispatched to each entry of the device list,
+        summed over the workers."""
+        return [sum(col) for col in zip(*self.worker_dispatched)]
 
     def counters(self) -> dict:
         total: dict = {}

@@ -2,13 +2,14 @@
 
 Plays the role of reference src/main.cpp run_rabbitsalign on one host:
 the native pipeline (pipeline/native_pipeline.py) runs the C++ engine's
-phases with the extend batches on the device given by ``--device``, on
-one mapping thread (``-t 1``) or on ``-t`` workers (default 3), with
-``--device-seed`` seeding and looking up each chunk's reads on that
-device too, or ``--shard-index`` serving phase A's index lookups from
-the index cut into hash ranges on that device. The device prewarm
-(kernel build, CUDA context, int16 probe) runs while the reference and
-index load. ``--mmap-index`` opens the index
+phases with the extend batches on the devices of ``--device`` (for
+cuda every card the process sees, in turn), on one mapping thread
+(``-t 1``) or on ``-t`` workers (default 3), with ``--device-seed``
+seeding and looking up each chunk's reads on the first card, or
+``--shard-index`` serving phase A's index lookups from the index cut
+into hash ranges, one a card. The device prewarm (kernel build, every
+card's CUDA context, int16 probe) runs while the reference and index
+load. ``--mmap-index`` opens the index
 through its columnar sidecar, which ``-i`` writes beside the ``.sti``;
 ``--profile`` wraps the mapping run in one torch.profiler trace.
 
@@ -298,6 +299,8 @@ def _log_mapping(opt, pipeline, n_reads: int, elapsed: float) -> None:
         % (tm["seed_nam_s"], tm["phase_a_s"], tm["host_align_s"],
            tm["phase_b_s"])
     )
+    if len(pipeline.dispatches()) > 1:
+        logger.info(f"Extend dispatches an entry of the device list: {pipeline.dispatches()}")
     if pipeline.sharded_index is not None:
         # the lookups' share of phase A, beside the engine's seeding
         logger.info(f"Sharded lookups: {tm['shard_lookup_s']:.2f} s, rescue preflight "

@@ -3,8 +3,11 @@ same GPU inputs, exact, at every engine bucket shape (the extend) and at
 B = 1, 33 and 4096 reads (seeding and lookup), the sharded index's run
 lookup at 1 and 4 shards of one card, and the 3-worker pipeline,
 --device-seed and --shard-index on the GPU against one worker and the
-default run, and the multi-host pod's split index and a two-process pod
-on the card. Needs an NVIDIA GPU and nvcc;
+default run, the multi-host pod's split index and a two-process pod on
+the card, and a device list of several entries (two of the one card; every
+card where there are two or more): the round-robin extend, the genome
+a card, the workers' streams a card and the shards a card against the CPU.
+Needs an NVIDIA GPU and nvcc;
 skips without one. This file imports neither jax nor rabbitsalign_tpu,
 so it also runs where JAX is absent:
 
@@ -628,3 +631,151 @@ def test_pod_cli_on_cuda_matches_single_host(cuda, tmp_path):
     want, got = ([ln for ln in open(tmp_path / f, "rb") if not ln.startswith(b"@PG")]
                  for f in ("single.sam", "pod.sam"))
     assert got == want and len(got) > 3000
+
+
+@pytest.fixture(scope="module")
+def multi_world(tmp_path_factory):
+    """A 200 kbp genome with a repeat block, its index, 2000 SE reads and
+    600 PE pairs as FASTQ."""
+    from rabbitsalign_tpu_torch.index.params import IndexParameters
+    from rabbitsalign_tpu_torch.index.strobemer_index import StrobemerIndex
+    from rabbitsalign_tpu_torch.io.fasta import References
+
+    d = tmp_path_factory.mktemp("multicard")
+    rng = np.random.RandomState(23)
+    unit = rng.choice(np.frombuffer(b"ACGT", np.uint8), 300).tobytes()
+    genome = (rng.choice(np.frombuffer(b"ACGT", np.uint8), 150_000).tobytes() + unit * 80
+              + rng.choice(np.frombuffer(b"ACGT", np.uint8), 26_000).tobytes())
+    (d / "ref.fa").write_bytes(b">chr1\n" + genome + b"\n")
+    reads = [sim_read(genome, rng.randint(len(genome) - 2 * READ_LEN), rng) for _ in range(2000)]
+    write_fastq(d / "se.fq", [revcomp(r) if i % 4 == 1 else r for i, r in enumerate(reads)], b"s")
+    r1, r2 = [], []
+    for _ in range(600):
+        st = rng.randint(len(genome) - 1000)
+        r1.append(sim_read(genome, st, rng))
+        r2.append(revcomp(sim_read(genome, st + 300 - READ_LEN, rng)))
+    write_fastq(d / "r1.fq", r1, b"p")
+    write_fastq(d / "r2.fq", r2, b"p")
+    refs = References.from_fasta(str(d / "ref.fa"))
+    index = StrobemerIndex(refs, IndexParameters.from_read_length(150))
+    index.populate(0.0002)
+    return d, refs, index
+
+
+def _multi_run(multi_world, pe, monkeypatch, **kw):
+    """(SAM bytes, the workers' pipelines, genome uploads, the current
+    stream of each extend) of a deterministic 3-worker run."""
+    from rabbitsalign_tpu_torch.align.aligner import AlignmentParameters
+    from rabbitsalign_tpu_torch.map.common import MappingParameters
+    from rabbitsalign_tpu_torch.pipeline import native_pipeline as pnp
+
+    d, refs, index = multi_world
+    uploads, streams = [], []
+    real_upload, real_extend = pnp.resident_ref_codes, pnp.extend_batch_packed_resident_q2
+
+    def counting(codes, device):
+        uploads.append(device)
+        return real_upload(codes, device)
+
+    def extend(buf, *args):
+        if buf.is_cuda:
+            streams.append(torch.cuda.current_stream(buf.device))
+        return real_extend(buf, *args)
+
+    monkeypatch.setattr(pnp, "_RESIDENT_CACHE", {})
+    monkeypatch.setattr(pnp, "resident_ref_codes", counting)
+    monkeypatch.setattr(pnp, "extend_batch_packed_resident_q2", extend)
+    mp = MappingParameters(r=150, rescue_cutoff=2 * index.filter_cutoff)
+    pipe = pnp.ThreadedNativePipeline(index, index.parameters, refs, AlignmentParameters(), mp,
+                                      batch_size=128, n_workers=3, deterministic=True, **kw)
+    made, mk = [], pipe._mk
+    pipe._mk = lambda: made.append(mk()) or made[-1]
+    files = (str(d / "r1.fq"), str(d / "r2.fq")) if pe else (str(d / "se.fq"), "")
+    out = []
+    pipe.map_file(*files, False, 100, out.append)
+    monkeypatch.undo()
+    return b"".join(out), made, uploads, streams
+
+
+def _check_multi_entry(cuda, multi_world, monkeypatch, devices):
+    """3 workers over `devices` against the plain CPU run, SE and PE: equal
+    bytes; the genome uploaded once a distinct card; each worker's batches
+    split over the entries in turn, on one stream of its own a card (not
+    the card's default stream); and, with --shard-index, the same SAM."""
+    cards = list(dict.fromkeys(devices))
+    for pe in (False, True):
+        want, *_ = _multi_run(multi_world, pe, monkeypatch, device="cpu")
+        launches = sw_cuda.launches
+        got, pipes, uploads, streams = _multi_run(multi_world, pe, monkeypatch, devices=devices)
+        assert got == want and len(got.splitlines()) == (1200 if pe else 2000)
+        assert sw_cuda.launches > launches
+        assert sorted(map(str, uploads)) == sorted(map(str, cards))
+        assert len(pipes) == 3
+        for pipe in pipes:
+            n = sum(pipe.dispatched)
+            assert pipe.dispatched == [len(range(k, n, len(devices))) for k in range(len(devices))]
+            assert list(pipe.streams) == cards
+            for card, stream in pipe.streams.items():
+                assert stream != torch.cuda.default_stream(card)
+        mine = {s for p in pipes for s in p.streams.values()}
+        assert len(mine) == 3 * len(cards) and set(streams) <= mine
+        assert sum(sum(p.dispatched) for p in pipes) >= 2 * len(devices)
+        shard, *_ = _multi_run(multi_world, pe, monkeypatch, devices=devices, shard_index=True)
+        assert shard == want
+
+
+def _check_sharded_entries(multi_world, devices):
+    """A ShardedIndex over `devices` against the same cut on the CPU: both
+    dense lookups and the compacted run records, exact."""
+    from rabbitsalign_tpu_torch.parallel.sharding import ShardedIndex, make_mesh
+
+    index = multi_world[2]
+    on_card = ShardedIndex(devices, index)
+    on_cpu = ShardedIndex(make_mesh(len(devices), "cpu"), index)
+    assert [t.device for t, _, _ in on_card._shards] == devices
+    keys = _shard_keys(index, len(devices))
+    for cap in (on_card.filter_cutoff, 2):
+        for lookup in ("find_runs", "find_runs_routed", "find_runs_compact"):
+            got, want = (getattr(si, lookup)(keys, cap) for si in (on_card, on_cpu))
+            for k in want:
+                assert got[k].dtype == want[k].dtype and np.array_equal(got[k], want[k]), k
+
+
+@pytest.mark.cuda
+def test_two_entries_of_one_card_match_the_cpu(cuda, multi_world, monkeypatch):
+    """The device list [cuda:0, cuda:0]: the round-robin, the genome cache,
+    the workers' streams and --shard-index over two entries of the one
+    card, against the plain CPU run; and the sharded index's lookups over
+    those two entries against the CPU's."""
+    devices = [torch.device("cuda", 0)] * 2
+    _check_multi_entry(cuda, multi_world, monkeypatch, devices)
+    _check_sharded_entries(multi_world, devices)
+
+
+@pytest.mark.cuda
+def test_every_card_matches_the_cpu(cuda, multi_world, monkeypatch):
+    """Every card of the host (`local_devices`): the same checks over real
+    cards, the shards merged across cards; and the per-card state of the
+    kernels (index_find's wave, the forward's shared-memory attribute) on
+    each card against the plain versions."""
+    from rabbitsalign_tpu_torch.parallel.sharding import local_devices
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more cards: one card runs only the two-entry test above")
+    cards = local_devices("cuda")
+    _check_multi_entry(cuda, multi_world, monkeypatch, cards)
+    _check_sharded_entries(multi_world, cards)
+    index = multi_world[2]
+    Q, T = max((q, t) for q, t, _, _ in engine_buckets(150))
+    buf, genome = q2_batch(mixed_pairs(Q, T, 70, seed=3), Q, seed=3)
+    for card in reversed(cards):
+        q_t, t_t, qlen, tlen = px.unpack_q2(torch.from_numpy(buf).to(card),
+                                            px.resident_ref_codes(genome, card), Q, T)
+        got = sw_cuda.sw_forward(q_t, t_t, qlen, tlen, SwParams(2, 8, 12, 1))
+        want = sw_cuda.sw_forward_plain(q_t, t_t, qlen, tlen, SwParams(2, 8, 12, 1))
+        for k, p in zip(got[:3], want[:3]):
+            assert torch.equal(k, p)
+        hashes, buckets = _index_tensors(index, card)
+        queries = hashes[::7].contiguous()
+        assert torch.equal(seed_cuda.index_find(hashes, buckets, index.bits, queries),
+                           seed_device.index_find_device(hashes, buckets, index.bits, queries))

@@ -144,6 +144,50 @@ def test_warm_index_random_access_budget(built, monkeypatch):
     port_index_mod.warm_index_random_access(*arrays, budget_s=0.5)
 
 
+def test_malformed_warm_budget_warns_and_keeps_warming(built, monkeypatch, capsys):
+    """A RSB_INDEX_WARM_S that is not a number warns and gives the default
+    of 8 s; the warmer thread runs to its end instead of dying on it."""
+    _, port_index, _ = built
+    arrays = (port_index.hashes, port_index.positions, port_index.randstrobe_start_indices)
+    monkeypatch.setenv("RSB_INDEX_WARM_S", "8s")
+    assert port_index_mod._warm_budget_s() == 8.0
+    assert "RSB_INDEX_WARM_S='8s' is not a number" in capsys.readouterr().err
+    errors = []
+    monkeypatch.setattr("threading.excepthook", errors.append)
+    t = __import__("threading").Thread(target=port_index_mod.warm_index_random_access, args=arrays)
+    t.start()
+    t.join(timeout=60)
+    assert not t.is_alive() and errors == []
+    monkeypatch.setenv("RSB_INDEX_WARM_S", "0.25")
+    assert port_index_mod._warm_budget_s() == 0.25
+
+
+def test_dense_check_records_the_sti_mtime(built, fasta, tmp_path, monkeypatch):
+    """After a .sti whose mtime moved passes the dense 64-probe check, the
+    sidecar's header holds the new mtime: the next open takes the sparse
+    3-probe check, and the JAX package still opens the sidecar."""
+    _, port_index, sti = built
+    path = _copy_sti(sti, tmp_path, "x.sti")
+    port_index.write_columns(path)
+    st = os.stat(path)
+    os.utime(path, ns=(st.st_atime_ns, st.st_mtime_ns + 1000))
+    probes = []
+    real = StrobemerIndex._sti_fingerprint
+    monkeypatch.setattr(StrobemerIndex, "_sti_fingerprint", staticmethod(
+        lambda filename, probes_=3, **kw: probes.append(kw.get("probes", probes_))
+        or real(filename, **kw)))
+    assert _port_index(fasta).read_mmap(path, warm=False)
+    header = json.load(open(os.path.join(path + ".cols", "header.json")))
+    assert header["sti_mtime_ns"] == os.stat(path).st_mtime_ns
+    assert _port_index(fasta).read_mmap(path, warm=False)
+    assert probes == [64, 3]
+    assert sorted(os.listdir(path + ".cols")) == sorted(_FILES)  # no temporary file left
+    monkeypatch.undo()
+    jax_reader = _jax_index(fasta)
+    assert jax_reader.read_mmap(path, warm=False)
+    _assert_same(jax_reader, port_index)
+
+
 @pytest.mark.parametrize("flags", [[], ["--no-sidecar"]], ids=["sidecar", "no-sidecar"])
 def test_create_index_writes_the_sidecar(fasta, tmp_path, flags):
     ref = tmp_path / "ref.fa"

@@ -29,6 +29,8 @@ import random
 import socket
 import subprocess
 import sys
+import tempfile
+import time
 from pathlib import Path
 
 import numpy as np
@@ -72,22 +74,73 @@ def _child_env(**extra) -> dict:
 
 
 def _run_all(cmds, cwd, env=None, timeout=240):
-    """Start every command at once; wait for all; (stdout, stderr) each."""
-    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE, cwd=cwd,
+    """Start every command at once; wait for all; (stdout, stderr) each.
+    A child that exits non-zero fails the test at once with its stderr,
+    and the others are killed: a pod host whose peer died would wait for
+    it until its own timeout."""
+    logs = [(tempfile.TemporaryFile(), tempfile.TemporaryFile()) for _ in cmds]
+    procs = [subprocess.Popen(c, stdout=out, stderr=err, cwd=cwd,
                               env=env if env is not None else _child_env())
-             for c in cmds]
-    outs = []
+             for c, (out, err) in zip(cmds, logs)]
+
+    def read(f) -> str:
+        f.seek(0)
+        return f.read().decode()
+
+    def failed(i) -> str:
+        return f"child {i} exited {procs[i].returncode}:\n{read(logs[i][1])[-3000:]}"
+
     try:
-        for p in procs:
-            out, err = p.communicate(timeout=timeout)
-            assert p.returncode == 0, err.decode()[-3000:]
-            outs.append((out.decode(), err.decode()))
+        deadline = time.monotonic() + timeout
+        while any(p.poll() is None for p in procs):
+            for i, p in enumerate(procs):
+                assert p.returncode in (None, 0), failed(i)
+            assert time.monotonic() < deadline, f"children still running after {timeout} s"
+            time.sleep(0.1)
+        for i, p in enumerate(procs):
+            assert p.returncode == 0, failed(i)
+        return [(read(out), read(err)) for out, err in logs]
     finally:
         for p in procs:
             if p.poll() is None:
                 p.kill()
                 p.wait()
-    return outs
+        for out, err in logs:
+            out.close()
+            err.close()
+
+
+# The JAX package's runner starts its prewarm thread (prewarm_extend_programs,
+# whose JAX calls bring the XLA backend up) before it calls
+# jax.distributed.initialize, which refuses to run once the backend is up.
+# Where the thread wins, that host exits at once and its peer waits in
+# initialize for its initialization timeout (300 s). The JAX pod children
+# run the JAX CLI with its prewarm started once the host has joined the
+# pod; the prewarm only compiles, so the output is the same.
+JAX_POD_CHILD = """
+import sys, threading
+from rabbitsalign_tpu.cli import main
+from rabbitsalign_tpu.parallel import multihost
+from rabbitsalign_tpu.pipeline import native_pipeline
+
+joined = threading.Event()
+init, prewarm = multihost.init_distributed, native_pipeline.prewarm_extend_programs
+
+def init_then_release(*args, **kw):
+    try:
+        return init(*args, **kw)
+    finally:
+        joined.set()
+
+def prewarm_once_joined(*args, **kw):
+    t = threading.Thread(target=lambda: joined.wait() and prewarm(*args, **kw), daemon=True)
+    t.start()
+    return t
+
+multihost.init_distributed = init_then_release
+native_pipeline.prewarm_extend_programs = prewarm_once_joined
+sys.exit(main(sys.argv[1:]))
+"""
 
 
 # --- shards, manifests, merge ----------------------------------------------
@@ -369,6 +422,18 @@ def test_pod_index_counts_served_time_before_replying(world_index):
             pod.close()
 
 
+def test_cli_help_names_the_pod_dial_budgets(capsys):
+    """--pod-index-peers' help names both dial budgets of
+    `PodShardedIndex._connect` with their defaults."""
+    try:
+        port_main(["--help"])
+    except SystemExit:
+        pass
+    text = " ".join(capsys.readouterr().out.split())
+    assert "RSB_POD_CONNECT_TIMEOUT seconds (600)" in text
+    assert "RSB_POD_REDIAL_TIMEOUT seconds (5)" in text
+
+
 # --- the CLI, two processes --------------------------------------------------
 
 @pytest.fixture(scope="module")
@@ -412,7 +477,8 @@ def _without_pg(path) -> bytes:
 
 
 def _pod_argv(module, out, node, coord, extra, files):
-    return [sys.executable, "-m", module, *extra, "-o", str(out), "--num-nodes", "2",
+    start = ["-c", JAX_POD_CHILD] if module == "rabbitsalign_tpu.cli" else ["-m", module]
+    return [sys.executable, *start, *extra, "-o", str(out), "--num-nodes", "2",
             "--node-id", str(node), "--coordinator", coord, *map(str, files)]
 
 
@@ -486,7 +552,8 @@ def test_pe_pod_matches_jax_pod(data, tmp_path):
     """PE insert-size state is per host, so a PE pod run is not the
     single-host run's bytes; the port's two-process pod (--device cpu)
     equals the JAX package's two-process pod (its default device path on
-    the CPU), run as `python -m rabbitsalign_tpu.cli`."""
+    the CPU), its CLI run with its prewarm held until the host has joined
+    the pod (JAX_POD_CHILD)."""
     files = [data / "ref.fa", data / "r1.fq", data / "r2.fq"]
     runs = {}
     for module, flags in (("rabbitsalign_tpu_torch.cli", ["--device", "cpu"]),
