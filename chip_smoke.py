@@ -91,6 +91,30 @@ Shard. The run lookup of `--shard-index` (csrc/find_runs.cu, a search
    table (a whole-shard search's depth); the plain time, the bound with the
    search's probes replayed (`lookup_probes`) and their 32-byte sectors,
    and one `torch.searchsorted` as the library call.
+Chain. The device NAM front end (no CLI path runs it, as in the JAX
+   package) on the same 40 Mbp index, uploaded for it
+   (`upload_index_split`), and the first SE chunk's 10 000 reads. Its path,
+   with the launch counts set to 0 before it and read after:
+   `find_nams_composed_batch` on the chunk (the seeding and lookup
+   kernels, then csrc/walk_hits.cu, the host ordering and one
+   csrc/merge_hits.cu launch), `find_nams_device_chain` on 200 of its
+   reads, and `randstrobes_query_device` on the chunk
+   (csrc/syncmers_scan.cu); every kernel of it must have launched. On every
+   read it does not flag, the composed batch must equal the engine's
+   `find_nams_chunk` (rescue level 0: the nonrepetitive fraction and every
+   NAM field the merge carries, the score as float32), and it may flag at
+   most 2% of the chunk (long, tie, hit or merge overflow reads, printed);
+   the device chain must equal chain/nams.find_nams; the G-ary split
+   lookup must equal the index_find kernel on the chunk's strobes; the
+   exact seeder must equal the vectorised one on the rows it does not flag
+   and the host randstrobes_query on its tie rows. The three kernels
+   against their plain versions, tolerance 0: the scan on the chunk, the
+   walk on the chunk's strobes, the merge on every stream of the chunk at
+   cap 32 and at cap 4 (where streams overflow). Each kernel's time after
+   an L2 flush and back to back, plain time, bound and launches; the
+   composed batch's wall time a chunk, host-paced, in four parts (the
+   device front end with its copy back, the host ordering, the merge, the
+   attribution) beside the engine's `find_nams_chunk` on the same chunk.
 4. The main path through the CLI on that data: nine paths, each with the
    launch counts set to 0 before it and read after it, and each from a
    cold probe cache (so its prewarm runs the probe kernel):
@@ -142,7 +166,9 @@ Pod. The multi-host pod run on the one card: two CLI processes
    and the pod index's traffic are printed.
 
 The line before last is a JSON object with each kernel's launches in its
-path (phases 4, Multi and Pod; the ILP phase for sw_forward_split), its phase-3 error,
+path (phases 4, Multi and Pod; the ILP phase for sw_forward_split; phase
+Chain for its own kernels, and the seeding and lookup kernels it runs), its
+error against its plain version,
 times, bound and library call; the last line is {"ok": true, "device":
 {...}}. Work files go to build/chip_smoke/.
 """
@@ -172,10 +198,12 @@ REQUIRED = ("rabbitsalign_tpu_torch/__init__.py", "rabbitsalign_tpu_torch/csrc/s
             "rabbitsalign_tpu_torch/csrc/index_find.cu",
             "rabbitsalign_tpu_torch/csrc/find_runs.cu",
             "rabbitsalign_tpu_torch/csrc/bucket_search.cuh",
+            "rabbitsalign_tpu_torch/csrc/syncmers_scan.cu",
+            "rabbitsalign_tpu_torch/csrc/merge_hits.cu", "rabbitsalign_tpu_torch/csrc/walk_hits.cu",
             "rabbitsalign_tpu_torch/native/engine.cpp", "rabbitsalign_tpu_torch/native/seednam.cpp",
             "rabbitsalign_tpu_torch/parallel/multihost.py",
             "rabbitsalign_tpu_torch/tools/ilp_probe.py", "bench.py", "tests/torch_extend_cases.py",
-            "tests/torch_tb_tiles.py", "tests/torch_seed_cases.py")
+            "tests/torch_tb_tiles.py", "tests/torch_seed_cases.py", "tests/torch_chain_cases.py")
 # kernel name -> (source, the pallas_call or, for the seeding and lookup
 # kernels, the XLA function it replaces)
 KERNELS = {
@@ -195,6 +223,12 @@ KERNELS = {
                    "rabbitsalign_tpu/ops/seed_device.py:239"),
     "find_runs": ("rabbitsalign_tpu_torch/csrc/find_runs.cu",
                   "rabbitsalign_tpu/parallel/sharding.py:253"),
+    "syncmers_scan": ("rabbitsalign_tpu_torch/csrc/syncmers_scan.cu",
+                      "rabbitsalign_tpu/ops/seed_device.py:58"),
+    "merge_hits": ("rabbitsalign_tpu_torch/csrc/merge_hits.cu",
+                   "rabbitsalign_tpu/ops/chain_device.py:52"),
+    "walk_hits": ("rabbitsalign_tpu_torch/csrc/walk_hits.cu",
+                  "rabbitsalign_tpu/ops/front_device.py:80"),
 }
 SEED_PATHS = ("t1-dseed", "t3-dseed")  # the paths that run the seeding kernels
 SHARD_PATHS = ("t1-shard", "t3-shard")  # the paths that run the run lookup
@@ -236,6 +270,19 @@ OPS_PER_FIND_STEP = 6
 # reads back are the kernels' own round trip, not the function's bytes.
 SHARD_KEY_BYTES = 8 + 16 + 16
 SHARD_ROW_BYTES = 16
+# the device NAM front end (phase Chain). The merge: 16 bytes read a hit,
+# 28 written a NAM (its emission row), and 12 int32 operations a hit (the
+# window and case tests against the NAM it joins, or its append: a floor,
+# since the tests against the other open NAMs depend on the table). The
+# walk: 16 bytes a strobe (its position and hash), 16 a walked run row
+# (hash, position, packed), 24 a kept hit. The scan seeder: OPS_PER_SMER
+# an s-mer, and the codes read and its (B, M) outputs written once.
+MERGE_HIT_BYTES = 16
+MERGE_NAM_BYTES = 28
+OPS_PER_MERGE_HIT = 12
+WALK_STROBE_BYTES = 16
+WALK_ROW_BYTES = 16
+WALK_HIT_BYTES = 24
 
 
 PHASE = "start"  # the phase running now, named by a failure
@@ -1205,6 +1252,216 @@ def shard_kernels(torch, card, index, se_fastq):
         {"find_runs": lib_ms}
 
 
+def chain_kernels(torch, card, index, se_fastq):
+    """Phase Chain: the device NAM front end (kernels syncmers_scan,
+    merge_hits and walk_hits, with the seeding and lookup kernels) on the
+    first SE chunk and the 40 Mbp index: its path driven with the counts
+    set to 0, the entry points against the host find_nams and the engine,
+    each kernel against its plain version, times, bounds."""
+    phase("Chain: the device NAM front end against its plain versions and the host")
+    import numpy as np
+
+    from rabbitsalign_tpu_torch.chain.nams import find_nams
+    from rabbitsalign_tpu_torch.chain.native_nams import find_nams_chunk
+    from rabbitsalign_tpu_torch.ops import chain_cuda, chain_device, front_device, seed_cuda
+    from rabbitsalign_tpu_torch.ops import seed_device as sd
+    from rabbitsalign_tpu_torch.seed.randstrobes import randstrobes_query
+    from tests.torch_chain_cases import nam_key
+    from tests.torch_seed_cases import SEED_L, code_batch
+
+    dev = torch.device(DEVICE)
+    params = index.parameters
+    sp, rp = params.syncmer, params.randstrobe
+    fc, bits, k = index.filter_cutoff, index.bits, sp.k
+    with open(se_fastq, "rb") as f:
+        chunk = [line.rstrip(b"\n") for i, line in zip(range(4 * 10_000), f) if i % 4 == 1]
+    n = len(chunk)
+    t0 = time.perf_counter()
+    dev_index = front_device.upload_index_split(index, dev)
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t0
+    codes, lens = (torch.from_numpy(a).to(dev) for a in code_batch(chunk))
+    seed_args = (sp.k, sp.s, sp.t_syncmer, rp.w_min, rp.w_max, rp.q, rp.max_dist, SEED_L)
+
+    # the slice's path, its counts set to 0 before and read after: the
+    # composed front end on the chunk, the device chain on 200 of its
+    # reads, and the exact scan seeder on the chunk
+    counters = {"seed_randstrobes": lambda: seed_cuda.launches_seed,
+                "index_find": lambda: seed_cuda.launches_find,
+                "syncmers_scan": lambda: seed_cuda.launches_syncmers,
+                "walk_hits": lambda: chain_cuda.launches_walk,
+                "merge_hits": lambda: chain_cuda.launches_merge}
+    seed_cuda.launches_seed = seed_cuda.launches_find = seed_cuda.launches_syncmers = 0
+    chain_cuda.launches_walk = chain_cuda.launches_merge = 0
+    stats = {}
+    t0 = time.perf_counter()
+    composed = front_device.find_nams_composed_batch(chunk, dev_index, params, fc, stats=stats)
+    cold_s = time.perf_counter() - t0
+    qrs = [randstrobes_query(r, params) for r in chunk[:200]]
+    chained = [chain_device.find_nams_device_chain(q, index, device=dev) for q in qrs]
+    exact = sd.randstrobes_query_device(codes, lens.clamp(min=0), *seed_args)
+    torch.cuda.synchronize()
+    launches = {name: read() for name, read in counters.items()}
+    say(f"Chain path (find_nams_composed_batch on {n} reads, find_nams_device_chain on 200, "
+        f"randstrobes_query_device on {n}): kernel launches {launches}")
+    check(all(launches.values()), f"Chain: a kernel of the path never launched: {launches}")
+
+    # the composed batch against the engine's find_nams (rescue level 0)
+    t0 = time.perf_counter()
+    host_nams, host_nonrep, _ = find_nams_chunk(chunk, index, params, 0, 0)
+    chunk_s = time.perf_counter() - t0
+    flagged = [i for i, c in enumerate(composed) if c is None]
+    n_nams = 0
+    for i, c in enumerate(composed):
+        if c is None:
+            continue
+        got = [nam_key(x, np.float32) for x in c[1]]
+        check(np.float32(c[0]) == host_nonrep[i] and
+              got == [nam_key(x, np.float32) for x in host_nams[i]],
+              f"read {i}: find_nams_composed_batch differs from find_nams_chunk")
+        n_nams += len(got)
+    reasons = {key: stats[key] for key in ("long", "tie", "hit_overflow", "merge_overflow")}
+    say(f"find_nams_composed_batch equals find_nams_chunk (rescue level 0) on {n - len(flagged)} "
+        f"of {n} reads: the nonrepetitive fraction, {n_nams} NAMs' ids, query and ref starts and "
+        f"ends, n_hits, ref_id, strand, score as float32; {len(flagged)} reads flagged for the "
+        f"host path ({reasons})")
+    check(len(flagged) <= 0.02 * n, f"{len(flagged)} of {n} reads flagged, more than 2%")
+    for q, (frac, nams) in zip(qrs, chained):
+        want = find_nams(q, index)
+        check(frac == want[0] and [nam_key(x) for x in nams] == [nam_key(x) for x in want[1]],
+              "find_nams_device_chain differs from chain/nams.find_nams")
+    say(f"find_nams_device_chain on the card equals chain/nams.find_nams on 200 reads "
+        f"({sum(len(x[1]) for x in chained)} NAMs)")
+
+    # the exact seeder against the vectorised one and, on its tie rows, the host
+    err = {}
+    pos, hsh, cnt = seed_cuda.syncmers_scan(codes, lens, sp.k, sp.s, sp.t_syncmer, SEED_L)
+    plain = sd.syncmers_scan_plain(codes, lens, sp.k, sp.s, sp.t_syncmer, SEED_L)
+    err["syncmers_scan"] = max_abs_err(torch, zip((pos, hsh, cnt), plain))
+    check(err["syncmers_scan"] == 0, f"syncmers_scan disagrees with its plain version "
+                                     f"(max_abs_err {err['syncmers_scan']})")
+    vec = sd.randstrobes_query_vec(codes, lens.clamp(min=0), *seed_args)
+    h, st, en, _, nf, nr = exact
+    M = SEED_L
+    slot = torch.arange(2 * M, device=dev)[None, :]
+    valid = torch.where(slot < M, slot < nf[:, None], slot - M < nr[:, None])
+    tie = vec[5]
+    same = ((nf == vec[3]) & (nr == vec[4]) & ~(valid & ((h != vec[0]) | (st != vec[1]) |
+                                                         (en != vec[2]))).any(1))
+    check(bool((same | tie).all()), "randstrobes_query_device differs from randstrobes_query_vec "
+                                    "on a row it does not flag")
+    h, st, en, nf, nr = (x.cpu().numpy() for x in (h, st, en, nf, nr))
+    ties = tie.nonzero().squeeze(1).cpu().tolist()
+    for i in ties:
+        host = randstrobes_query(chunk[i], params)
+        rows = list(range(nf[i])) + list(range(M, M + nr[i]))
+        check(h[i, rows].view(np.uint64).tolist() == host.hash.tolist() and
+              st[i, rows].tolist() == host.start.tolist() and
+              en[i, rows].tolist() == host.end.tolist(),
+              f"randstrobes_query_device differs from the host on tie row {i}")
+    say(f"syncmers_scan on {n} x {SEED_L}: equal to its plain version ({int(cnt.sum())} "
+        f"syncmers); randstrobes_query_device equals randstrobes_query_vec on the "
+        f"{n - len(ties)} rows it does not flag and the host randstrobes_query on its "
+        f"{len(ties)} tie rows")
+
+    # the walk and the merge on the chunk's own strobes and streams
+    buf, total = seed_cuda.seed_randstrobes(codes, lens, *seed_args)
+    views = sd.strobe_views(buf, n, total)
+    seed_cuda.index_find(dev_index[7], dev_index[4], bits, views[2], out=views[6])
+    khi, klo = sd.hash_planes(views[2])
+    gary = sd.index_find_device_gary(dev_index[0], dev_index[1], dev_index[4], bits, khi, klo,
+                                     dev_index[6])
+    check(torch.equal(gary, views[6]), "index_find_device_gary differs from the index_find kernel")
+    planes = (dev_index[7], dev_index[2], dev_index[3])
+    walk_args = (*views[:7], *planes, k, fc, 192, fc)
+    walked = chain_cuda.walk_hits(*walk_args)
+    err["walk_hits"] = max_abs_err(torch, zip(walked, front_device.walk_hits_plain(*walk_args)))
+    check(err["walk_hits"] == 0, f"walk_hits disagrees with its plain version "
+                                 f"(max_abs_err {err['walk_hits']})")
+    front = front_device.front_hits(chunk, dev_index, params, fc)
+    streams, _ = front_device.hit_streams(front)
+    batch = chain_device.stream_batch(streams, dev)
+    err["merge_hits"] = 0
+    n_ovf = {}
+    for cap in (32, 4):
+        got = chain_cuda.merge_hits(*batch, k, cap)
+        want = chain_device.merge_hits_plain(*batch, k, cap)
+        err["merge_hits"] = max(err["merge_hits"], max_abs_err(torch, zip(got, want)))
+        check(err["merge_hits"] == 0, f"merge_hits at cap {cap} disagrees with its plain "
+                                      f"version (max_abs_err {err['merge_hits']})")
+        n_ovf[cap] = int(got[2].sum())
+    check(n_ovf[4] > 0, "merge_hits at cap 4: no stream overflows")
+    emitted = chain_cuda.merge_hits(*batch, k, 32)
+    n_hits_all, n_emit = batch[0].shape[0], int(emitted[1].sum())
+    say(f"index_find_device_gary equals the index_find kernel on the chunk's {total} strobes; "
+        f"walk_hits equals its plain version ({int(walked[1].sum())} kept hits, "
+        f"{int(walked[2].sum())} found, {int(walked[3].sum())} walked strobes); merge_hits "
+        f"equals its plain version on all {len(streams)} streams of the chunk ({n_hits_all} "
+        f"hits, {n_emit} NAMs) at cap 32 ({n_ovf[32]} streams overflow) and at cap 4 ({n_ovf[4]}) "
+        f"[{card}]")
+
+    # times: each kernel after an L2 flush, its plain version host-paced
+    flush = flush_l2(torch)
+    flush_ms = device_ms(torch, flush, 20)
+    scan = lambda: seed_cuda.syncmers_scan(codes, lens, sp.k, sp.s, sp.t_syncmer, SEED_L)
+    merge = lambda: chain_cuda.merge_hits(*batch, k, 32)
+    walk = lambda: chain_cuda.walk_hits(*walk_args)
+    times = {}
+    for name, fn, plain_fn, reps in (
+            ("syncmers_scan", scan, lambda: sd.syncmers_scan_plain(
+                codes, lens, sp.k, sp.s, sp.t_syncmer, SEED_L), 1),
+            ("merge_hits", merge, lambda: chain_device.merge_hits_plain(*batch, k, 32), 1),
+            ("walk_hits", walk, lambda: front_device.walk_hits_plain(*walk_args), 3)):
+        cold = device_ms(torch, lambda: (flush(), fn()), 10) - flush_ms
+        times[name] = (cold, time_ms(torch, plain_fn, reps))
+        say(f"{name}: {cold:.4f} ms on the card after an L2 flush, {device_ms(torch, fn, 10):.4f} "
+            f"ms back to back [{card}]")
+
+    # bounds for this run's inputs
+    n_len = lens.clamp(min=0)
+    n_smer = int((n_len - sp.s + 1).clamp(min=0).sum())
+    scan_bytes = n * SEED_L + 4 * n + 12 * n * SEED_L + 4 * n
+    found = views[6] >= 0
+    p = views[6].clamp(min=0)
+    nidx = dev_index[7].numel()
+    filtered = found & (p + fc < nidx) & (dev_index[7][(p + fc).clamp(max=nidx - 1)] == views[2])
+    walk_mask = found & ~filtered
+    run_end = torch.searchsorted(sd.flip(dev_index[7]), sd.flip(views[2]), right=True)
+    rows = int(torch.where(walk_mask, (run_end - p).clamp(max=fc), 0).sum())
+    kept = int(walked[1].sum())
+    bounds = {"syncmers_scan": bound(scan_bytes, OPS_PER_SMER * n_smer),
+              "merge_hits": bound(MERGE_HIT_BYTES * n_hits_all + MERGE_NAM_BYTES * n_emit,
+                                  OPS_PER_MERGE_HIT * n_hits_all),
+              "walk_hits": bound(WALK_STROBE_BYTES * total + WALK_ROW_BYTES * rows
+                                 + WALK_HIT_BYTES * kept, 0)}
+    for name, (ms, plain_ms) in times.items():
+        say(f"{name}: kernel {ms:.4f} ms on the card after an L2 flush, plain {plain_ms:.4f} ms, "
+            f"bound {bounds[name][0]:.6f} ms ({bounds[name][1]}), one PyTorch call none, "
+            f"launches {launches[name]} [{card}]")
+    say(f"bounds' inputs: {n_smer} s-mers; {n_hits_all} hits and {n_emit} NAMs in "
+        f"{len(streams)} streams (the merge's bound ignores that a stream is a serial chain); "
+        f"{total} strobes, {rows} walked run rows, {kept} kept hits")
+
+    # the composed batch's wall time a chunk, host-paced, in four parts
+    warm = []
+    for _ in range(3):
+        st_ = {}
+        t0 = time.perf_counter()
+        front_device.find_nams_composed_batch(chunk, dev_index, params, fc, stats=st_)
+        warm.append((time.perf_counter() - t0, st_))
+    best, parts = min(warm, key=lambda x: x[0])
+    t0 = time.perf_counter()
+    find_nams_chunk(chunk, index, params, 0, 0)
+    chunk_warm = time.perf_counter() - t0
+    say(f"find_nams_composed_batch on {n} reads, host-paced: {best * 1e3:.1f} ms (best of 3; "
+        f"first call {cold_s * 1e3:.1f} ms): device front end with its copy back "
+        f"{parts['front'] * 1e3:.1f} ms, host ordering {parts['order'] * 1e3:.1f} ms, merge with "
+        f"its copy back {parts['merge'] * 1e3:.1f} ms, attribution {parts['attribute'] * 1e3:.1f} "
+        f"ms; find_nams_chunk (the engine) on the same chunk {chunk_warm * 1e3:.1f} ms (first "
+        f"call {chunk_s * 1e3:.1f} ms); the index uploaded in {upload_s:.2f} s [{card}]")
+    return err, times, bounds, {name: None for name in times}, launches
+
+
 def main_path(torch, card, reads):
     phase("4: main path")
     from rabbitsalign_tpu_torch.cli import main
@@ -1561,12 +1818,16 @@ def main() -> int:
     seed_err, seed_times, seed_bounds, library = seed_kernels(torch, card, index, reads["SE"][1])
     shard_err, shard_times, shard_bounds, shard_library = shard_kernels(torch, card, index,
                                                                         reads["SE"][1])
+    chain_err, chain_times, chain_bounds, chain_library, chain_launches = chain_kernels(
+        torch, card, index, reads["SE"][1])
     del index
-    err.update(seed_err, **shard_err)
-    times.update(seed_times, **shard_times)
-    bounds.update(seed_bounds, **shard_bounds)
-    library.update(shard_library)
+    err.update(seed_err, **shard_err, **chain_err)
+    times.update(seed_times, **shard_times, **chain_times)
+    bounds.update(seed_bounds, **shard_bounds, **chain_bounds)
+    library.update(shard_library, **chain_library)
     launches, runs = main_path(torch, card, reads)
+    for k, v in chain_launches.items():
+        launches[k] = launches.get(k, 0) + v
     for k, v in multi(torch, card, reads, runs).items():
         launches[k] += v
     for k, v in pod(card, reads, runs).items():

@@ -61,6 +61,8 @@ def pick_bits(total_ref_len: int, params: IndexParameters) -> int:
 
 
 class StrobemerIndex:
+    END = np.uint64(0xFFFFFFFFFFFFFFFF)  # "not found" sentinel
+
     def __init__(self, references: References, parameters: IndexParameters, bits: int = -1):
         self.references = references
         self.parameters = parameters
@@ -77,6 +79,64 @@ class StrobemerIndex:
 
     def __len__(self) -> int:
         return int(self.hashes.shape[0])
+
+    # --- accessors and lookup (reference src/index.hpp:57-147) ----------
+
+    def k(self) -> int:
+        return self.parameters.syncmer.k
+
+    def size(self) -> int:
+        return len(self)
+
+    def get_hash(self, position):
+        """Hash at position; out of range gives the END sentinel."""
+        position = np.asarray(position)
+        in_range = position < self.hashes.shape[0]
+        safe = np.where(in_range, position, 0)
+        return np.where(in_range, self.hashes[safe], self.END)
+
+    def reference_index(self, position):
+        return self.packed[position] >> 8
+
+    def strobe2_offset(self, position):
+        return self.packed[position] & 0xFF
+
+    def get_strobe1_position(self, position):
+        return self.positions[position]
+
+    def find(self, keys) -> np.ndarray:
+        """First index of each key hash, or -1 (vectorized): the
+        bucket-bounded search of StrobemerIndex::find (reference
+        src/index.hpp:57-81). The bucket table does not cover the run of
+        the globally smallest hash (`_build_buckets`), so that run and
+        keys in an empty bucket are missing."""
+        keys = np.asarray(keys, dtype=np.uint64)
+        scalar = keys.ndim == 0
+        keys = np.atleast_1d(keys)
+        pos = np.searchsorted(self.hashes, keys, side="left")
+        tops = (keys >> np.uint64(64 - self.bits)).astype(np.int64)
+        lo = self.randstrobe_start_indices[tops].astype(np.int64)
+        hi = self.randstrobe_start_indices[tops + 1].astype(np.int64)
+        in_range = (pos >= lo) & (pos < hi) & (pos < self.hashes.shape[0])
+        safe = np.where(pos < self.hashes.shape[0], pos, 0)
+        found = in_range & (self.hashes[safe] == keys)
+        out = np.where(found, pos, -1).astype(np.int64)
+        return out[0] if scalar else out
+
+    def get_count(self, position) -> np.ndarray:
+        """Number of entries sharing the hash at `position`, counted from
+        `position` onward (reference src/index.hpp:115-147)."""
+        position = np.atleast_1d(np.asarray(position, dtype=np.int64))
+        key = self.hashes[position]
+        end = np.searchsorted(self.hashes, key, side="right")
+        out = (end - position).astype(np.int64)
+        return out if out.shape[0] > 1 else out[0]
+
+    def is_filtered(self, position) -> np.ndarray:
+        """Repetitive-seed filter: true when the hash still appears
+        `filter_cutoff` entries later (reference src/index.hpp:91-93)."""
+        position = np.asarray(position, dtype=np.int64)
+        return self.get_hash(position) == self.get_hash(position + self.filter_cutoff)
 
     # --- construction ---------------------------------------------------
 

@@ -97,5 +97,47 @@ def load_engine() -> ctypes.CDLL:
     global _lib
     with _lock:
         if _lib is None:
-            _lib = ctypes.CDLL(str(build_engine()))
+            lib = ctypes.CDLL(str(build_engine()))
+            p, i64 = ctypes.c_void_p, ctypes.c_int64
+            for name, args in (("sort_perm_u64_asc", [p, i64, p]),
+                               ("sort_perm_f64_desc", [p, i64, p]),
+                               ("robinhood_iteration_order", [p, i64, i64, p])):
+                getattr(lib, name).restype = None
+                getattr(lib, name).argtypes = args
+            _lib = lib
         return _lib
+
+
+def sort_perm(keys, descending: bool):
+    """The permutation (int32) in which the reference's std::sort orders
+    `keys`: uint64 ascending, or float64 descending (libstdc++'s introsort
+    is unstable, and its order of equal keys is observable output)."""
+    import numpy as np
+
+    lib = load_engine()
+    n = keys.shape[0]
+    perm = np.empty(n, dtype=np.int32)
+    if descending:
+        keys = np.ascontiguousarray(keys, dtype=np.float64)
+        lib.sort_perm_f64_desc(keys.ctypes.data, n, perm.ctypes.data)
+    else:
+        keys = np.ascontiguousarray(keys, dtype=np.uint64)
+        lib.sort_perm_u64_asc(keys.ctypes.data, n, perm.ctypes.data)
+    return perm
+
+
+def robinhood_order(keys):
+    """Iteration order of the reference's robin_hood::unordered_map after
+    inserting `keys` (unique u32 ref_ids) in first-touch order, as an
+    int32 permutation: the order of NAMs on different contigs, which
+    equal-score tie-breaks observe (reference ext/robin_hood.h, simulated
+    by the engine). Raises if the engine does not load; there is no
+    insertion-order fallback."""
+    import numpy as np
+
+    lib = load_engine()
+    arr = np.ascontiguousarray(keys, dtype=np.uint32)
+    perm = np.empty(arr.shape[0], dtype=np.int32)
+    # every reference construction site reserves 100 (src/nam.cpp:589 etc.)
+    lib.robinhood_iteration_order(arr.ctypes.data, arr.shape[0], 100, perm.ctypes.data)
+    return perm

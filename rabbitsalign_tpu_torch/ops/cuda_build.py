@@ -27,7 +27,8 @@ from typing import Optional
 PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PKG_DIR / "csrc"
 SOURCES = ("sw_forward.cu", "sw_traceback.cu", "int16_probe.cu", "seed_randstrobes.cu",
-           "index_find.cu", "find_runs.cu", "launch_floor.cu")
+           "index_find.cu", "find_runs.cu", "launch_floor.cu", "syncmers_scan.cu",
+           "merge_hits.cu", "walk_hits.cu")
 HEADERS = ("bucket_search.cuh",)  # included by SOURCES, so in the digest too
 BUILD_DIR = PKG_DIR / "build"
 LIB_PATH = BUILD_DIR / "libsw_kernels.so"
@@ -121,6 +122,10 @@ def _signatures() -> dict:
         "find_runs_launch": [p, i64, i64, i64, p, i64, i, i64, p, i64, p, p, p],
         "gather_runs_launch": [p, p, p, p, i64, p, i64, i64, p, p, p],
         "empty_launch": [i, i, p],
+        "syncmers_scan_launch": [p, p, i, i, i, i, i, i, p, p, p, p],
+        "merge_hits_launch": [p, p, p, i64, i, i, p, p, p, p],
+        "walk_hits_launch": [p, p, p, p, p, p, p, i64, p, p, p, i64, i, i, i, i, p, p, p, p, p,
+                             p],
     }
 
 

@@ -1,13 +1,13 @@
 """The device seeding kernels of ``--device-seed``: randstrobe seeding
 (csrc/seed_randstrobes.cu) and the index lookup (csrc/index_find.cu),
-behind wrappers that take their plain PyTorch versions
-(ops/seed_device.py) for CPU tensors and launch the kernel, or raise, for
-CUDA tensors.
+and the exact scan seeder's syncmers (csrc/syncmers_scan.cu), behind
+wrappers that take their plain PyTorch versions (ops/seed_device.py) for
+CPU tensors and launch the kernel, or raise, for CUDA tensors.
 
-Neither replaces a Pallas kernel: in rabbitsalign_tpu they are XLA ops,
+None replaces a Pallas kernel: in rabbitsalign_tpu they are XLA ops,
 `randstrobes_query_vec` (ops/seed_device.py:432) with the compaction of
-`seed_and_find` (:555), and `index_find_device` (:239). Each kernel's
-output equals its plain version's byte for byte.
+`seed_and_find` (:555), `index_find_device` (:239) and `syncmers_device`
+(:58). Each kernel's output equals its plain version's byte for byte.
 """
 
 from __future__ import annotations
@@ -18,16 +18,19 @@ from typing import Optional, Tuple
 
 import torch
 
-from .seed_device import index_find_device, seed_strobes_plain, strobe_bytes, strobes_at
+from .seed_device import (index_find_device, seed_strobes_plain, strobe_bytes, strobes_at,
+                          syncmers_scan_plain)
 
 MAX_L = 512  # codes per read, and slots per strand, the seeding kernel takes
 
-# launches of the seeding kernel by seed_randstrobes and of the lookup
-# kernel by index_find; plain-version calls and empty batches (nothing to
-# launch) are not counted. Mapping workers launch from several threads, so
-# updates hold _count_lock.
+# launches of the seeding kernel by seed_randstrobes, of the lookup
+# kernel by index_find and of the scan seeder by syncmers_scan;
+# plain-version calls and empty batches (nothing to launch) are not
+# counted. Mapping workers launch from several threads, so updates hold
+# _count_lock.
 launches_seed = 0
 launches_find = 0
+launches_syncmers = 0
 _count_lock = threading.Lock()
 
 
@@ -157,3 +160,39 @@ def index_find(index_hashes: torch.Tensor, bucket_starts: torch.Tensor, bits: in
     with _count_lock:
         launches_find += 1
     return out
+
+
+def syncmers_scan(codes: torch.Tensor, lengths: torch.Tensor, k: int, s: int, t: int, M: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """codes (B, L) uint8 {0..3, 4 = N}, lengths (B,) int32 -> the
+    canonical closed syncmers of each read by the reference's automaton:
+    (positions (B, M) int32, -1 padded; hashes (B, M) int64 with the
+    uint64 bits, 0 padded; counts (B,) int32), as
+    `seed_device.syncmers_scan_plain`. CPU tensors take that plain
+    version; CUDA tensors launch csrc/syncmers_scan.cu, a thread a read."""
+    global launches_syncmers
+    if codes.dim() != 2 or codes.dtype != torch.uint8:
+        raise ValueError(f"codes must be (B, L) uint8, got {tuple(codes.shape)} {codes.dtype}")
+    B, L = codes.shape
+    if lengths.shape != (B,) or lengths.dtype != torch.int32 or lengths.device != codes.device:
+        raise ValueError("lengths must be (B,) int32 on the codes' device")
+    if not (1 <= s <= k <= 32 and 1 <= t <= k - s + 1 and M >= 1):
+        raise ValueError(f"unsupported syncmer parameters k={k} s={s} t={t} M={M}")
+    if codes.device.type == "cpu":
+        return syncmers_scan_plain(codes, lengths, k, s, t, M)
+    lib = _kernels(codes, "syncmers_scan")
+    pos = torch.empty((B, M), dtype=torch.int32, device=codes.device)
+    hashes = torch.empty((B, M), dtype=torch.int64, device=codes.device)
+    counts = torch.empty(B, dtype=torch.int32, device=codes.device)
+    if B == 0:
+        return pos, hashes, counts
+    codes, lengths = codes.contiguous(), lengths.contiguous()
+    with torch.cuda.device(codes.device):
+        err = lib.syncmers_scan_launch(
+            codes.data_ptr(), lengths.data_ptr(), B, L, k, s, t, M, pos.data_ptr(),
+            hashes.data_ptr(), counts.data_ptr(),
+            torch.cuda.current_stream(codes.device).cuda_stream)
+    _check_launch(err, "syncmers_scan")
+    with _count_lock:
+        launches_syncmers += 1
+    return pos, hashes, counts

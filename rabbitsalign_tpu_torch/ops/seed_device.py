@@ -315,3 +315,270 @@ def seed_and_find(codes: torch.Tensor, lengths: torch.Tensor, index_hashes: torc
     views = strobe_views(buf, codes.shape[0], total)
     index_find(index_hashes, bucket_starts, bits, views[2], out=views[6])
     return buf[:strobe_bytes(codes.shape[0], total)], total
+
+
+# --- the exact scan seeder and the split lookups --------------------------
+#
+# Counterparts of the JAX package's test-only seeding variants
+# (rabbitsalign_tpu/ops/seed_device.py): the syncmer automaton as a scan,
+# which is exact on the rows that `randstrobes_query_vec` flags as ties,
+# the linking as window ops, and the index lookup over (hi32, lo32) hash
+# planes, by binary and by G-ary search. No mapping path runs them.
+
+def syncmers_scan_plain(codes: torch.Tensor, lengths: torch.Tensor, k: int, s: int, t: int,
+                        M: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The plain version of csrc/syncmers_scan.cu: canonical closed
+    syncmers by the reference's automaton (SyncmerIterator, reference
+    src/randstrobes.cpp:57-118; seed/syncmers.py `syncmers_slow`), one
+    step a base over the whole batch, as the JAX package's
+    `syncmers_device` (:58) scans. Its min-queue breaks ties between
+    equal minimum s-mer hashes by its history: leftmost on a window's
+    first fill, rightmost on the rescan after the minimum slid out, the
+    old one when a new hash only equals it.
+
+    codes (B, L) uint8 {0..3, 4 = N}, lengths (B,) int32. Returns
+    (positions (B, M) int32, -1 past the count; hashes (B, M) int64 with
+    the uint64 bits, 0 past the count; counts (B,) int32). Syncmers past
+    the M-th are dropped (M = L is always enough)."""
+    B, L = codes.shape
+    dev = codes.device
+    w = k - s + 1
+    kmask, smask = as_i64((1 << (2 * k)) - 1), as_i64((1 << (2 * s)) - 1)
+    kshift, sshift = 2 * (k - 1), 2 * (s - 1)
+    zero = torch.zeros(B, dtype=I64, device=dev)
+    xk0, xk1, xs0, xs1 = zero, zero, zero, zero
+    run = torch.zeros(B, dtype=I64, device=dev)  # bases since the last N
+    ring = torch.full((B, w), UMAX, dtype=I64, device=dev)  # slot 0 the oldest
+    minval = torch.full((B,), UMAX, dtype=I64, device=dev)
+    minpos = torch.full((B,), -1, dtype=I64, device=dev)
+    lens = lengths.to(I64)
+    counts = torch.zeros(B, dtype=I64, device=dev)
+    out_pos = torch.full((B, M), -1, dtype=torch.int32, device=dev)
+    out_hash = torch.zeros((B, M), dtype=I64, device=dev)
+    rows = torch.arange(B, device=dev)
+    c64 = codes.to(I64)
+    for i in range(L):
+        c = c64[:, i]
+        base = c < 4
+        cc = torch.where(base, c, 0)
+        xk0 = torch.where(base, ((xk0 << 2) | cc) & kmask, 0)
+        xk1 = torch.where(base, lsr(xk1, 2) | ((3 - cc) << kshift), 0)
+        xs0 = torch.where(base, ((xs0 << 2) | cc) & smask, 0)
+        xs1 = torch.where(base, lsr(xs1, 2) | ((3 - cc) << sshift), 0)
+        run = torch.where(base, run + 1, 0)
+        have = base & (run >= s)
+        hash_s = xxh64_u64(umin(xs0, xs1))
+        ring = torch.where(have[:, None], torch.cat([ring[:, 1:], hash_s[:, None]], 1), ring)
+        n_smers = run - (s - 1)
+        first_full = have & (n_smers == w)
+        steady = have & (n_smers > w)
+        fr = flip(ring)
+        left = fr.argmin(1)  # the first of equal minima
+        right = (w - 1) - fr.flip(1).argmin(1)  # the last
+        slid_out = steady & (minpos == i - k)
+        take_new = steady & ~slid_out & (flip(hash_s) < flip(minval))
+        left_val = ring.gather(1, left[:, None])[:, 0]
+        right_val = ring.gather(1, right[:, None])[:, 0]
+        minval = torch.where(first_full, left_val, torch.where(
+            slid_out, right_val, torch.where(take_new, hash_s, minval)))
+        minpos = torch.where(first_full, i - k + 1 + left, torch.where(
+            slid_out, i - k + 1 + right, torch.where(take_new, i - s + 1, minpos)))
+        minval = torch.where(base, minval, UMAX)
+        minpos = torch.where(base, minpos, -1)
+        emit = (first_full | steady) & (minpos == i - k + t) & (i < lens) & (counts < M)
+        if bool(emit.any()):
+            at = rows[emit]
+            slot = counts[emit]
+            out_pos[at, slot] = i - k + 1
+            out_hash[at, slot] = xxh64_u64(umin(xk0[emit], xk1[emit]))
+            counts = counts + emit.to(I64)
+    return out_pos, out_hash, counts.to(torch.int32)
+
+
+def syncmers_device(codes: torch.Tensor, lengths: torch.Tensor, k: int, s: int, t: int,
+                    max_syncmers: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Canonical closed syncmers of a read batch, exact (the JAX
+    package's `syncmers_device`, :58): CPU tensors take
+    `syncmers_scan_plain`, CUDA tensors the kernel csrc/syncmers_scan.cu
+    (ops/seed_cuda.py `syncmers_scan`). Returns (positions (B, M) int32,
+    hashes (B, M) int64, counts (B,) int32), M = max_syncmers."""
+    from .seed_cuda import syncmers_scan
+
+    return syncmers_scan(codes, lengths, k, s, t, max_syncmers)
+
+
+def link_randstrobes_device(positions: torch.Tensor, hashes: torch.Tensor, counts: torch.Tensor,
+                            w_min: int, w_max: int, q: int, max_dist: int, k: int
+                            ) -> Tuple[torch.Tensor, ...]:
+    """Randstrobe linking of a batch of syncmer lists as window ops (the
+    JAX package's `link_randstrobes_device`, :165; seed/randstrobes.py
+    `link_randstrobes`): strobe 2 of syncmer i is the syncmer j in
+    [i + w_min, min(i + w_max, n - 1)] with pos <= pos_i + max_dist of
+    least popcount((h_i ^ h_j) & q), the leftmost on ties; an empty window
+    links i to itself. positions (B, M) int32, hashes (B, M) int64 bits,
+    counts (B,) int32. Returns (hash (B, M) int64, p1 (B, M) int32, p2
+    (B, M) int32, n_out (B,) int32): slot m pairs syncmer m, valid for
+    m < n_out = max(0, count - w_min); the other slots hold what the same
+    arithmetic gives there, as in the JAX function."""
+    B, M = hashes.shape
+    dev = hashes.device
+    width = w_max - w_min + 1
+    idx = torch.arange(M, device=dev)[None, :]
+    j_idx = idx[:, :, None] + w_min + torch.arange(width, device=dev)[None, None, :]
+    cnt = counts.to(I64)[:, None, None]
+    j_clip = torch.minimum(j_idx, (cnt - 1).clamp(min=0))
+    valid = j_idx < cnt
+    cand_pos = positions.gather(1, j_clip.reshape(B, -1)).reshape(B, M, width)
+    valid = valid & (cand_pos <= positions[:, :, None] + max_dist)
+    cand_hash = hashes.gather(1, j_clip.reshape(B, -1)).reshape(B, M, width)
+    metric = popcount64((hashes[:, :, None] ^ cand_hash) & as_i64(q))
+    metric = torch.where(valid, metric, 1 << 40)
+    best = metric.argmin(2)  # the leftmost of equal minima
+    strobe2 = torch.where(valid.any(2), idx + w_min + best, idx).clamp(max=M - 1)
+    h2 = hashes.gather(1, strobe2)
+    p2 = positions.gather(1, strobe2)
+    return hashes + h2, positions, p2, (counts - w_min).clamp(min=0)
+
+
+def randstrobes_query_device(codes: torch.Tensor, lengths: torch.Tensor, k: int, s: int, t: int,
+                             w_min: int, w_max: int, q: int, max_dist: int, max_syncmers: int
+                             ) -> Tuple[torch.Tensor, ...]:
+    """Both strands' query randstrobes of a read batch through the exact
+    scan seeder (the JAX package's `randstrobes_query_device`, :202;
+    reference src/randstrobes.cpp:207-253): `syncmers_device`, then
+    `link_randstrobes_device` on the list and on the list reversed with
+    positions mirrored. Exact on the rows `randstrobes_query_vec` flags.
+    Returns (hash (B, 2M) int64 bits, start (B, 2M) int32, end (B, 2M)
+    int32, is_rc (B, 2M) bool, n_fwd (B,) int32, n_rc (B,) int32); slots
+    [0, n_fwd) and [M, M + n_rc) are valid. Reads shorter than w_max give
+    nothing."""
+    B = codes.shape[0]
+    pos, h, counts = syncmers_device(codes, lengths, k, s, t, max_syncmers)
+    counts = torch.where(lengths >= w_max, counts, 0)
+    M = pos.shape[1]
+    fh, f1, f2, n_fwd = link_randstrobes_device(pos, h, counts, w_min, w_max, q, max_dist, k)
+    # reverse strand: the syncmer list reversed, positions mirrored
+    src = counts.to(I64)[:, None] - 1 - torch.arange(M, device=codes.device)[None, :]
+    src_clip = src.clamp(min=0)
+    rpos = torch.where(src >= 0, lengths[:, None] - pos.gather(1, src_clip) - k, -1)
+    rh = torch.where(src >= 0, h.gather(1, src_clip), 0)
+    bh, b1, b2, n_rc = link_randstrobes_device(rpos.to(torch.int32), rh, counts, w_min, w_max,
+                                               q, max_dist, k)
+    is_rc = torch.zeros((B, 2 * M), dtype=torch.bool, device=codes.device)
+    is_rc[:, M:] = True
+    return (torch.cat([fh, bh], 1), torch.cat([f1, b1], 1), torch.cat([f2 + k, b2 + k], 1),
+            is_rc, n_fwd, n_rc)
+
+
+def split_hash_u64(hashes):
+    """A sorted uint64 hash array (numpy) as its (hi32, lo32) uint32
+    planes, for the split lookups below (once an index)."""
+    import numpy as np
+
+    h = np.asarray(hashes, dtype=np.uint64)
+    return (h >> np.uint64(32)).astype(np.uint32), h.astype(np.uint32)
+
+
+def gary_iters(bucket_starts, G: int = 16) -> int:
+    """The narrowing steps `index_find_device_gary` needs, so that the
+    final G-slice covers the largest bucket run (host side, numpy)."""
+    import numpy as np
+
+    runs = np.diff(np.asarray(bucket_starts, dtype=np.int64))
+    w = int(runs.max()) if runs.size else 0
+    iters = 0
+    while w > G - 1:
+        w = -(-w // G)
+        iters += 1
+    return iters
+
+
+def hash_planes(h: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Hashes (int64 with the uint64 bits) as the (hi32, lo32) query
+    planes of the split lookups: int32 tensors with the uint32 bits."""
+    def bits32(x):
+        return torch.where(x >= 1 << 31, x - (1 << 32), x).to(torch.int32)
+
+    return bits32(lsr(h, 32)), bits32(h & 0xFFFFFFFF)
+
+
+def _ordered32(x: torch.Tensor) -> torch.Tensor:
+    """uint32 bits carried as int32 -> int32 in the same order."""
+    return x ^ -(1 << 31)
+
+
+def _top_bits(khi: torch.Tensor, bits: int) -> torch.Tensor:
+    return (khi.to(I64) & 0xFFFFFFFF) >> (32 - bits)
+
+
+def index_find_device_split(hi: torch.Tensor, lo: torch.Tensor, bucket_starts: torch.Tensor,
+                            bits: int, khi: torch.Tensor, klo: torch.Tensor,
+                            iters: int = 18) -> torch.Tensor:
+    """StrobemerIndex.find for a batch in 32-bit arithmetic (the JAX
+    package's `index_find_device_split`, :265): the sorted hashes as
+    (hi32, lo32) planes, a bucket-bounded binary search of `iters` steps
+    (2**iters must cover the largest bucket) with lexicographic unsigned
+    compares. hi, lo (n,) and the query planes khi, klo (any shape) are
+    int32 tensors holding the uint32 bits; bucket_starts (2**bits + 1,)
+    int64. Returns the first positions (int64, -1 when absent), equal to
+    `index_find_device` with the bucket table's quirk."""
+    n = hi.shape[0]
+    his, los, qhi, qlo = (_ordered32(x) for x in (hi, lo, khi, klo))
+    top = _top_bits(khi, bits)
+    lo_b, hi_b = bucket_starts[top], bucket_starts[top + 1]
+    a, b = lo_b, hi_b
+    for _ in range(iters):
+        mid = (a + b) >> 1
+        safe = mid.clamp(max=n - 1)
+        mh, ml = his[safe], los[safe]
+        less = (mh < qhi) | ((mh == qhi) & (ml < qlo))
+        act = a < b
+        a, b = torch.where(act & less, mid + 1, a), torch.where(act & ~less, mid, b)
+    pos = a
+    in_range = (pos >= lo_b) & (pos < hi_b) & (pos < n)
+    safe = torch.where(pos < n, pos, 0).clamp(max=n - 1)
+    found = in_range & (hi[safe] == khi) & (lo[safe] == klo)
+    return torch.where(found, pos, -1)
+
+
+def index_find_device_gary(hi: torch.Tensor, lo: torch.Tensor, bucket_starts: torch.Tensor,
+                           bits: int, khi: torch.Tensor, klo: torch.Tensor, iters: int,
+                           G: int = 16) -> torch.Tensor:
+    """StrobemerIndex.find for a batch by G-ary search (the JAX package's
+    `index_find_device_gary`, :313): each of `iters` narrowing steps
+    probes G - 1 strided positions at once and keeps the bracketing
+    segment, then G contiguous entries decide the first one not below the
+    query. hi, lo are the split planes (int32 with the uint32 bits)
+    padded with at least G sentinel rows of 0xFFFFFFFF; n treats exactly
+    G rows as padding (a larger pad stays correct, since a sentinel
+    compares as +inf and the bucket bound excludes a false equality).
+    `iters` from `gary_iters`. Returns the first positions (int64, -1 when
+    absent), as `index_find_device_split`."""
+    n = hi.shape[0] - G
+    his, los = _ordered32(hi), _ordered32(lo)
+    shape = khi.shape
+    qhi, qlo = _ordered32(khi).reshape(-1, 1), _ordered32(klo).reshape(-1, 1)
+    top = _top_bits(khi, bits).reshape(-1)
+    lo_b, hi_b = bucket_starts[top], bucket_starts[top + 1]
+    # invariant: the insertion point lies in [base, base + width]
+    base, width = lo_b, hi_b - lo_b
+    probe = torch.arange(1, G, device=hi.device)[None, :]
+    imax = (1 << 31) - 1
+    for _ in range(iters):
+        stride = (width + (G - 1)) // G
+        p = base[:, None] + probe * stride[:, None]
+        safe = p.clamp(max=n - 1)
+        oob = p >= n  # past the logical end: +inf
+        vh = torch.where(oob, imax, his[safe])
+        vl = torch.where(oob, imax, los[safe])
+        less = (vh < qhi) | ((vh == qhi) & (vl < qlo))
+        base = base + less.sum(1) * stride
+        width = stride
+    j = torch.arange(G, device=hi.device)[None, :]
+    vh, vl = his[base[:, None] + j], los[base[:, None] + j]
+    ge = (vh > qhi) | ((vh == qhi) & (vl >= qlo))
+    pos = base + torch.where(ge & (j <= width[:, None]), j, width[:, None]).min(1).values
+    in_range = (pos >= lo_b) & (pos < hi_b) & (pos < n)
+    safe = torch.where(pos < n, pos, 0).clamp(max=n - 1)
+    found = in_range & (hi[safe] == khi.reshape(-1)) & (lo[safe] == klo.reshape(-1))
+    return torch.where(found, pos, -1).reshape(shape)

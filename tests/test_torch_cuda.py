@@ -6,7 +6,10 @@ lookup at 1 and 4 shards of one card, and the 3-worker pipeline,
 default run, the multi-host pod's split index and a two-process pod on
 the card, and a device list of several entries (two of the one card; every
 card where there are two or more): the round-robin extend, the genome
-a card, the workers' streams a card and the shards a card against the CPU.
+a card, the workers' streams a card and the shards a card against the CPU;
+and the device NAM front end's kernels (the exact syncmer scan, the merge,
+the run walk) and its entry points against their plain versions and the
+host find_nams.
 Needs an NVIDIA GPU and nvcc;
 skips without one. This file imports neither jax nor rabbitsalign_tpu,
 so it also runs where JAX is absent:
@@ -25,10 +28,13 @@ from rabbitsalign_tpu_torch.ops import int16_probe as probe
 from rabbitsalign_tpu_torch.ops import seed_cuda, seed_device, sw_cuda, tb_cuda
 from rabbitsalign_tpu_torch.ops.sw_cuda import SwParams
 
+from .torch_chain_cases import (chain_reads, composed_reads, nam_key, stream_tensors,
+                                synthetic_streams, wide_streams, world_genome)
 from .torch_extend_cases import (READ_LEN, gap_pairs, mixed_pairs, q2_batch, revcomp, sim_read,
                                  write_fastq)
 from .torch_gather_lanes import RunsIndex
 from .torch_seed_cases import code_batch, edge_reads, sampled_reads
+from .util import random_dna
 
 
 @pytest.fixture
@@ -779,3 +785,150 @@ def test_every_card_matches_the_cpu(cuda, multi_world, monkeypatch):
         queries = hashes[::7].contiguous()
         assert torch.equal(seed_cuda.index_find(hashes, buckets, index.bits, queries),
                            seed_device.index_find_device(hashes, buckets, index.bits, queries))
+
+
+@pytest.fixture(scope="module")
+def chain_world():
+    """tests/test_chain_device.py's two contigs and a third whose 300 bp
+    unit repeated 80 times gives runs of 80 rows; the port's index; reads
+    of that file's two sets, sampled reads of the repeat contig and
+    tandem repeats of 3 to 25 bp units (tie rows)."""
+    from rabbitsalign_tpu_torch.index.params import IndexParameters
+    from rabbitsalign_tpu_torch.index.strobemer_index import StrobemerIndex
+    from rabbitsalign_tpu_torch.io.fasta import References
+
+    genome = world_genome()
+    rep = random_dna(5000, seed=60) + random_dna(300, seed=61) * 80 + random_dna(5000, seed=62)
+    refs = References()
+    refs.add("cA", genome[:45000].encode())
+    refs.add("cB", genome[45000:].encode())
+    refs.add("cC", rep.encode())
+    params = IndexParameters.from_read_length(150)
+    index = StrobemerIndex(refs, params)
+    index.populate(0.0002)
+    reads = (composed_reads(genome) + chain_reads(genome) + sampled_reads(rep.encode(), 40, 63)
+             + [(random_dna(u, seed=u) * 60)[:150].encode() for u in (3, 5, 8, 13, 25)])
+    return index, params, reads
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 33, 4096])
+def test_syncmers_scan_kernel_matches_plain(cuda, chain_world, B):
+    """The exact scan's positions, hashes and counts on the card equal
+    `syncmers_scan_plain` on the same tensors, and (B > 1) the syncmers of
+    `randstrobes_query_device` give every read's host strobes, tie rows
+    included."""
+    from rabbitsalign_tpu_torch.seed.randstrobes import randstrobes_query
+
+    index, params, reads = chain_world
+    reads = ((edge_reads(B) + reads) * (B // len(reads) + 2))[:B]
+    codes, lens = (torch.from_numpy(a).to(cuda) for a in code_batch(reads))
+    sp = params.syncmer
+    launches = seed_cuda.launches_syncmers
+    got = seed_cuda.syncmers_scan(codes, lens, sp.k, sp.s, sp.t_syncmer, 256)
+    assert seed_cuda.launches_syncmers == launches + 1
+    want = seed_device.syncmers_scan_plain(codes, lens, sp.k, sp.s, sp.t_syncmer, 256)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    if B == 1:
+        return
+    args = _seed_args(params)
+    h, st, en, _, nf, nr = (x.cpu().numpy() for x in seed_device.randstrobes_query_device(
+        codes, lens.clamp(min=0), *args))
+    for i, read in enumerate(reads[:200]):
+        host = randstrobes_query(read, params) if len(read) <= 256 else None
+        rows = list(range(nf[i])) + list(range(256, 256 + nr[i]))
+        assert h[i, rows].view(np.uint64).tolist() == ([] if host is None else host.hash.tolist())
+        if host is not None:
+            assert st[i, rows].tolist() == host.start.tolist()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which,cap", [("synthetic", 32), ("synthetic", 4), ("wide", 128),
+                                       ("wide", 72), ("wide", 40)])
+def test_merge_kernel_matches_plain(cuda, which, cap):
+    """The merge's emissions, counts and overflow flags on the card equal
+    `merge_hits_plain` at one, two and four slot groups a lane, tables
+    that overflow included; a cap past 128 is refused."""
+    from rabbitsalign_tpu_torch.ops import chain_cuda
+    from rabbitsalign_tpu_torch.ops.chain_device import merge_hits_plain
+
+    streams = synthetic_streams() if which == "synthetic" else wide_streams()
+    args = [x.to(cuda) for x in stream_tensors(streams)]
+    launches = chain_cuda.launches_merge
+    got = chain_cuda.merge_hits(*args, 20, cap)
+    assert chain_cuda.launches_merge == launches + 1
+    want = merge_hits_plain(*args, 20, cap)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    assert bool(want[2].any()) == (cap in (4, 72, 40))
+    with pytest.raises(ValueError, match="128"):
+        chain_cuda.merge_hits(*args, 20, 129)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cutoff,maxh,cap", [(None, 192, None), (1000, 4000, 100), (3, 40, 3)],
+                         ids=["filter-cutoff", "all-kept", "filtered-overflow"])
+def test_walk_kernel_matches_plain(cuda, chain_world, cutoff, maxh, cap):
+    """The run walk's hits, n_hits, total, good and overflow on the card
+    equal `walk_hits_plain`, on runs of 80 rows (three rounds of 32), with
+    the filter at the index's cutoff, lifted, and at 3."""
+    from rabbitsalign_tpu_torch.ops import chain_cuda, front_device
+
+    index, params, reads = chain_world
+    codes, lens = (torch.from_numpy(a).to(cuda) for a in code_batch(reads))
+    buf, total = seed_cuda.seed_randstrobes(codes, lens, *_seed_args(params))
+    views = seed_device.strobe_views(buf, len(reads), total)
+    dev_index = front_device.upload_index_split(index, cuda)
+    seed_cuda.index_find(dev_index[7], dev_index[4], index.bits, views[2], out=views[6])
+    cutoff = index.filter_cutoff if cutoff is None else cutoff
+    cap = cutoff if cap is None else cap
+    planes = (dev_index[7], dev_index[2], dev_index[3])
+    launches = chain_cuda.launches_walk
+    got = chain_cuda.walk_hits(*views[:7], *planes, params.syncmer.k, cutoff, maxh, cap)
+    assert chain_cuda.launches_walk == launches + 1
+    want = front_device.walk_hits_plain(*views[:7], *planes, params.syncmer.k, cutoff, maxh, cap)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    assert int(want[1].sum()) > len(reads)
+
+
+@pytest.mark.cuda
+def test_device_nam_front_end_matches_the_cpu(cuda, chain_world):
+    """find_nams_composed_batch on the card: the same None pattern and the
+    same NAMs as on the CPU and, where not None, as the host find_nams;
+    it launches the seeding, lookup, walk and merge kernels once each.
+    find_nams_device_chain on the card equals the host find_nams."""
+    from rabbitsalign_tpu_torch.chain.nams import find_nams
+    from rabbitsalign_tpu_torch.ops import chain_cuda
+    from rabbitsalign_tpu_torch.ops.chain_device import find_nams_device_chain
+    from rabbitsalign_tpu_torch.ops.front_device import (find_nams_composed_batch,
+                                                         upload_index_split)
+    from rabbitsalign_tpu_torch.seed.randstrobes import randstrobes_query
+
+    index, params, reads = chain_world
+    before = (seed_cuda.launches_seed, seed_cuda.launches_find, chain_cuda.launches_walk,
+              chain_cuda.launches_merge)
+    got = find_nams_composed_batch(reads, upload_index_split(index, cuda), params,
+                                   index.filter_cutoff)
+    after = (seed_cuda.launches_seed, seed_cuda.launches_find, chain_cuda.launches_walk,
+             chain_cuda.launches_merge)
+    assert [a - b for a, b in zip(after, before)] == [1, 1, 1, 1]
+    want = find_nams_composed_batch(reads, upload_index_split(index, "cpu"), params,
+                                    index.filter_cutoff)
+    assert [g is None for g in got] == [w is None for w in want]
+    checked = 0
+    for read, g, w in zip(reads, got, want):
+        if g is None:
+            continue
+        host = find_nams(randstrobes_query(read, params), index)
+        assert g[0] == w[0] == host[0]
+        assert [nam_key(n) for n in g[1]] == [nam_key(n) for n in w[1]] \
+            == [nam_key(n) for n in host[1]]
+        checked += 1
+    assert checked > len(reads) // 2
+    for read in reads[:40]:
+        qrs = randstrobes_query(read, params)
+        f, nams = find_nams_device_chain(qrs, index, device=cuda)
+        host = find_nams(qrs, index)
+        assert f == host[0] and [nam_key(n) for n in nams] == [nam_key(n) for n in host[1]]
