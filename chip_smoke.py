@@ -108,10 +108,16 @@ Chain. The device NAM front end (no CLI path runs it, as in the JAX
    lookup must equal the index_find kernel on the chunk's strobes; the
    exact seeder must equal the vectorised one on the rows it does not flag
    and the host randstrobes_query on its tie rows. The three kernels
-   against their plain versions, tolerance 0: the scan on the chunk, the
-   walk on the chunk's strobes, the merge on every stream of the chunk at
+   against their plain versions, tolerance 0: the scan on the chunk and on
+   10 000 tie-heavy reads (tests/torch_seed_cases.py `tie_reads`: tandem
+   repeats of 1-29 bp units, homopolymers, N runs, where the scan replays
+   its automaton), the walk on the chunk's strobes, on the 80-copy repeat
+   of `long_runs_world` (runs of ~80 rows) and on `mixed_runs` (runs of 1
+   to 80 rows in one round), the merge on every stream of the chunk at
    cap 32 and at cap 4 (where streams overflow). Each kernel's time after
    an L2 flush and back to back, plain time, bound and launches; the
+   scan's time on the tie-heavy batch; the time of one merge launch of
+   `find_nams_device_chain` (one read's streams, 20 reads); the
    composed batch's wall time a chunk, host-paced, in four parts (the
    device front end with its copy back, the host ordering, the merge, the
    attribution) beside the engine's `find_nams_chunk` on the same chunk.
@@ -275,14 +281,18 @@ SHARD_ROW_BYTES = 16
 # window and case tests against the NAM it joins, or its append: a floor,
 # since the tests against the other open NAMs depend on the table). The
 # walk: 16 bytes a strobe (its position and hash), 16 a walked run row
-# (hash, position, packed), 24 a kept hit. The scan seeder: OPS_PER_SMER
-# an s-mer, and the codes read and its (B, M) outputs written once.
+# (hash, position, packed), 24 a slot of the (N, maxh, 6) hits (kept or
+# zero: the function writes them all), 25 a read (its count and offset
+# read, n_hits, total, good and overflow written). The scan seeder:
+# OPS_PER_SMER an s-mer, and the codes read and its (B, M) outputs written
+# once.
 MERGE_HIT_BYTES = 16
 MERGE_NAM_BYTES = 28
 OPS_PER_MERGE_HIT = 12
 WALK_STROBE_BYTES = 16
 WALK_ROW_BYTES = 16
-WALK_HIT_BYTES = 24
+WALK_SLOT_BYTES = 24
+WALK_READ_BYTES = 25
 
 
 PHASE = "start"  # the phase running now, named by a failure
@@ -1266,8 +1276,8 @@ def chain_kernels(torch, card, index, se_fastq):
     from rabbitsalign_tpu_torch.ops import chain_cuda, chain_device, front_device, seed_cuda
     from rabbitsalign_tpu_torch.ops import seed_device as sd
     from rabbitsalign_tpu_torch.seed.randstrobes import randstrobes_query
-    from tests.torch_chain_cases import nam_key
-    from tests.torch_seed_cases import SEED_L, code_batch
+    from tests.torch_chain_cases import long_runs_world, mixed_runs, nam_key, world_strobes
+    from tests.torch_seed_cases import SEED_L, code_batch, tie_reads
 
     dev = torch.device(DEVICE)
     params = index.parameters
@@ -1373,7 +1383,8 @@ def chain_kernels(torch, card, index, se_fastq):
                                      dev_index[6])
     check(torch.equal(gary, views[6]), "index_find_device_gary differs from the index_find kernel")
     planes = (dev_index[7], dev_index[2], dev_index[3])
-    walk_args = (*views[:7], *planes, k, fc, 192, fc)
+    walk_maxh = 192  # the composed batch's hits a read
+    walk_args = (*views[:7], *planes, k, fc, walk_maxh, fc)
     walked = chain_cuda.walk_hits(*walk_args)
     err["walk_hits"] = max_abs_err(torch, zip(walked, front_device.walk_hits_plain(*walk_args)))
     check(err["walk_hits"] == 0, f"walk_hits disagrees with its plain version "
@@ -1400,9 +1411,71 @@ def chain_kernels(torch, card, index, se_fastq):
         f"hits, {n_emit} NAMs) at cap 32 ({n_ovf[32]} streams overflow) and at cap 4 ({n_ovf[4]}) "
         f"[{card}]")
 
+    # the scan on a tie-heavy batch of as many reads (tandem repeats of 1-29
+    # bp units, homopolymers, N runs: the replay at work), the walk on the
+    # 80-copy repeat's runs and on runs of 1 to 80 rows mixed in a round
+    ties = tie_reads(n, seed=13)
+    tcodes, tlens = (torch.from_numpy(a).to(dev) for a in code_batch(ties))
+    tie_scan = lambda: seed_cuda.syncmers_scan(tcodes, tlens, sp.k, sp.s, sp.t_syncmer, SEED_L)
+    tie_got = tie_scan()
+    tie_err = max_abs_err(torch, zip(tie_got, sd.syncmers_scan_plain(tcodes, tlens, sp.k, sp.s,
+                                                                     sp.t_syncmer, SEED_L)))
+    err["syncmers_scan"] = max(err["syncmers_scan"], tie_err)
+    check(tie_err == 0, f"syncmers_scan disagrees with its plain version on the tie-heavy batch "
+                        f"(max_abs_err {tie_err})")
+    rep_index, rep_params, rep_reads = long_runs_world()
+    rep_views, rep_planes = world_strobes(rep_index, rep_params, rep_reads)
+    rep_args = tuple(x.to(dev) for x in (*rep_views, *rep_planes))
+    mixed_args = tuple(x.to(dev) for x in mixed_runs()[0])
+    rfc = rep_index.filter_cutoff
+    walks = []
+    for name, args, kk, cutoff, maxh, cap in (
+            ("repeat", rep_args, rep_params.syncmer.k, rfc, walk_maxh, rfc),
+            ("repeat", rep_args, rep_params.syncmer.k, 1000, 4000, 100),
+            ("mixed", mixed_args, 20, 1000, 4000, 100), ("mixed", mixed_args, 20, 33, 60, 33)):
+        got = chain_cuda.walk_hits(*args, kk, cutoff, maxh, cap)
+        e = max_abs_err(torch, zip(got, front_device.walk_hits_plain(*args, kk, cutoff, maxh,
+                                                                     cap)))
+        err["walk_hits"] = max(err["walk_hits"], e)
+        check(e == 0, f"walk_hits disagrees with its plain version on the {name} runs at cutoff "
+                      f"{cutoff}, maxh {maxh}, cap {cap} (max_abs_err {e})")
+        walks.append(f"{name} cutoff {cutoff} maxh {maxh} cap {cap}: {int(got[1].sum())} hits, "
+                     f"{int(got[4].sum())} reads overflow")
+    say(f"syncmers_scan equals its plain version on {n} tie-heavy reads "
+        f"({int(tie_got[2].sum())} syncmers); walk_hits equals its plain version on the 80-copy "
+        f"repeat's {len(rep_reads)} reads and the mixed runs' {mixed_args[0].numel()} reads "
+        f"({'; '.join(walks)}) [{card}]")
+
     # times: each kernel after an L2 flush, its plain version host-paced
     flush = flush_l2(torch)
     flush_ms = device_ms(torch, flush, 20)
+    tie_ms = device_ms(torch, lambda: (flush(), tie_scan()), 10) - flush_ms
+    # the walk's dense output alone: one torch zero_ of its (N, maxh, 6) hits
+    slots = torch.empty((n, walk_maxh, 6), dtype=torch.int32, device=dev)
+    slots_ms = device_ms(torch, lambda: (flush(), slots.zero_()), 10) - flush_ms
+    del slots
+    # one merge_hits launch of find_nams_device_chain: one read's streams
+    one_read = []
+    for q in qrs:
+        _, per_ref = chain_device._collect_hits(q, index)
+        parts = [chain_device.ordered_stream(per_ref[rc])[:2] for rc in (0, 1)]
+        parts = [x for x in parts if x[0]]
+        if parts:
+            one_read.append(chain_device.stream_batch(parts, dev))
+        if len(one_read) == 20:
+            break
+    read_cold = sorted(device_ms(torch, lambda: (flush(), chain_cuda.merge_hits(*b, k, 32)), 5)
+                       - flush_ms for b in one_read)
+    read_warm = sorted(device_ms(torch, lambda: chain_cuda.merge_hits(*b, k, 32), 20)
+                       for b in one_read)
+    read_hits = sorted(int(b[0].shape[0]) for b in one_read)
+    read_floor = empty_ms(torch, 1, 128)
+    say(f"merge_hits, one launch of find_nams_device_chain (one read's streams, {len(one_read)} "
+        f"reads of {read_hits[0]}-{read_hits[-1]} hits, median {read_hits[len(read_hits) // 2]}): "
+        f"median {read_cold[len(read_cold) // 2]:.4f} ms after an L2 flush (range "
+        f"{read_cold[0]:.4f}-{read_cold[-1]:.4f}), median {read_warm[len(read_warm) // 2]:.4f} "
+        f"ms back to back, the wrapper's zero fill and flag cast included; an empty launch of "
+        f"one block {read_floor:.4f} ms [{card}]")
     scan = lambda: seed_cuda.syncmers_scan(codes, lens, sp.k, sp.s, sp.t_syncmer, SEED_L)
     merge = lambda: chain_cuda.merge_hits(*batch, k, 32)
     walk = lambda: chain_cuda.walk_hits(*walk_args)
@@ -1433,14 +1506,20 @@ def chain_kernels(torch, card, index, se_fastq):
               "merge_hits": bound(MERGE_HIT_BYTES * n_hits_all + MERGE_NAM_BYTES * n_emit,
                                   OPS_PER_MERGE_HIT * n_hits_all),
               "walk_hits": bound(WALK_STROBE_BYTES * total + WALK_ROW_BYTES * rows
-                                 + WALK_HIT_BYTES * kept, 0)}
+                                 + WALK_SLOT_BYTES * n * walk_maxh + WALK_READ_BYTES * n, 0)}
     for name, (ms, plain_ms) in times.items():
         say(f"{name}: kernel {ms:.4f} ms on the card after an L2 flush, plain {plain_ms:.4f} ms, "
             f"bound {bounds[name][0]:.6f} ms ({bounds[name][1]}), one PyTorch call none, "
             f"launches {launches[name]} [{card}]")
     say(f"bounds' inputs: {n_smer} s-mers; {n_hits_all} hits and {n_emit} NAMs in "
         f"{len(streams)} streams (the merge's bound ignores that a stream is a serial chain); "
-        f"{total} strobes, {rows} walked run rows, {kept} kept hits")
+        f"{total} strobes, {rows} walked run rows, {kept} kept hits in {n} x {walk_maxh} slots")
+    say(f"walk_hits' {n} x {walk_maxh} x 6 int32 hits written by one torch zero_: "
+        f"{slots_ms:.4f} ms after an L2 flush, against the walk's {times['walk_hits'][0]:.4f} "
+        f"[{card}]")
+    say(f"syncmers_scan on the tie-heavy batch (the replay's worst case): {tie_ms:.4f} ms after "
+        f"an L2 flush, {tie_ms / bounds['syncmers_scan'][0]:.1f}x the chunk's bound, "
+        f"{tie_ms / times['syncmers_scan'][0]:.2f}x the chunk's time [{card}]")
 
     # the composed batch's wall time a chunk, host-paced, in four parts
     warm = []

@@ -22,21 +22,39 @@
 // (ref_end - ref_start)| is at most every earlier row's of the run. Kept
 // hits go to hits (N, maxh, 6) i32 as [is_rc, ref_id, qs, qe, rs, re],
 // strobe-major and run-minor (the host's processing order), the first
-// maxh of them; n_hits (N,) holds min(kept, maxh), overflow (N,) u8 kept
-// > maxh. The caller zeroes `hits`.
+// maxh of them, and zeros past them; n_hits (N,) holds min(kept, maxh),
+// overflow (N,) u8 kept > maxh.
 //
-// Design: one warp a read. The strobes come in rounds of 32, a lane each:
-// its position, hash and the filter's probe load together, and a ballot
-// gives the walked strobes of the round. Each walked strobe, in order, is
-// broadcast and its run read 32 rows a round, a lane a row (coalesced
-// 8-byte hashes, then the row's position and packed word); the keep rule
-// is a warp inclusive min-scan of the diffs, shifted by one lane, with
-// the run's minimum so far carried between rounds; kept rows take their
-// slots at a popcount prefix of the ballot. Bound: bytes, 16 B a strobe
-// (its position and hash), 16 B a walked row (hash, position, packed) and
-// 24 B a kept hit; in practice the dependent round trips of a read's
-// strobes (a found strobe's probe, then its run) on random rows of an
-// index larger than the L2.
+// Bound: bytes, 16 B a strobe (its position and hash), 16 B a walked row
+// (hash, position, packed) and the (N, maxh, 6) hits, 24 B a slot, kept
+// or zero (46 MB at N = 10 000, maxh = 192: 14 us at 3.35 TB/s). What
+// sets the time is latency: a strobe's run is a chain of dependent trips
+// to device memory (its position, then the filter's probe and its rows)
+// on random rows of an index larger than the L2, and on simulated reads
+// almost every run is one row.
+//
+// Design: one warp a read, its strobes in rounds of 32, a lane a strobe.
+// Each lane issues at once the loads of its strobe (position, hash,
+// starts, ends, is_rev), then at once the filter's probe at p + cutoff,
+// the first row of its run (hash, position, packed) and the next row's
+// hash, so a one-row run costs two dependent trips. The lane walks up to
+// kLaneRows = 4 rows of its run itself, in order, with its own running
+// minimum for the keep rule, loading a row's position and packed word
+// (and the next hash) once the row is known to be in the run, and keeps
+// the rows in registers: on simulated reads every run is one row, so
+// loading more rows at once would only add sectors and registers. A warp
+// exclusive scan of the lanes' kept counts gives each lane its first
+// slot; a run that goes on past kLaneRows rows (the row after them in the
+// run, and cap > kLaneRows) is finished afterwards, in strobe order, by
+// the whole warp, 32 rows a round, a lane a row (coalesced 8-byte hashes,
+// then the row's position and packed word), the keep rule a warp
+// inclusive min-scan of the diffs shifted by one lane and started from
+// the lane's carry. Its kept rows take their slots at a popcount prefix
+// of the ballot, after its own first rows' hits, and its count shifts the
+// slots of every later strobe of the round before any of them is written.
+// The read's slots past its hits are zeroed by consecutive lanes at the
+// end, so no memset of the hits precedes the launch. Every warp primitive
+// is reached by the whole warp.
 #include <climits>
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -46,7 +64,13 @@ namespace {
 typedef unsigned long long u64;
 
 constexpr int kWarps = 4;
+constexpr int kLaneRows = 4;  // rows of a run that its lane walks alone
 constexpr unsigned kFull = 0xFFFFFFFFu;
+
+// a row's reference span: ref_start, and its length (packed & 0xFF) + k
+__device__ __forceinline__ int row_end(int rs, uint32_t pk, int k) {
+    return (int)((unsigned)rs + (pk & 0xFF) + (unsigned)k);
+}
 
 __global__ void __launch_bounds__(kWarps * 32) walk_hits_kernel(
     const int32_t* __restrict__ counts, const long long* __restrict__ offsets,
@@ -63,73 +87,152 @@ __global__ void __launch_bounds__(kWarps * 32) walk_hits_kernel(
     const int cnt = counts[b];
     const long long off = offsets[b];
     int32_t* out = hits + b * (long long)maxh * 6;
-    int kept = 0, n_found = 0, n_good = 0;
+    const int rows = cap < kLaneRows ? cap : kLaneRows;  // the lane's rows of a run
+    int kept = 0, n_found = 0, n_good = 0;               // uniform
     for (int i0 = 0; i0 < cnt; i0 += 32) {
-        // this lane's strobe of the round: found, filtered
+        // this lane's strobe of the round
         const int i = i0 + lane;
         long long p = -1;
         u64 key = 0;
-        bool walk = false;
+        int qs = 0, qe = 0, rc = 0;
         if (i < cnt) {
-            p = positions[off + i];
-            key = hashes[off + i];
-            if (p >= 0) {
-                const long long pc = p + cutoff;
-                walk = !(pc < n && idx_hashes[pc] == key);
+            const long long si = off + i;
+            p = positions[si];
+            key = hashes[si];
+            qs = starts[si];
+            qe = ends[si];
+            rc = is_rev[si];
+        }
+        // the filter's probe, the run's first row and the next row's hash,
+        // loaded together
+        bool walk = false;
+        u64 h0 = 0, hnext = 0;
+        uint32_t rp[kLaneRows], rk[kLaneRows];
+        if (p >= 0) {
+            const long long pc = p + cutoff;
+            const u64 probe = pc < n ? idx_hashes[pc] : 0;
+            if (p < n) {
+                h0 = idx_hashes[p];
+                rp[0] = idx_pos[p];
+                rk[0] = idx_packed[p];
+            }
+            hnext = p + 1 < n ? idx_hashes[p + 1] : 0;
+            walk = !(pc < n && probe == key);
+        }
+        // the lane's walk: rows j < rows while the hash stays its own, a
+        // row's position and packed word (and the next hash) loaded once
+        // the row is known to be in the run
+        const int qspan = qe - qs;
+        int carry = INT_MAX;  // the run's least diff so far
+        unsigned kmask = 0;   // the rows kept, a bit each
+        int in_run = 0;       // rows of the run walked
+        if (walk) {
+#pragma unroll
+            for (int j = 0; j < kLaneRows; ++j) {
+                if (j >= rows || p + j >= n) break;
+                if (j == 0) {
+                    if (h0 != key) break;
+                } else {
+                    if (hnext != key) break;
+                    rp[j] = idx_pos[p + j];
+                    rk[j] = idx_packed[p + j];
+                    hnext = p + j + 1 < n ? idx_hashes[p + j + 1] : 0;
+                }
+                in_run = j + 1;
+                const int diff = abs(qspan - ((int)(rk[j] & 0xFF) + k));
+                kmask |= (unsigned)(diff <= carry) << j;
+                carry = min(carry, diff);
             }
         }
+        const int kc = __popc(kmask);
+        const bool more = walk && in_run == kLaneRows && kLaneRows < cap &&
+                          p + kLaneRows < n && hnext == key;
         n_found += __popc(__ballot_sync(kFull, p >= 0));
-        unsigned todo = __ballot_sync(kFull, walk);
-        n_good += __popc(todo);
-        while (todo) {
+        n_good += __popc(__ballot_sync(kFull, walk));
+        // first slots: an exclusive scan of the kept counts
+        int incl = kc;
+#pragma unroll
+        for (int o = 1; o < 32; o <<= 1) {
+            const int v = __shfl_up_sync(kFull, incl, o);
+            if (lane >= o) incl += v;
+        }
+        const int round_kept = __shfl_sync(kFull, incl, 31);
+        // the long runs in strobe order, by the whole warp from row kLaneRows
+        int shift = 0;  // kept rows of earlier strobes' long runs
+        int extra = 0;  // all long runs' kept rows so far (uniform)
+        for (unsigned todo = __ballot_sync(kFull, more); todo; todo &= todo - 1) {
             const int src = __ffs((int)todo) - 1;
-            todo &= todo - 1;
             const long long sp = __shfl_sync(kFull, p, src);
             const u64 skey = __shfl_sync(kFull, key, src);
-            const long long si = off + i0 + src;
-            const int qs = starts[si], qe = ends[si], rc = is_rev[si];
-            const int qspan = qe - qs;
-            int carry = INT_MAX;  // the run's least diff so far
-            for (int j0 = 0; j0 < cap; j0 += 32) {
+            const int sspan = __shfl_sync(kFull, qspan, src);
+            const int sqs = __shfl_sync(kFull, qs, src), sqe = __shfl_sync(kFull, qe, src);
+            const int src_rc = __shfl_sync(kFull, rc, src);
+            int scarry = __shfl_sync(kFull, carry, src);
+            const int at = kept + __shfl_sync(kFull, incl, src) + extra;  // its next slot
+            int got = 0;
+            for (int j0 = kLaneRows; j0 < cap; j0 += 32) {
                 const int j = j0 + lane;
                 const long long q = sp + j;
-                const bool in_run = j < cap && q < n && idx_hashes[q] == skey;
+                const bool row_in = j < cap && q < n && idx_hashes[q] == skey;
                 int rs = 0, re = 0, rid = 0, diff = INT_MAX;
-                if (in_run) {
+                if (row_in) {
                     const uint32_t pk = idx_packed[q];
                     rs = (int)idx_pos[q];
-                    re = rs + (int)(pk & 0xFF) + k;
+                    re = row_end(rs, pk, k);
                     rid = (int)(pk >> 8);
-                    diff = abs(qspan - (re - rs));
+                    diff = abs(sspan - ((int)(pk & 0xFF) + k));
                 }
-                int incl = diff;
+                int mn = diff;
 #pragma unroll
                 for (int o = 1; o < 32; o <<= 1) {
-                    const int v = __shfl_up_sync(kFull, incl, o);
-                    if (lane >= o) incl = min(incl, v);
+                    const int v = __shfl_up_sync(kFull, mn, o);
+                    if (lane >= o) mn = min(mn, v);
                 }
-                const int prev = __shfl_up_sync(kFull, incl, 1);
-                const int excl = lane == 0 ? carry : min(carry, prev);
-                const bool keep = in_run && diff <= excl;
+                const int prev = __shfl_up_sync(kFull, mn, 1);
+                const int excl = lane == 0 ? scarry : min(scarry, prev);
+                const bool keep = row_in && diff <= excl;
                 const unsigned kb = __ballot_sync(kFull, keep);
                 if (keep) {
-                    const int r = kept + __popc(kb & ((1u << lane) - 1));
+                    const int r = at + got + __popc(kb & ((1u << lane) - 1));
                     if (r < maxh) {
                         int32_t* o = out + (long long)r * 6;
-                        o[0] = rc;
+                        o[0] = src_rc;
                         o[1] = rid;
-                        o[2] = qs;
-                        o[3] = qe;
+                        o[2] = sqs;
+                        o[3] = sqe;
                         o[4] = rs;
                         o[5] = re;
                     }
                 }
-                kept += __popc(kb);
-                carry = min(carry, __shfl_sync(kFull, incl, 31));
-                if (__ballot_sync(kFull, in_run) != kFull) break;  // the run ended
+                got += __popc(kb);
+                scarry = min(scarry, __shfl_sync(kFull, mn, 31));
+                if (__ballot_sync(kFull, row_in) != kFull) break;  // the run ended
             }
+            extra += got;
+            if (lane > src) shift += got;
         }
+        // the lane's own kept rows, after every earlier strobe's
+        int r = kept + incl - kc + shift;
+#pragma unroll
+        for (int j = 0; j < kLaneRows; ++j) {
+            if (!(kmask >> j & 1)) continue;
+            if (r < maxh) {
+                const int rs = (int)rp[j];
+                int32_t* o = out + (long long)r * 6;
+                o[0] = rc;
+                o[1] = (int)(rk[j] >> 8);
+                o[2] = qs;
+                o[3] = qe;
+                o[4] = rs;
+                o[5] = row_end(rs, rk[j], k);
+            }
+            ++r;
+        }
+        kept += round_kept + extra;
     }
+    // the row's slots past its hits, zeroed by consecutive lanes
+    for (long long j = (long long)min(kept, maxh) * 6 + lane; j < (long long)maxh * 6; j += 32)
+        out[j] = 0;
     if (lane == 0) {
         n_hits[b] = kept < maxh ? kept : maxh;
         total[b] = n_found;
@@ -142,7 +245,7 @@ __global__ void __launch_bounds__(kWarps * 32) walk_hits_kernel(
 
 // The strobe arrays (counts, offsets, hashes, starts, ends, is_rev,
 // positions) of N reads and the index (idx_hashes, idx_pos, idx_packed
-// of n rows) in; hits (N, maxh, 6) i32 (zeroed by the caller), n_hits,
+// of n rows) in; hits (N, maxh, 6) i32 (every slot written), n_hits,
 // total, good (N,) i32 and overflow (N,) u8 out. Returns the
 // cudaGetLastError() after the launch, or cudaErrorInvalidValue.
 extern "C" int walk_hits_launch(const void* counts, const void* offsets, const void* hashes,

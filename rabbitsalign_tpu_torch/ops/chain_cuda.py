@@ -102,7 +102,8 @@ def walk_hits(counts: torch.Tensor, offsets: torch.Tensor, hashes: torch.Tensor,
     (N, maxh, 6) int32 [is_rc, ref_id, qs, qe, rs, re], n_hits, total,
     good (N,) int32, overflow (N,) bool), as `front_device.walk_hits_plain`.
     CPU tensors take that plain version; CUDA tensors launch the kernel,
-    a warp a read."""
+    a warp a read and a lane a strobe (the warp for runs past a few
+    rows)."""
     global launches_walk
     args = (counts, offsets, hashes, starts, ends, is_rev, positions, idx_hashes, idx_pos,
             idx_packed)
@@ -122,7 +123,7 @@ def walk_hits(counts: torch.Tensor, offsets: torch.Tensor, hashes: torch.Tensor,
     lib = _kernels(counts, "walk_hits")
     N = counts.numel()
     dev = counts.device
-    hits = torch.zeros((N, maxh, 6), dtype=torch.int32, device=dev)
+    hits = torch.empty((N, maxh, 6), dtype=torch.int32, device=dev)  # the kernel zeroes
     n_hits, total, good = (torch.empty(N, dtype=torch.int32, device=dev) for _ in range(3))
     overflow = torch.empty(N, dtype=torch.uint8, device=dev)
     if N == 0:

@@ -169,7 +169,9 @@ def syncmers_scan(codes: torch.Tensor, lengths: torch.Tensor, k: int, s: int, t:
     (positions (B, M) int32, -1 padded; hashes (B, M) int64 with the
     uint64 bits, 0 padded; counts (B,) int32), as
     `seed_device.syncmers_scan_plain`. CPU tensors take that plain
-    version; CUDA tensors launch csrc/syncmers_scan.cu, a thread a read."""
+    version; CUDA tensors launch csrc/syncmers_scan.cu, a warp a read
+    (windows decided in closed form, the automaton replayed only at tied
+    windows)."""
     global launches_syncmers
     if codes.dim() != 2 or codes.dtype != torch.uint8:
         raise ValueError(f"codes must be (B, L) uint8, got {tuple(codes.shape)} {codes.dtype}")

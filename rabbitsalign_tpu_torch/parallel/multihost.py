@@ -36,7 +36,7 @@ import numpy as np
 import torch
 
 from ..ops import shard_cuda
-from .sharding import _UPLOAD_LOCK, SENTINEL, _put, shard_bounds
+from .sharding import _UPLOAD_LOCK, SENTINEL, _put, check_devices, shard_bounds
 
 
 def _pod_timeout() -> timedelta:
@@ -174,8 +174,9 @@ class PodShardedIndex:
     Each host holds only its contiguous, run-aligned slice of the
     hash-sorted arrays (shard `process_index` of `shard_bounds`, the cut of
     the JAX package's PodShardedIndex, so a key is owned by exactly one
-    host), uploaded once to `device`. Lookups route on the host by hash
-    range. This host's keys are searched and gathered by the
+    host), uploaded once to `device` (the card by default; without one
+    the device check raises before a port opens). Lookups route on the
+    host by hash range. This host's keys are searched and gathered by the
     `ops/shard_cuda.py` pair `find_runs` and `gather_runs` (the kernel
     csrc/find_runs.cu, or its plain versions for CPU tensors) with the
     slice's global start, so positions stay global, against the rows of
@@ -201,13 +202,15 @@ class PodShardedIndex:
     _HDR = "<qqq"  # nq, cap, opcode
 
     def __init__(self, index, process_index: int, process_count: int, peers: List[str],
-                 device="cpu"):
+                 device="cuda"):
         t0 = time.perf_counter()
+        # resolved first: without a card, "cuda" raises before a port opens
+        dev = check_devices([device], "the pod index's device")[0]
         hashes = index.hashes
         n = hashes.shape[0]
         bounds = shard_bounds(hashes, process_count)
         lo, hi = int(bounds[process_index]), int(bounds[process_index + 1])
-        self.device = dev = torch.device(device)
+        self.device = dev
         self.start = lo
         self.size = hi - lo  # this host's randstrobes
         self.bits = int(index.bits)

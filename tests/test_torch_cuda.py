@@ -28,12 +28,12 @@ from rabbitsalign_tpu_torch.ops import int16_probe as probe
 from rabbitsalign_tpu_torch.ops import seed_cuda, seed_device, sw_cuda, tb_cuda
 from rabbitsalign_tpu_torch.ops.sw_cuda import SwParams
 
-from .torch_chain_cases import (chain_reads, composed_reads, nam_key, stream_tensors,
-                                synthetic_streams, wide_streams, world_genome)
+from .torch_chain_cases import (chain_reads, composed_reads, mixed_runs, nam_key,
+                                stream_tensors, synthetic_streams, wide_streams, world_genome)
 from .torch_extend_cases import (READ_LEN, gap_pairs, mixed_pairs, q2_batch, revcomp, sim_read,
                                  write_fastq)
 from .torch_gather_lanes import RunsIndex
-from .torch_seed_cases import code_batch, edge_reads, sampled_reads
+from .torch_seed_cases import code_batch, edge_reads, long_scan_reads, sampled_reads, tie_reads
 from .util import random_dna
 
 
@@ -815,13 +815,16 @@ def chain_world():
 @pytest.mark.parametrize("B", [1, 33, 4096])
 def test_syncmers_scan_kernel_matches_plain(cuda, chain_world, B):
     """The exact scan's positions, hashes and counts on the card equal
-    `syncmers_scan_plain` on the same tensors, and (B > 1) the syncmers of
-    `randstrobes_query_device` give every read's host strobes, tie rows
-    included."""
+    `syncmers_scan_plain` on the same tensors, tie-heavy reads (tandem
+    repeats, homopolymers, N runs) among them, at the default (k, s, t)
+    and four others (w = 32 and w = 1 among them), and (B = 33) on reads
+    of up to 1500 bases at L = 1600 (three of the kernel's segments);
+    and (B > 1) the syncmers of `randstrobes_query_device` give every
+    read's host strobes, tie rows included."""
     from rabbitsalign_tpu_torch.seed.randstrobes import randstrobes_query
 
     index, params, reads = chain_world
-    reads = ((edge_reads(B) + reads) * (B // len(reads) + 2))[:B]
+    reads = ((edge_reads(B) + tie_reads(64, seed=B) + reads) * (B // len(reads) + 2))[:B]
     codes, lens = (torch.from_numpy(a).to(cuda) for a in code_batch(reads))
     sp = params.syncmer
     launches = seed_cuda.launches_syncmers
@@ -830,6 +833,20 @@ def test_syncmers_scan_kernel_matches_plain(cuda, chain_world, B):
     want = seed_device.syncmers_scan_plain(codes, lens, sp.k, sp.s, sp.t_syncmer, 256)
     for g, w in zip(got, want):
         assert g.dtype == w.dtype and torch.equal(g, w)
+    for k, s, t in ((15, 9, 4), (24, 12, 7), (32, 1, 16), (9, 9, 1)):
+        got = seed_cuda.syncmers_scan(codes, lens, k, s, t, 256)
+        want = seed_device.syncmers_scan_plain(codes, lens, k, s, t, 256)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), (k, s, t)
+    if B == 33:
+        long_codes, long_lens = (torch.from_numpy(a).to(cuda)
+                                 for a in code_batch(long_scan_reads(), L=1600))
+        for k, s, t, M in ((sp.k, sp.s, sp.t_syncmer, 1600), (sp.k, sp.s, sp.t_syncmer, 64),
+                           (32, 1, 16, 1600)):
+            got = seed_cuda.syncmers_scan(long_codes, long_lens, k, s, t, M)
+            want = seed_device.syncmers_scan_plain(long_codes, long_lens, k, s, t, M)
+            for g, w in zip(got, want):
+                assert torch.equal(g, w), (k, s, t, M)
     if B == 1:
         return
     args = _seed_args(params)
@@ -867,14 +884,31 @@ def test_merge_kernel_matches_plain(cuda, which, cap):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("cutoff,maxh,cap", [(None, 192, None), (1000, 4000, 100), (3, 40, 3)],
-                         ids=["filter-cutoff", "all-kept", "filtered-overflow"])
+@pytest.mark.parametrize("cutoff,maxh,cap", [(None, 192, None), (1000, 4000, 100), (3, 40, 3),
+                                             ("mixed", 4000, 100), ("mixed", 60, 40),
+                                             ("mixed", 600, 33)],
+                         ids=["filter-cutoff", "all-kept", "filtered-overflow", "mixed-runs",
+                              "mixed-runs-overflow", "mixed-runs-filtered"])
 def test_walk_kernel_matches_plain(cuda, chain_world, cutoff, maxh, cap):
     """The run walk's hits, n_hits, total, good and overflow on the card
     equal `walk_hits_plain`, on runs of 80 rows (three rounds of 32), with
-    the filter at the index's cutoff, lifted, and at 3."""
+    the filter at the index's cutoff, lifted, and at 3; and on the
+    synthetic index of `mixed_runs` (rounds that mix runs of 1, 2, 3, 4,
+    5, 33 and 80 rows, tie rows among the reads) with the filter lifted
+    (maxh 4000, and 60 with runs cut at 40 rows) and at 33."""
     from rabbitsalign_tpu_torch.ops import chain_cuda, front_device
 
+    if cutoff == "mixed":
+        args = tuple(x.to(cuda) for x in mixed_runs()[0])
+        cutoff = 1000 if cap != 33 else 33
+        launches = chain_cuda.launches_walk
+        got = chain_cuda.walk_hits(*args, 20, cutoff, maxh, cap)
+        assert chain_cuda.launches_walk == launches + 1
+        want = front_device.walk_hits_plain(*args, 20, cutoff, maxh, cap)
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype and torch.equal(g, w)
+        assert bool(want[4].any()) == (maxh == 60)
+        return
     index, params, reads = chain_world
     codes, lens = (torch.from_numpy(a).to(cuda) for a in code_batch(reads))
     buf, total = seed_cuda.seed_randstrobes(codes, lens, *_seed_args(params))

@@ -269,7 +269,8 @@ def pods(world_index):
         pp = [f"127.0.0.1:{_free_port()}" for _ in range(hosts)]
         jp = [f"127.0.0.1:{_free_port()}" for _ in range(hosts)]
         made[name] = (port_ix,
-                      [pmh.PodShardedIndex(port_ix, p, hosts, pp) for p in range(hosts)],
+                      [pmh.PodShardedIndex(port_ix, p, hosts, pp, device="cpu")
+                       for p in range(hosts)],
                       [jmh.PodShardedIndex(jax_ix, p, hosts, jp) for p in range(hosts)],
                       psh.ShardedIndex(psh.make_mesh(1, "cpu"), port_ix))
     yield made
@@ -391,7 +392,7 @@ def test_pod_index_close_frees_its_ports(world_index):
     peers = [f"127.0.0.1:{_free_port()}" for _ in range(2)]
     keys = np.asarray(index.hashes)[97::97]  # not the smallest hash (the bucket quirk)
     for _ in range(2):
-        pods = [pmh.PodShardedIndex(index, p, 2, peers) for p in range(2)]
+        pods = [pmh.PodShardedIndex(index, p, 2, peers, device="cpu") for p in range(2)]
         try:
             res = pods[0].find_runs_compact(keys)
             assert pods[0].stats["remote_keys"] > 0 and (res["count"] > 0).all()
@@ -404,6 +405,27 @@ def test_pod_index_close_frees_its_ports(world_index):
         assert not any(pod._server.is_alive() for pod in pods)
 
 
+def test_pod_index_defaults_to_the_card(world_index, monkeypatch):
+    """A PodShardedIndex built without a device asks for the card: on a
+    machine without one it raises the device check's "no CUDA device"
+    error before it opens a socket, and its port stays free."""
+    import torch
+
+    index, _ = world_index
+    peers = [f"127.0.0.1:{_free_port()}" for _ in range(2)]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    opened = []
+    real_socket = pmh.socket.socket
+    monkeypatch.setattr(pmh.socket, "socket", lambda *a, **kw: opened.append(a) or
+                        real_socket(*a, **kw))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pmh.PodShardedIndex(index, 0, 2, peers)
+    assert opened == []
+    monkeypatch.undo()
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+        s.bind(("127.0.0.1", int(peers[0].rsplit(":", 1)[1])))
+
+
 def test_pod_index_counts_served_time_before_replying(world_index):
     """The server adds a lookup's time to `served_s` before its reply
     leaves: right after each of 50 lookups the requester holds, the peer's
@@ -411,7 +433,7 @@ def test_pod_index_counts_served_time_before_replying(world_index):
     index, _ = world_index
     peers = [f"127.0.0.1:{_free_port()}" for _ in range(2)]
     keys = np.asarray(index.hashes)[97::97]
-    pods = [pmh.PodShardedIndex(index, p, 2, peers) for p in range(2)]
+    pods = [pmh.PodShardedIndex(index, p, 2, peers, device="cpu") for p in range(2)]
     try:
         for _ in range(50):
             served, remote = pods[1].stats["served_s"], pods[0].stats["remote_s"]

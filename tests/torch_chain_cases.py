@@ -127,3 +127,89 @@ def nam_key(n, score=float):
     engine's float32 scores)."""
     return (n.nam_id, n.query_start, n.query_end, n.ref_start, n.ref_end, n.ref_id, n.n_hits,
             score(n.score), n.is_rc)
+
+
+def long_runs_world():
+    """An index whose repeat array gives runs of about 80 rows (longer
+    than a warp's round of 32), and reads on it and off it. Returns
+    (index, params, reads)."""
+    from rabbitsalign_tpu_torch.index.params import IndexParameters
+    from rabbitsalign_tpu_torch.index.strobemer_index import StrobemerIndex
+    from rabbitsalign_tpu_torch.io.fasta import References
+
+    from .torch_seed_cases import sampled_reads
+
+    unit = random_dna(300, seed=21)
+    genome = random_dna(20000, seed=22) + unit * 80 + random_dna(20000, seed=23)
+    refs = References()
+    refs.add("c", genome.encode())
+    params = IndexParameters.from_read_length(150)
+    index = StrobemerIndex(refs, params)
+    index.populate(0.0002)
+    reads = sampled_reads(genome.encode(), 40, seed=24)
+    return index, params, reads
+
+
+def world_strobes(index, params, reads):
+    """The reads' strobes in the seeding buffer's layout, looked up in
+    `index`, by the plain versions on the CPU. Returns (the seven
+    `strobe_views`, the index planes (hashes, positions, packed))."""
+    from rabbitsalign_tpu_torch.ops import seed_device
+
+    from .torch_seed_cases import code_batch
+
+    codes, lens = (torch.from_numpy(a) for a in code_batch(reads))
+    sp, rp = params.syncmer, params.randstrobe
+    buf, total = seed_device.seed_strobes_plain(codes, lens, sp.k, sp.s, sp.t_syncmer, rp.w_min,
+                                                rp.w_max, rp.q, rp.max_dist, 256)
+    views = seed_device.strobe_views(buf, len(reads), total)
+    h, b = (torch.from_numpy(a.view(np.int64)) for a in (index.hashes,
+                                                         index.randstrobe_start_indices))
+    views[6].copy_(seed_device.index_find_device(h, b, index.bits, views[2]))
+    planes = (h, torch.from_numpy(index.positions.view(np.int32)),
+              torch.from_numpy(index.packed.view(np.int32)))
+    return views, planes
+
+
+# the rows of a run that csrc/walk_hits.cu walks on a lane (kLaneRows)
+LANE_ROWS = 4
+MIXED_RUN_ROWS = (1, 1, 1, 1, 2, 3, LANE_ROWS, LANE_ROWS + 1, 33, 80)
+
+
+def mixed_runs(n_reads: int = 48, seed: int = 31):
+    """The run walk's inputs on a synthetic index whose runs have 1, 2,
+    3, LANE_ROWS, LANE_ROWS + 1, 33 and 80 rows, and reads of 0 to 70
+    strobes (over two rounds of 32) that hit them in random order, so
+    that a round mixes runs a lane finishes alone with runs the warp
+    finishes; one in eight reads a tie row (count -1), one strobe in
+    eight a miss. The reference spans come from a few lengths, so that
+    the keep rule keeps and drops rows of one run in every pattern, and
+    some reference starts have the top bit set. Returns (counts, offsets,
+    hashes, starts, ends, is_rev, positions, idx_hashes, idx_pos,
+    idx_packed) as `walk_hits` takes them, and the run length of every
+    strobe (0 for a miss)."""
+    rng = np.random.RandomState(seed)
+    lens = np.array([MIXED_RUN_ROWS[i % len(MIXED_RUN_ROWS)] for i in range(120)])
+    keys = np.unique(rng.randint(1, 2 ** 62, 200, dtype=np.int64))[:len(lens)]
+    keys = np.sort(keys.astype(np.uint64) * np.uint64(3))  # some with the top bit set
+    run_at = np.concatenate([[0], np.cumsum(lens)[:-1]])
+    n = int(lens.sum())
+    idx_hashes = np.repeat(keys, lens)
+    idx_pos = rng.randint(0, 2 ** 32, n, dtype=np.uint64).astype(np.uint32)
+    spans = np.array([12, 15, 16, 18, 21], dtype=np.uint32)
+    idx_packed = (rng.randint(0, 5000, n).astype(np.uint32) << 8) | rng.choice(spans, n)
+    counts = rng.randint(0, 71, n_reads).astype(np.int32)
+    counts[rng.rand(n_reads) < 0.125] = -1
+    T = int(np.maximum(counts, 0).sum())
+    offsets = np.concatenate([[0], np.cumsum(np.maximum(counts, 0))[:-1]]).astype(np.int64)
+    run = rng.randint(0, len(lens), T)
+    miss = rng.rand(T) < 0.125
+    positions = np.where(miss, -1, run_at[run]).astype(np.int64)
+    hashes = np.where(miss, rng.randint(1, 2 ** 62, T).astype(np.uint64), keys[run])
+    starts = rng.randint(0, 120, T).astype(np.int32)
+    ends = starts + rng.randint(30, 40, T).astype(np.int32)
+    is_rev = rng.randint(0, 2, T).astype(np.uint8)
+    arrays = (counts, offsets, hashes.view(np.int64), starts, ends, is_rev, positions,
+              idx_hashes.view(np.int64), idx_pos.view(np.int32), idx_packed.view(np.int32))
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)) for a in arrays), \
+        np.where(miss, 0, lens[run])

@@ -58,3 +58,54 @@ def sampled_reads(genome: bytes, n: int, seed: int, length: int = 150):
         r = bytes(r)
         out.append(r.translate(comp)[::-1] if i % 3 == 1 else r)
     return out
+
+
+def tie_reads(n: int, seed: int, length: int = 150):
+    """n reads whose k-mer windows hold tied minima, for the exact
+    syncmer scan: tandem repeats of 1-29 bp units (homopolymers and 2-5 bp
+    repeats among them) over the whole read, set between random flanks,
+    starting right after an N run, or cut by one, in turn."""
+    rng = np.random.RandomState(seed)
+
+    def dna(m):
+        return rng.choice(np.frombuffer(b"ACGT", np.uint8), m).tobytes()
+
+    out = []
+    for i in range(n):
+        unit = dna(int(rng.randint(1, 6) if i % 2 else rng.randint(1, 30)))
+        rep = unit * (2 * length // len(unit) + 2)
+        kind = i % 4
+        if kind == 0:
+            read = rep[:length]
+        elif kind == 1:
+            a, b = rng.randint(0, 60), rng.randint(20, 100)
+            read = dna(a) + rep[:b] + dna(length)
+        elif kind == 2:
+            read = dna(rng.randint(0, 50)) + b"N" * rng.randint(1, 5) + rep
+        else:
+            a = rng.randint(30, 110)
+            read = rep[:a] + b"N" * rng.randint(1, 4) + rep[a:]
+        out.append(read[:length])
+    return out
+
+
+def long_scan_reads(seed: int = 11):
+    """Reads of up to 1500 bases for a batch of L = 1600 (three of the
+    exact scan's 512-window segments): homopolymers and short tandem
+    repeats across the segments' boundaries, a read past L (-1), random
+    sequence with an N run, and a read whose first segment ends on 16
+    windows of w = 32 that all tie off offset t - 1 at k 32, s 1, t 16
+    (the A/T s-mers hash below the C/G ones there: windows 496-511 hold
+    two A/T or more, none at offset 15)."""
+    rng = np.random.RandomState(seed)
+
+    def dna(n):
+        return rng.choice(np.frombuffer(b"ACGT", np.uint8), n).tobytes()
+
+    reads = [b"A" * 1500, (b"AC" * 800)[:1500], (b"GAT" * 600)[:1500],
+             dna(480) + b"T" * 120 + dna(400) + b"CA" * 100 + dna(300), dna(1700),
+             dna(700) + b"N" * 3 + dna(500), dna(1500)]
+    reads += [dna(int(rng.randint(400, 560))) + (dna(int(u)) * 200)[:300] + dna(600)
+              for u in (1, 2, 3, 4, 5)]
+    reads.append(dna(496) + b"A" * 15 + b"C" * 16 + b"TA" + dna(571))
+    return reads
