@@ -114,11 +114,17 @@ Chain. The device NAM front end (no CLI path runs it, as in the JAX
    its automaton), the walk on the chunk's strobes, on the 80-copy repeat
    of `long_runs_world` (runs of ~80 rows) and on `mixed_runs` (runs of 1
    to 80 rows in one round), the merge on every stream of the chunk at
-   cap 32 and at cap 4 (where streams overflow). Each kernel's time after
-   an L2 flush and back to back, plain time, bound and launches; the
-   scan's time on the tie-heavy batch; the time of one merge launch of
-   `find_nams_device_chain` (one read's streams, 20 reads); the
-   composed batch's wall time a chunk, host-paced, in four parts (the
+   caps 32, 4 (where streams overflow) and 200, and on its boundary
+   streams (tests/torch_chain_cases.py `merge_edge_streams`, more than 128
+   NAMs open among them) at caps 200, 129, 65, 33, 32, 8 and 3. Each
+   kernel's time after an L2 flush and back to back, plain time, bound
+   and launches; the scan's time on the tie-heavy batch; the time of one
+   merge launch of `find_nams_device_chain` (one read's streams, 20
+   reads); for the merge (`merge_report`) the chunk's stream lengths, the
+   streams and hits a lane and the warp take, the slowest warp's work, a
+   lane's time a hit on one stream of 4096 hits, the chain floor (the
+   longest stream's hits at that time) and one kernel a call
+   (torch.profiler); the composed batch's wall time a chunk, host-paced, in four parts (the
    device front end with its copy back, the host ordering, the merge, the
    attribution) beside the engine's `find_nams_chunk` on the same chunk.
 4. The main path through the CLI on that data: nine paths, each with the
@@ -378,6 +384,8 @@ def build():
         if m:
             say(f"sw_forward_split_kernel<R = {m.group(1)}, PAIRS = {m.group(2)}>: {regs} "
                 f"registers, {spill} bytes spilled")
+        if "merge_hits_kernel" in name:
+            say(f"merge_hits_kernel: {regs} registers, {spill} bytes spilled")
     # the split forward (off the mapping path) at R = 16 and 4 pairs a
     # warp spills: printed above, not a failure; any other spill is
     spilled = [name for name, (_, spill) in entries.items()
@@ -1276,7 +1284,8 @@ def chain_kernels(torch, card, index, se_fastq):
     from rabbitsalign_tpu_torch.ops import chain_cuda, chain_device, front_device, seed_cuda
     from rabbitsalign_tpu_torch.ops import seed_device as sd
     from rabbitsalign_tpu_torch.seed.randstrobes import randstrobes_query
-    from tests.torch_chain_cases import long_runs_world, mixed_runs, nam_key, world_strobes
+    from tests.torch_chain_cases import (long_runs_world, merge_edge_streams, mixed_runs, nam_key,
+                                         stream_tensors, world_strobes)
     from tests.torch_seed_cases import SEED_L, code_batch, tie_reads
 
     dev = torch.device(DEVICE)
@@ -1394,22 +1403,32 @@ def chain_kernels(torch, card, index, se_fastq):
     batch = chain_device.stream_batch(streams, dev)
     err["merge_hits"] = 0
     n_ovf = {}
-    for cap in (32, 4):
-        got = chain_cuda.merge_hits(*batch, k, cap)
-        want = chain_device.merge_hits_plain(*batch, k, cap)
-        err["merge_hits"] = max(err["merge_hits"], max_abs_err(torch, zip(got, want)))
-        check(err["merge_hits"] == 0, f"merge_hits at cap {cap} disagrees with its plain "
-                                      f"version (max_abs_err {err['merge_hits']})")
-        n_ovf[cap] = int(got[2].sum())
-    check(n_ovf[4] > 0, "merge_hits at cap 4: no stream overflows")
+    edge = [x.to(dev) for x in stream_tensors(merge_edge_streams())]
+    for name, args, caps in (("chunk", batch, (32, 4, 200)),
+                             ("boundary", edge, (200, 129, 65, 33, 32, 8, 3))):
+        for cap in caps:
+            got = chain_cuda.merge_hits(*args, k, cap)
+            want = chain_device.merge_hits_plain(*args, k, cap)
+            e = max_abs_err(torch, zip(got, want))
+            err["merge_hits"] = max(err["merge_hits"], e)
+            check(e == 0, f"merge_hits at cap {cap} disagrees with its plain version on the "
+                          f"{name} streams (max_abs_err {e})")
+            check(int(got[2].view(torch.uint8).max()) <= 1, "merge_hits wrote a flag past 1")
+            n_ovf[name, cap] = int(got[2].sum())
+    check(n_ovf["chunk", 4] > 0 and n_ovf["boundary", 129] > 0,
+          "merge_hits at cap 4 on the chunk or 129 on the boundary streams: no overflow")
     emitted = chain_cuda.merge_hits(*batch, k, 32)
     n_hits_all, n_emit = batch[0].shape[0], int(emitted[1].sum())
     say(f"index_find_device_gary equals the index_find kernel on the chunk's {total} strobes; "
         f"walk_hits equals its plain version ({int(walked[1].sum())} kept hits, "
         f"{int(walked[2].sum())} found, {int(walked[3].sum())} walked strobes); merge_hits "
         f"equals its plain version on all {len(streams)} streams of the chunk ({n_hits_all} "
-        f"hits, {n_emit} NAMs) at cap 32 ({n_ovf[32]} streams overflow) and at cap 4 ({n_ovf[4]}) "
-        f"[{card}]")
+        f"hits, {n_emit} NAMs) at cap 32 ({n_ovf['chunk', 32]} streams overflow), 4 "
+        f"({n_ovf['chunk', 4]}) and 200 ({n_ovf['chunk', 200]}), and on the "
+        f"{edge[2].numel() - 1} boundary streams (tables of 8 and 32 slots full and one past, "
+        f"sweeps and flushes on the lane and the warp, empty streams, 150 and 140 NAMs open at "
+        f"once) at caps 200, 129, 65, 33, 32, 8 and 3 (overflowing "
+        f"{[n_ovf['boundary', c] for c in (200, 129, 65, 33, 32, 8, 3)]}) [{card}]")
 
     # the scan on a tie-heavy batch of as many reads (tandem repeats of 1-29
     # bp units, homopolymers, N runs: the replay at work), the walk on the
@@ -1474,8 +1493,8 @@ def chain_kernels(torch, card, index, se_fastq):
         f"reads of {read_hits[0]}-{read_hits[-1]} hits, median {read_hits[len(read_hits) // 2]}): "
         f"median {read_cold[len(read_cold) // 2]:.4f} ms after an L2 flush (range "
         f"{read_cold[0]:.4f}-{read_cold[-1]:.4f}), median {read_warm[len(read_warm) // 2]:.4f} "
-        f"ms back to back, the wrapper's zero fill and flag cast included; an empty launch of "
-        f"one block {read_floor:.4f} ms [{card}]")
+        f"ms back to back, one kernel a call; an empty launch of one block {read_floor:.4f} ms "
+        f"[{card}]")
     scan = lambda: seed_cuda.syncmers_scan(codes, lens, sp.k, sp.s, sp.t_syncmer, SEED_L)
     merge = lambda: chain_cuda.merge_hits(*batch, k, 32)
     walk = lambda: chain_cuda.walk_hits(*walk_args)
@@ -1489,6 +1508,8 @@ def chain_kernels(torch, card, index, se_fastq):
         times[name] = (cold, time_ms(torch, plain_fn, reps))
         say(f"{name}: {cold:.4f} ms on the card after an L2 flush, {device_ms(torch, fn, 10):.4f} "
             f"ms back to back [{card}]")
+
+    merge_report(torch, card, batch, one_read, k)
 
     # bounds for this run's inputs
     n_len = lens.clamp(min=0)
@@ -1539,6 +1560,81 @@ def chain_kernels(torch, card, index, se_fastq):
         f"ms; find_nams_chunk (the engine) on the same chunk {chunk_warm * 1e3:.1f} ms (first "
         f"call {chunk_s * 1e3:.1f} ms); the index uploaded in {upload_s:.2f} s [{card}]")
     return err, times, bounds, {name: None for name in times}, launches
+
+
+def cuda_kernels_of(torch, fn):
+    """The names of the work on the card that one call of fn queues
+    (torch.profiler): kernels, copies and fills. A capture with no event
+    at all, which CUPTI now and then delivers for a short session, is
+    taken again, up to three calls."""
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        work = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        if work:
+            break
+    return work
+
+
+def merge_report(torch, card, batch, one_reads, k):
+    """merge_hits on the chunk's streams: their lengths, the share of
+    streams and hits each path takes, the slowest warp's work, a lane's
+    time a hit and the chain floor, and one kernel a call."""
+    import numpy as np
+
+    from rabbitsalign_tpu_torch.ops import chain_cuda
+    from tests.torch_chain_cases import lane_chain_streams, stream_tensors
+
+    cap, L = 32, 32  # the callers' cap; the slots of a lane's table (csrc/merge_hits.cu)
+    H = (batch[2][1:] - batch[2][:-1]).cpu().numpy()
+    S, n_hits = len(H), int(H.sum())
+    edges = [0, 1, 2, 5, 9, 17, 33, 65, 129]
+    hist = {f"{lo}-{hi - 1}" if hi - lo > 1 else str(lo): int(((H >= lo) & (H < hi)).sum())
+            for lo, hi in zip(edges, edges[1:])}
+    hist[f"{edges[-1]}+"] = int((H >= edges[-1]).sum())
+    say(f"merge_hits on the chunk: {S} streams, {n_hits} hits; stream lengths: max {H.max()}, "
+        f"p99 {np.percentile(H, 99):.0f}, median {np.median(H):.0f}, mean {H.mean():.2f}; "
+        f"histogram {hist}")
+    W = (S + 31) // 32
+    pad = lambda a: np.concatenate([a, np.zeros(W * 32 - S, a.dtype)]).reshape(W, 32)
+    # a stream goes to the warp when it holds L NAMs open and one more opens
+    # below the cap, exactly where it overflows at cap L
+    on_warp = chain_cuda.merge_hits(*batch, k, L)[2].cpu().numpy() & (np.minimum(cap, H) > L)
+    say(f"merge_hits paths at cap {cap}, a lane table of {L} slots: lane "
+        f"{int((~on_warp).sum())} streams ({(~on_warp).mean():.4f}) and "
+        f"{int(H[~on_warp].sum())} hits ({H[~on_warp].sum() / n_hits:.4f}); warp "
+        f"{int(on_warp.sum())} streams ({on_warp.mean():.4f}) and "
+        f"{int(H[on_warp].sum())} hits ({H[on_warp].sum() / n_hits:.4f})")
+    lane_chain = pad(H).max(1)  # the longest stream a lane starts (at most its hits)
+    warp_chain = pad(np.where(on_warp, H, 0)).sum(1)  # the warp's streams, in turn
+    w = int(np.argmax(lane_chain + warp_chain))
+    say(f"  slowest warp {w} of {W}: its lanes' longest stream {lane_chain[w]} hits, then "
+        f"{int(pad(on_warp.astype(np.int64))[w].sum())} streams of {warp_chain[w]} hits on the "
+        f"warp; over all warps the longest lane chain {lane_chain.max()} hits, the most warp "
+        f"hits {warp_chain.max()}")
+    # a lane's time a hit: one stream of 4096 hits, one lane
+    per_hit = {}
+    for name, stream in zip(("collinear (one NAM extended)", "open and swept"),
+                            lane_chain_streams(4096)):
+        args = [x.to(DEVICE) for x in stream_tensors([stream])]
+        check(not bool(chain_cuda.merge_hits(*args, k, L)[2].any()),
+              f"the lane's stream needs more than {L} slots")
+        ms = device_ms(torch, lambda: chain_cuda.merge_hits(*args, k, cap), 10)
+        per_hit[name] = ms / 4096
+        say(f"merge_hits, one lane on one stream of 4096 hits, {name}: {ms:.4f} ms back to back, "
+            f"{ms / 4096 * 1e6:.1f} ns a hit [{card}]")
+    floor = int(H.max()) * per_hit["collinear (one NAM extended)"]
+    say(f"merge_hits chain floor: the chunk's longest stream, {H.max()} hits, x a lane's "
+        f"{per_hit['collinear (one NAM extended)'] * 1e6:.1f} ns a hit = {floor:.6f} ms [{card}]")
+    # one kernel a call, nothing else on the card
+    for name, args in (("the chunk", batch), ("one read", one_reads[0])):
+        work = cuda_kernels_of(torch, lambda: chain_cuda.merge_hits(*args, k, cap))
+        check(len(work) == 1 and "merge_hits_kernel" in work[0],
+              f"merge_hits on {name} queued {work} on the card, not one merge kernel")
+    say(f"merge_hits queues one kernel a call and nothing else on the card (torch.profiler), on "
+        f"the chunk and on one read")
 
 
 def main_path(torch, card, reads):

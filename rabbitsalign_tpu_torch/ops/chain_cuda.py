@@ -21,8 +21,6 @@ import torch
 from .chain_device import EMIT_FIELDS, merge_hits_plain
 from .front_device import walk_hits_plain
 
-MAX_CAP = 128  # open NAMs a stream the merge kernel holds (four a lane)
-
 # launches of the merge kernel by merge_hits and of the walk kernel by
 # walk_hits; plain-version calls and empty batches are not counted
 launches_merge = 0
@@ -50,12 +48,14 @@ def _stream(x: torch.Tensor) -> int:
 def merge_hits(hits: torch.Tensor, seg: torch.Tensor, offsets: torch.Tensor, k: int,
                cap: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The sweep-line merge of S hit streams: hits (N, 4) int32 [qs, qe,
-    rs, re], seg (N,) bool, offsets (S + 1,) int64, on one device.
-    Returns (emissions (N, 7) int32 [step, slot, qs, qe, rs, re, n_hits]
-    from each stream's offset, zero past its count; counts (S,) int32;
-    overflow (S,) bool), as `chain_device.merge_hits_plain`. CPU tensors
-    take that plain version; CUDA tensors launch the kernel, a warp a
-    stream. cap, the open NAMs a stream holds, is at most MAX_CAP."""
+    rs, re], seg (N,) bool, offsets (S + 1,) int64, on one device, at
+    most `cap` (any cap >= 1) NAMs open a stream. Returns (emissions (N,
+    7) int32 [step, slot, qs, qe, rs, re, n_hits] from each stream's
+    offset, zero past its count; counts (S,) int32; overflow (S,) bool),
+    as `chain_device.merge_hits_plain`. CPU tensors take that plain
+    version; CUDA tensors launch the kernel once: a lane a stream, the
+    warp for a stream with more than 32 NAMs open (the table in a
+    scratch past 128)."""
     global launches_merge
     if hits.dim() != 2 or hits.shape[1] != 4 or hits.dtype != torch.int32:
         raise ValueError(f"hits must be (N, 4) int32, got {tuple(hits.shape)} {hits.dtype}")
@@ -65,27 +65,28 @@ def merge_hits(hits: torch.Tensor, seg: torch.Tensor, offsets: torch.Tensor, k: 
         raise ValueError("offsets must be (S + 1,) int64")
     if not (seg.device == offsets.device == hits.device):
         raise ValueError("hits, seg and offsets must be on one device")
-    if not 1 <= cap <= MAX_CAP:
-        raise ValueError(f"merge_hits: cap {cap} is outside [1, {MAX_CAP}], the open NAMs a "
-                         f"stream the kernel holds")
+    if cap < 1:
+        raise ValueError(f"merge_hits: cap {cap} < 1")
     if hits.device.type == "cpu":
         return merge_hits_plain(hits, seg, offsets, k, cap)
     lib = _kernels(hits, "merge_hits")
-    S = offsets.numel() - 1
-    out = torch.zeros((hits.shape[0], EMIT_FIELDS), dtype=torch.int32, device=hits.device)
-    counts = torch.empty(S, dtype=torch.int32, device=hits.device)
-    overflow = torch.empty(S, dtype=torch.uint8, device=hits.device)
-    if S == 0:
-        return out, counts, overflow.bool()
     hits, seg, offsets = hits.contiguous(), seg.contiguous(), offsets.contiguous()
-    with torch.cuda.device(hits.device):
-        err = lib.merge_hits_launch(hits.data_ptr(), seg.data_ptr(), offsets.data_ptr(), S, k,
+    S, N, dev = offsets.numel() - 1, hits.shape[0], hits.device
+    # the kernel writes every element
+    out = torch.empty((N, EMIT_FIELDS), dtype=torch.int32, device=dev)
+    counts = torch.empty(S, dtype=torch.int32, device=dev)
+    overflow = torch.empty(S, dtype=torch.bool, device=dev)
+    scratch = torch.empty((N, EMIT_FIELDS), dtype=torch.int32, device=dev) if cap > 128 else None
+    if S == 0 and N == 0:
+        return out, counts, overflow
+    with torch.cuda.device(dev):
+        err = lib.merge_hits_launch(hits.data_ptr(), seg.data_ptr(), offsets.data_ptr(), S, N, k,
                                     cap, out.data_ptr(), counts.data_ptr(), overflow.data_ptr(),
-                                    _stream(hits))
+                                    None if scratch is None else scratch.data_ptr(), _stream(hits))
     _check_launch(err, "merge_hits")
     with _count_lock:
         launches_merge += 1
-    return out, counts, overflow.bool()
+    return out, counts, overflow
 
 
 def walk_hits(counts: torch.Tensor, offsets: torch.Tensor, hashes: torch.Tensor,

@@ -47,7 +47,8 @@ EMIT_FIELDS = 7  # step, slot, qs, qe, rs, re, n_hits
 def merge_hits_plain(hits: torch.Tensor, seg: torch.Tensor, offsets: torch.Tensor, k: int,
                      cap: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The plain version of csrc/merge_hits.cu: every stream merged in
-    lock step, one hit index a step, the open-NAM tables (S, cap) tensors.
+    lock step, one hit index a step, the open-NAM tables (S, min(cap,
+    longest stream)) tensors.
 
     hits (N, 4) int32 [qs, qe, rs, re], seg (N,) bool (the first hit of a
     group), offsets (S + 1,) int64 (stream s is hits[offsets[s]:
@@ -67,8 +68,9 @@ def merge_hits_plain(hits: torch.Tensor, seg: torch.Tensor, offsets: torch.Tenso
     starts = offsets[:-1].to(torch.int64)
     H = (offsets[1:] - offsets[:-1]).to(torch.int64)
     Hmax = int(H.max())
-    slot = torch.arange(cap, device=dev)[None, :]
-    zeros = torch.zeros((S, cap), dtype=torch.int64, device=dev)
+    width = max(1, min(cap, Hmax))  # a stream never holds more NAMs open than it has hits
+    slot = torch.arange(width, device=dev)[None, :]
+    zeros = torch.zeros((S, width), dtype=torch.int64, device=dev)
     qs_t, qe_t, rs_t, re_t, qp_t, rp_t, nh_t = (zeros.clone() for _ in range(7))
     n_open = torch.zeros(S, dtype=torch.int64, device=dev)
     prev_q = torch.zeros(S, dtype=torch.int64, device=dev)
@@ -79,8 +81,8 @@ def merge_hits_plain(hits: torch.Tensor, seg: torch.Tensor, offsets: torch.Tenso
         nonlocal n_out
         rank = torch.cumsum(mask.to(torch.int64), 1) - 1
         dst = (starts + n_out)[:, None] + rank
-        row = torch.stack([step[:, None].expand(S, cap), slot.expand(S, cap), qs_t, qe_t, rs_t,
-                           re_t, nh_t], 2)
+        row = torch.stack([step[:, None].expand(S, width), slot.expand(S, width), qs_t, qe_t,
+                           rs_t, re_t, nh_t], 2)
         out[dst[mask]] = row[mask].to(I32)
         n_out = n_out + mask.sum(1)
 
@@ -142,8 +144,8 @@ def merge_streams(hits: torch.Tensor, seg: torch.Tensor, offsets: torch.Tensor, 
     """The sweep-line merge of many hit streams in one launch: hits (N, 4)
     int32, seg (N,) bool, offsets (S + 1,) int64, all on one device.
     Returns (emissions (N, 7) int32, counts (S,) int32, overflow (S,)
-    bool) as `merge_hits_plain` gives them: CPU tensors take it, CUDA
-    tensors launch csrc/merge_hits.cu (cap at most 128)."""
+    bool) as `merge_hits_plain` gives them, at any cap >= 1: CPU tensors
+    take it, CUDA tensors launch csrc/merge_hits.cu once."""
     from .chain_cuda import merge_hits
 
     return merge_hits(hits, seg, offsets, k, cap)

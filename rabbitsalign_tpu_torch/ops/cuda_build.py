@@ -123,7 +123,7 @@ def _signatures() -> dict:
         "gather_runs_launch": [p, p, p, p, i64, p, i64, i64, p, p, p],
         "empty_launch": [i, i, p],
         "syncmers_scan_launch": [p, p, i, i, i, i, i, i, p, p, p, p],
-        "merge_hits_launch": [p, p, p, i64, i, i, p, p, p, p],
+        "merge_hits_launch": [p, p, p, i64, i64, i, i, p, p, p, p, p],
         "walk_hits_launch": [p, p, p, p, p, p, p, i64, p, p, p, i64, i, i, i, i, p, p, p, p, p,
                              p],
     }

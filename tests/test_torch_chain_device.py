@@ -2,7 +2,7 @@
 on the CPU, through the plain versions its wrappers take for CPU tensors,
 against rabbitsalign_tpu's on the JAX CPU backend, exact: the merge on the
 synthetic streams of tests/test_chain_device.py (and a table of 4 that
-overflows), the batched `merge_streams` against one stream at a time,
+overflows), on its boundary cases and at caps past 128, the batched `merge_streams` against one stream at a time,
 `find_nams_device_chain`, `seed_find_walk` and `find_nams_composed_batch`
 on that file's reads of its world. The index is the JAX package's,
 carried over by `from_jax_arrays`."""
@@ -26,8 +26,9 @@ from rabbitsalign_tpu_torch.ops import chain_device as pcd
 from rabbitsalign_tpu_torch.ops import front_device as pfd
 from rabbitsalign_tpu_torch.seed.randstrobes import randstrobes_query
 
-from .torch_chain_cases import (chain_reads, composed_reads, nam_key, stream_tensors,
-                                synthetic_streams, world_genome)
+from .torch_chain_cases import (chain_reads, composed_reads, merge_edge_streams,
+                                nam_key, stream_tensors, synthetic_streams, wide_streams,
+                                world_genome)
 from .torch_seed_cases import code_batch
 from .util import random_dna
 
@@ -105,6 +106,82 @@ def test_merge_streams_matches_one_stream_at_a_time(cap):
         assert int(counts[j]) == int(c[0]) and bool(ovf[j]) == bool(o[0])
         at += len(stream[0])
     assert bool(ovf.any()) == (cap == 4) and int(counts.sum()) > (20 if cap == 4 else 100)
+
+
+def _jax_emissions(stream, seg, cap):
+    """One stream through the JAX merge (padded as its callers pad it, so
+    that few shapes compile): its emissions as rows [step, slot, qs, qe,
+    rs, re, n_hits], the end flush at step H, and its overflow flag (an
+    empty stream, which the JAX function does not take, emits nothing)."""
+    if not stream:
+        return np.zeros((0, 7), np.int64), False
+    rows, mask, H, Hp, ovf = jcd.merge_stream_device_padded(stream, np.asarray(seg, bool), K,
+                                                            cap)
+    rows, mask = np.asarray(rows), np.asarray(mask)
+    at = np.argwhere(mask)
+    steps = np.where(at[:, 0] == Hp, H, at[:, 0])
+    return np.concatenate([steps[:, None], at[:, 1:2], rows[mask]], 1), bool(ovf)
+
+
+def _streams_match_jax(streams, cap):
+    """merge_streams over all `streams` in one call against the JAX merge
+    of each alone: overflow flags everywhere; emissions, counts and zeros
+    past them where the stream does not overflow (the JAX scan goes on
+    past a full table). Returns (emissions checked, streams overflowing)."""
+    emis, counts, ovf = pcd.merge_streams(*stream_tensors(streams), K, cap)
+    at, n_rows, n_ovf = 0, 0, 0
+    for j, (stream, seg) in enumerate(streams):
+        want, want_ovf = _jax_emissions(stream, seg, cap)
+        assert bool(ovf[j]) == want_ovf, j
+        n_ovf += want_ovf
+        if not want_ovf:
+            got = emis[at:at + len(stream)].numpy()
+            assert int(counts[j]) == len(want) and np.array_equal(got[:len(want)], want), j
+            assert not got[len(want):].any(), j
+            n_rows += len(want)
+        at += len(stream)
+    return n_rows, n_ovf
+
+
+@pytest.mark.parametrize("cap", [200, 129, 32, 8, 3])
+def test_merge_edge_cases_match_jax(cap):
+    """The merge's boundary cases (tests/torch_chain_cases.py
+    `merge_edge_streams`: lane tables of 8 and 32 slots full and one past
+    them, sweeps and segment flushes on the lane's and the warp's
+    paths, empty streams, more than 128 NAMs open at once) through
+    `merge_streams` on the CPU equal the JAX merge, at caps past 128, the
+    callers' 32, 8 and below."""
+    n_rows, n_ovf = _streams_match_jax(merge_edge_streams(), cap)
+    assert n_rows > (40 if cap > 3 else 0) and (n_ovf > 0) == (cap != 200)
+
+
+@pytest.mark.parametrize("cap", [200, 129])
+def test_merge_takes_caps_past_128(world, cap):
+    """Every cap the JAX function takes: `merge_hits_device`,
+    `merge_streams` and `find_nams_device_chain` at caps 200 and 129 equal
+    the JAX package's on a stream of 201 hits, on streams that hold 150
+    and 140 NAMs open at once (which overflow at 129) and on the world's
+    reads."""
+    genome, jindex, jparams, index, params = world
+    crowded = [s for s in merge_edge_streams() if len(s[0]) >= 150]
+    streams = wide_streams()[:1] + crowded
+    for j, (stream, seg) in enumerate(streams):
+        hits, seg = np.asarray(stream, np.int32), np.asarray(seg, bool)
+        valid = np.ones(len(stream), bool)
+        want = [np.asarray(x) for x in jcd.merge_hits_device(hits, seg, valid, K, cap)]
+        got = [x.numpy() for x in pcd.merge_hits_device(hits, seg, valid, K, cap)]
+        assert bool(got[2]) == bool(want[2]) == (cap == 129 and j > 0)
+        if not want[2]:
+            assert got[0].shape == want[0].shape and np.array_equal(got[1], want[1])
+            assert np.array_equal(got[0][got[1]], want[0][want[1]])
+    n_rows, n_ovf = _streams_match_jax(streams, cap)
+    assert n_rows >= 199 and n_ovf == (2 if cap == 129 else 0)
+    for read in chain_reads(genome)[:12]:
+        got = pcd.find_nams_device_chain(randstrobes_query(read, params), index, cap=cap,
+                                         device="cpu")
+        want = jcd.find_nams_device_chain(jax_query(read, jparams), jindex, cap=cap)
+        assert got[0] == want[0] and [nam_key(n) for n in got[1]] == [nam_key(n)
+                                                                      for n in want[1]]
 
 
 def test_find_nams_device_chain_matches_jax(world):

@@ -1,8 +1,8 @@
 """The sources of the device NAM front end's kernels, run on the CPU by
 the thread-a-lane emulation of tests/torch_cuda_emu.h, against their
 plain PyTorch versions: the exact syncmer scan (csrc/syncmers_scan.cu),
-the sweep-line merge (csrc/merge_hits.cu) at one, two and four slot
-groups a lane and with tables that overflow, and the run walk with its
+the sweep-line merge (csrc/merge_hits.cu) on its lane and warp paths,
+at caps past 128 and with tables that overflow, and the run walk with its
 keep rule (csrc/walk_hits.cu) on runs longer than a warp, with hits that
 overflow. Everything is integer and made from a seed: every comparison is
 exact."""
@@ -19,8 +19,8 @@ from rabbitsalign_tpu_torch.seed.hash import xxh64
 from rabbitsalign_tpu_torch.seed.syncmers import _packed_mers
 
 from . import torch_chain_cases, torch_cuda_emu
-from .torch_chain_cases import (LANE_ROWS, mixed_runs, stream_tensors, synthetic_streams,
-                                wide_streams, world_strobes)
+from .torch_chain_cases import (LANE_ROWS, merge_edge_streams, mixed_merge_streams, mixed_runs,
+                                stream_tensors, synthetic_streams, wide_streams, world_strobes)
 from .torch_seed_cases import code_batch, edge_reads, long_scan_reads, sampled_reads, tie_reads
 from .util import random_dna
 
@@ -189,33 +189,81 @@ def test_syncmers_scan_source_on_long_reads(chain_emu, k, s, t, M):
 
 
 def _emu_merge(lib, hits, seg, offsets, k, cap):
-    S = offsets.numel() - 1
-    out = torch.zeros((hits.shape[0], 7), dtype=torch.int32)
-    counts = torch.full((S,), 7, dtype=torch.int32)
-    ovf = torch.full((S,), 7, dtype=torch.uint8)
-    assert lib.merge_hits_launch(hits.data_ptr(), seg.data_ptr(), offsets.data_ptr(), S, k, cap,
-                                 out.data_ptr(), counts.data_ptr(), ovf.data_ptr(), None) == 0
+    """The merge source on the host, its outputs filled with 0x7F7F7F7F
+    bytes first so that an element it does not write shows."""
+    S, N = offsets.numel() - 1, hits.shape[0]
+    out = torch.full((N, 7), 0x7F7F7F7F, dtype=torch.int32)
+    counts = torch.full((S,), 0x7F7F7F7F, dtype=torch.int32)
+    ovf = torch.full((S,), 0x7F, dtype=torch.uint8)
+    scratch = torch.full((N, 7), 0x7F7F7F7F, dtype=torch.int32) if cap > 128 else None
+    assert lib.merge_hits_launch(hits.data_ptr(), seg.data_ptr(), offsets.data_ptr(), S, N, k,
+                                 cap, out.data_ptr(), counts.data_ptr(), ovf.data_ptr(),
+                                 None if scratch is None else scratch.data_ptr(), None) == 0
+    assert bool((ovf <= 1).all())
     return out, counts, ovf.bool()
 
 
-@pytest.mark.parametrize("which,cap", [("synthetic", 32), ("synthetic", 4), ("wide", 128),
-                                       ("wide", 72)])
-def test_merge_source_on_host_matches_plain(chain_emu, which, cap):
-    """The emission rows, counts and overflow flags equal
-    `merge_hits_plain`: the synthetic streams of test_chain_device.py at
-    the callers' cap 32 and at 4 (overflowing), and streams holding over
-    32 NAMs open (two and four slot groups a lane) at caps that hold
-    them and that overflow."""
-    streams = synthetic_streams() if which == "synthetic" else wide_streams()
+def _merge_streams(which):
+    """The named streams of tests/torch_chain_cases.py; "mixedN" is
+    `mixed_merge_streams` at seed N."""
+    if which.startswith("mixed"):
+        return mixed_merge_streams(seed=int(which[5:]))
+    return {"synthetic": synthetic_streams, "wide": wide_streams,
+            "edge": merge_edge_streams}[which]()
+
+
+@pytest.mark.parametrize("which,cap,overflows", [
+    ("synthetic", 32, False), ("synthetic", 4, True), ("synthetic", 1, True),
+    ("wide", 128, False), ("wide", 72, True), ("wide", 200, False), ("wide", 33, True),
+    ("wide", 64, True), ("wide", 65, True),
+    ("edge", 200, False), ("edge", 129, True), ("edge", 128, True), ("edge", 65, True),
+    ("edge", 64, True), ("edge", 33, True), ("edge", 32, True), ("edge", 8, True),
+    ("edge", 3, True), ("edge", 1, True),
+    ("mixed0", 32, True), ("mixed1", 33, True), ("mixed2", 48, True), ("mixed3", 100, True),
+    ("mixed4", 140, True), ("mixed5", 200, False)])
+def test_merge_source_on_host_matches_plain(chain_emu, which, cap, overflows):
+    """The emission rows (zeros past each count), counts and overflow
+    flags equal `merge_hits_plain`: the synthetic streams of
+    test_chain_device.py at the callers' cap 32 and at 4 and 1
+    (overflowing on the lane), streams holding over 32 NAMs open at caps
+    that hold them, that overflow and past 128, and the boundary cases of
+    `merge_edge_streams` (the lane's table of 32 slots full and one past
+    it, sweeps and segment flushes on the lane and on the warp, empty
+    streams, more than 128 NAMs open). Caps 33, 64, 65, 128 and 129 put
+    the warp's stream at the edges of its 2 and 4 slot groups and of its
+    table in scratch; 32 and below overflow on the lane. The mixed streams
+    (empty, short, about 32 and over 128 NAMs open, in an order drawn from
+    a seed) make warps whose lanes finish some streams and hand others to
+    the whole warp."""
+    streams = _merge_streams(which)
     args = stream_tensors(streams)
     want = merge_hits_plain(*args, 20, cap)
     got = _emu_merge(chain_emu["merge_hits"], *args, 20, cap)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
-    assert bool(want[2].any()) == (cap in (4, 72))
-    assert int(want[1].sum()) > len(streams)
+    assert bool(want[2].any()) == overflows
+    if (which, cap) != ("wide", 33):  # there every stream overflows before it emits
+        assert int(want[1].sum()) > (len(streams) if cap > 3 else 0)
     if which == "wide":  # a flush of more than 64 open NAMs: all four slot groups
         assert int(want[0][:, 0].bincount().max()) > 64 or cap < 128
+    if which.startswith("mixed"):
+        H = args[2][1:] - args[2][:-1]
+        assert bool((H == 0).any()) and bool((H > 128).any())
+
+
+def test_merge_source_zeroes_rows_outside_the_streams(chain_emu):
+    """Rows before the first stream and after the last (offsets that do
+    not cover the hits), and a call with no stream, come back zero."""
+    hits, seg, offsets = stream_tensors(merge_edge_streams()[:2])
+    pad = torch.zeros((3, 4), dtype=torch.int32)
+    hits = torch.cat([pad, hits, pad])
+    seg = torch.cat([torch.zeros(3, dtype=torch.bool), seg, torch.zeros(3, dtype=torch.bool)])
+    for off in (offsets + 3, offsets[:1] + 3):
+        want = merge_hits_plain(hits, seg, off, 20, 32)
+        got = _emu_merge(chain_emu["merge_hits"], hits, seg, off, 20, 32)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+    assert int(want[0].abs().sum()) == 0
 
 
 @pytest.fixture(scope="module")

@@ -28,8 +28,9 @@ from rabbitsalign_tpu_torch.ops import int16_probe as probe
 from rabbitsalign_tpu_torch.ops import seed_cuda, seed_device, sw_cuda, tb_cuda
 from rabbitsalign_tpu_torch.ops.sw_cuda import SwParams
 
-from .torch_chain_cases import (chain_reads, composed_reads, mixed_runs, nam_key,
-                                stream_tensors, synthetic_streams, wide_streams, world_genome)
+from .torch_chain_cases import (chain_reads, composed_reads, merge_edge_streams,
+                                mixed_merge_streams, mixed_runs, nam_key, stream_tensors,
+                                synthetic_streams, wide_streams, world_genome)
 from .torch_extend_cases import (READ_LEN, gap_pairs, mixed_pairs, q2_batch, revcomp, sim_read,
                                  write_fastq)
 from .torch_gather_lanes import RunsIndex
@@ -860,27 +861,83 @@ def test_syncmers_scan_kernel_matches_plain(cuda, chain_world, B):
             assert st[i, rows].tolist() == host.start.tolist()
 
 
+def _dirty_cache(shapes):
+    """Tensors of these (shape, dtype) filled with 0xFF bytes and freed, so
+    that the caching allocator hands their blocks to the next allocations
+    of those sizes: a kernel that leaves an element unwritten shows."""
+    junk = [torch.full(shape, -1, dtype=torch.int32 if dt == torch.int32 else torch.uint8,
+                       device="cuda") for shape, dt in shapes]
+    del junk
+
+
+def _merge_streams(which):
+    if which.startswith("mixed"):
+        return mixed_merge_streams(seed=int(which[5:]))
+    return {"synthetic": synthetic_streams, "wide": wide_streams,
+            "edge": merge_edge_streams}[which]()
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("which,cap", [("synthetic", 32), ("synthetic", 4), ("wide", 128),
-                                       ("wide", 72), ("wide", 40)])
+                                       ("wide", 72), ("wide", 40), ("wide", 129), ("wide", 200),
+                                       ("edge", 200), ("edge", 129), ("edge", 65), ("edge", 33),
+                                       ("edge", 32), ("edge", 8), ("edge", 3), ("mixed0", 32),
+                                       ("mixed1", 33), ("mixed3", 100), ("mixed5", 200)])
 def test_merge_kernel_matches_plain(cuda, which, cap):
-    """The merge's emissions, counts and overflow flags on the card equal
-    `merge_hits_plain` at one, two and four slot groups a lane, tables
-    that overflow included; a cap past 128 is refused."""
+    """The merge's emissions (zeros past each count), counts and overflow
+    flags on the card equal `merge_hits_plain`: on the lane's path and at
+    two and four slot groups of the warp's, on the boundary cases of
+    `merge_edge_streams` (the lane's table of 32 slots full and one past
+    it, sweeps and segment flushes on each path, empty streams, more than
+    128 NAMs open), on warps that mix lane and warp streams
+    (`mixed_merge_streams`), tables that overflow included, and at caps
+    past 128 (129 and 200), as the JAX function takes them. The outputs' memory is dirtied first, and
+    the call is one kernel launch and no other work on the card."""
     from rabbitsalign_tpu_torch.ops import chain_cuda
     from rabbitsalign_tpu_torch.ops.chain_device import merge_hits_plain
 
-    streams = synthetic_streams() if which == "synthetic" else wide_streams()
-    args = [x.to(cuda) for x in stream_tensors(streams)]
+    args = [x.to(cuda) for x in stream_tensors(_merge_streams(which))]
+    N, S = args[0].shape[0], args[2].numel() - 1
+    chain_cuda.merge_hits(*args, 20, cap)  # built and warm, outside the profile
     launches = chain_cuda.launches_merge
-    got = chain_cuda.merge_hits(*args, 20, cap)
-    assert chain_cuda.launches_merge == launches + 1
+    for calls in range(1, 4):  # a capture with no event at all (CUPTI now and then) is retaken
+        torch.cuda.synchronize()
+        _dirty_cache([((N, 7), torch.int32), ((S,), torch.int32), ((S,), torch.bool),
+                      ((N, 7), torch.int32)])
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            got = chain_cuda.merge_hits(*args, 20, cap)
+            torch.cuda.synchronize()
+        on_card = [e.name for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        if on_card:
+            break
+    assert chain_cuda.launches_merge == launches + calls
+    assert len(on_card) == 1 and "merge_hits_kernel" in on_card[0], on_card
     want = merge_hits_plain(*args, 20, cap)
+    assert int(got[2].view(torch.uint8).max()) <= 1
     for g, w in zip(got, want):
         assert g.dtype == w.dtype and torch.equal(g, w)
-    assert bool(want[2].any()) == (cap in (4, 72, 40))
-    with pytest.raises(ValueError, match="128"):
-        chain_cuda.merge_hits(*args, 20, 129)
+    assert bool(want[2].any()) == (cap in (4, 72, 40) or
+                                   ((which == "edge" or which.startswith("mixed")) and cap != 200))
+
+
+@pytest.mark.cuda
+def test_merge_kernel_takes_strided_inputs(cuda):
+    """Hits, seg and offsets given as strided views on the card give the
+    same outputs as their contiguous copies, with one merge launch."""
+    from rabbitsalign_tpu_torch.ops import chain_cuda
+    from rabbitsalign_tpu_torch.ops.chain_device import merge_hits_plain
+
+    hits, seg, offsets = (x.to(cuda) for x in stream_tensors(merge_edge_streams()))
+    views = (hits.t().contiguous().t(), torch.stack([seg, seg], 1)[:, 0],
+             torch.stack([offsets, offsets], 1)[:, 1])
+    assert not any(v.is_contiguous() for v in views)
+    launches = chain_cuda.launches_merge
+    got = chain_cuda.merge_hits(*views, 20, 200)
+    assert chain_cuda.launches_merge == launches + 1
+    for g, w in zip(got, merge_hits_plain(hits, seg, offsets, 20, 200)):
+        assert torch.equal(g, w)
 
 
 @pytest.mark.cuda

@@ -63,6 +63,123 @@ def wide_streams(n: int = 6, seed: int = 5):
     return out
 
 
+def _stream(*groups):
+    """Groups of hits as one stream: (hits, seg flags)."""
+    hits, seg = [], []
+    for g in groups:
+        hits += g
+        seg += [j == 0 for j in range(len(g))]
+    return hits, seg
+
+
+def _collinear(n):
+    """n collinear hits, each extending the one NAM they make."""
+    return [(3 * i, 3 * i + 20, 5000 + 3 * i, 5020 + 3 * i) for i in range(n)]
+
+
+def _opening(r, n, q0=0):
+    """n hits within k = 20 of q0 on scattered refs: each opens a NAM."""
+    hits = []
+    for _ in range(n):
+        qs = q0 + r.randrange(0, 15)
+        qe = qs + r.randint(15, 40)
+        rs = r.randrange(0, 1_000_000)
+        hits.append((qs, qe, rs, rs + (qe - qs)))
+    return sorted(hits, key=lambda h: (h[0], h[2]))
+
+
+def _sweeping(r, n, q0=0):
+    """n hits that each open a NAM that a sweep a few hits on emits."""
+    hits, qs = [], q0
+    for _ in range(n):
+        qs += r.randint(3, 12)
+        qe = qs + r.randint(15, 30)
+        rs = r.randrange(0, 1_000_000)
+        hits.append((qs, qe, rs, rs + (qe - qs)))
+    return hits
+
+
+def merge_edge_streams(lanes=(8, 32), seed: int = 41):
+    """The merge's boundary cases at k = 20 for tables of each size L in
+    `lanes` (32: the lane's table in csrc/merge_hits.cu; 8: caps of 8 and
+    below overflow on the lane): streams of exactly L and L + 1 hits that
+    each open a NAM (the table full, and one more); L + 1 and L + 3 open
+    NAMs swept by later hits (at L = 32 a sweep on the warp); hits that
+    open a NAM each and close it a few hits on (sweeps that free a lane's
+    slots and make it pack them); segment flushes with L and L + 1 NAMs
+    open; empty streams among them; then one long chain of collinear hits
+    (one NAM, extended) and two streams that hold more than 128 NAMs open
+    at once (150, then 140 with a flush of 150 at the segment boundary
+    and a sweep). Returns [(hits, seg)]."""
+    r = random.Random(seed)
+
+    def opening(n, q0=0):
+        return _opening(r, n, q0)
+
+    def sweeping(n, q0=0):
+        return _sweeping(r, n, q0)
+
+    out = []
+    for L in lanes:
+        out += [
+            _stream(opening(L)),
+            _stream(opening(L + 1)),
+            ([], []),
+            _stream(opening(L - 1), opening(L)),
+            _stream(opening(L + 1) + opening(6, q0=80)),
+            _stream(sweeping(3 * L)),
+            _stream(opening(L), opening(L + 1), sweeping(2 * L)),
+            _stream(opening(L + 3) + opening(4, q0=100), sweeping(L)),
+        ]
+    return out + [
+        _stream(_collinear(40)),
+        _stream(opening(1)),
+        _stream(opening(150)),
+        _stream(opening(150), opening(140) + opening(10, q0=200)),
+        ([], []),
+    ]
+
+
+def mixed_merge_streams(n: int = 100, seed: int = 0):
+    """n streams of kinds drawn from a seed, so that the merge kernel's
+    warps mix streams their lanes finish with streams they hand to the
+    whole warp: empty streams, short sweeping ones (1-30 hits), ones that
+    open 28-40 NAMs at once (about the lane's 32 slots) and, rarely, 130-150
+    (a table in scratch at caps past 128), each kind also followed by a
+    second group or a sweep. Returns [(hits, seg)]."""
+    r = random.Random(1000 + seed)
+    out = []
+    for _ in range(n):
+        kind = r.choices(["empty", "short", "lane-edge", "wide"], [1, 6, 4, 1])[0]
+        if kind == "empty":
+            out.append(([], []))
+            continue
+        first = (_sweeping(r, r.randint(1, 30)) if kind == "short" else
+                 _opening(r, r.randint(28, 40) if kind == "lane-edge" else r.randint(130, 150)))
+        tail = r.choice([None, "group", "sweep"])
+        if tail == "group":
+            out.append(_stream(first, _opening(r, r.randint(1, 36))))
+        elif tail == "sweep":
+            out.append(_stream(first + _sweeping(r, r.randint(1, 20), q0=first[-1][0] + 25)))
+        else:
+            out.append(_stream(first))
+    return out
+
+
+def lane_chain_streams(n: int = 4096):
+    """Two single streams of n hits for a lane's time a hit: collinear
+    hits that extend one NAM (a read on its reference), and hits that each
+    open a NAM that a sweep a few hits on emits. Returns [(hits, seg)]."""
+    r = random.Random(43)
+    sweep, qs = [], 0
+    for _ in range(n):
+        qs += r.randint(8, 14)
+        qe = qs + r.randint(15, 25)
+        rs = r.randrange(0, 1_000_000)
+        sweep.append((qs, qe, rs, rs + (qe - qs)))
+    return [_stream(_collinear(n)), _stream(sweep)]
+
+
 def stream_tensors(streams):
     """Streams as the merge's (hits (N, 4) int32, seg (N,) bool, offsets
     (S + 1,) int64) CPU tensors."""

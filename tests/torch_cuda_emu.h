@@ -1,6 +1,7 @@
 // A host emulation of the CUDA features that the port's kernels use
 // (rabbitsalign_tpu_torch/csrc/seed_randstrobes.cu, find_runs.cu,
-// index_find.cu, sw_forward.cu), so
+// index_find.cu, sw_forward.cu, syncmers_scan.cu, merge_hits.cu,
+// walk_hits.cu), so
 // that their sources run on a CPU: tests/torch_cuda_emu.py turns each
 // launch into `emu_launch`. The blocks of a launch run one after the
 // other, one std::thread a CUDA thread; warp primitives meet at a barrier
@@ -51,6 +52,8 @@ template <class K> int cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, K, 
     return 0;
 }
 struct uint4 { unsigned x, y, z, w; };
+struct alignas(16) int4 { int x, y, z, w; };
+template <class T> T __ldg(const T* p) { return *p; }
 // Hopper's DPX integer instructions, as the CUDA Math API defines them
 // (the sums wrap as 32-bit two's complement)
 inline int wrap_add(int a, int b) { return (int)((unsigned)a + (unsigned)b); }
@@ -103,6 +106,7 @@ inline int __any_sync(unsigned m, bool p) { return __ballot_sync(m, p) != 0; }
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
 inline int __popcll(unsigned long long x) { return __builtin_popcountll(x); }
 inline int __ffs(int x) { return __builtin_ffs(x); }
+inline int __clz(int x) { return x ? __builtin_clz((unsigned)x) : 32; }
 inline unsigned long long atomicAdd(unsigned long long* a, unsigned long long v) {
     auto o = *a; *a += v; return o;
 }
