@@ -177,8 +177,30 @@ Pod. The multi-host pod run on the one card: two CLI processes
    each host's mapping-loop reads/s, the pod total, node 0's merge time
    and the pod index's traffic are printed.
 
+Py. The Python mapper (pipeline/batched.py, the JAX runner's branch for a
+   host without its library), each part with the launch counts set to 0
+   before it and read after: (a) through the library API with the
+   engine's helpers loaded, `phase_a_chunk`, `BatchAligner` on the card
+   (ops/extend_device.py:extend_batch_packed: the forward kernel, then the
+   traceback kernel's packed epilogue) and `phase_b_chunk` over the first
+   SE chunk (10 000 reads) and the first 5 000 pairs, each a chunk seeded
+   with index 0: the SAM must equal the engine's CLI run (`-t 1`) on a
+   FASTQ of just those reads, and both extend kernels must have launched
+   (before it, `extend_batch_packed` at the three buckets x 512 mixed and
+   gap pairs must equal the plain forward and packed walk on the card);
+   reads/s with phase A, dispatch, collect and phase B apart, the jobs on
+   the card, refused by every bucket and redone on the host; (b) the CLI
+   under RABBITSALIGN_TPU_NO_NATIVE=1 in a subprocess, `--use-index`, on
+   1 000 SE reads and 500 pairs: the SAM on the card must equal the same
+   call's with `--no-tpu` apart from @PG, its `-v` launch line must show
+   the extend kernels (none with `--no-tpu`); both reads/s; (c)
+   `find_nams_sharded` on a one-shard ShardedIndex on the card must equal
+   the host `find_nams` on 1 000 reads of the SE chunk, and
+   `find_nams_rescue_sharded` the host rescue on 200, with find_runs
+   launched; ms a read on both.
+
 The line before last is a JSON object with each kernel's launches in its
-path (phases 4, Multi and Pod; the ILP phase for sw_forward_split; phase
+path (phases 4, Multi, Pod and Py; the ILP phase for sw_forward_split; phase
 Chain for its own kernels, and the seeding and lookup kernels it runs), its
 error against its plain version,
 times, bound and library call; the last line is {"ok": true, "device":
@@ -214,6 +236,7 @@ REQUIRED = ("rabbitsalign_tpu_torch/__init__.py", "rabbitsalign_tpu_torch/csrc/s
             "rabbitsalign_tpu_torch/csrc/merge_hits.cu", "rabbitsalign_tpu_torch/csrc/walk_hits.cu",
             "rabbitsalign_tpu_torch/native/engine.cpp", "rabbitsalign_tpu_torch/native/seednam.cpp",
             "rabbitsalign_tpu_torch/parallel/multihost.py",
+            "rabbitsalign_tpu_torch/pipeline/batched.py",
             "rabbitsalign_tpu_torch/tools/ilp_probe.py", "bench.py", "tests/torch_extend_cases.py",
             "tests/torch_tb_tiles.py", "tests/torch_seed_cases.py", "tests/torch_chain_cases.py")
 # kernel name -> (source, the pallas_call or, for the seeding and lookup
@@ -1983,6 +2006,209 @@ def pod(card, reads, runs):
     return totals
 
 
+PY_SE_READS = 10_000  # phase Py (a): the first SE chunk
+PY_PE_PAIRS = 5_000  # and the first 5 000 pairs, as one chunk
+PY_CLI_SE, PY_CLI_PE = 1_000, 500  # phase Py (b): the CLI under the variable
+PY_SHARD_READS, PY_RESCUE_READS = 1_000, 200  # phase Py (c)
+
+
+def write_records(path, records):
+    with open(path, "wb") as f:
+        for r in records:
+            f.write(b"@" + r.name.encode() + b"\n" + r.seq + b"\n+\n" + r.qual + b"\n")
+
+
+def sam_records(path) -> bytes:
+    """A SAM file's records: every line but the header's."""
+    with open(path, "rb") as f:
+        return b"".join(line for line in f if not line.startswith(b"@"))
+
+
+def python_mapper(torch, card, ref, reads):
+    """Phase Py: the Python mapper (the JAX runner's branch for a host
+    without its library). (a) Through the library API with the engine's
+    helpers loaded: phase_a_chunk, BatchAligner on the card, phase_b_chunk
+    over the first SE chunk and the first 5 000 pairs, each equal to the
+    engine's CLI run (-t 1) on a FASTQ of just those reads; (b) the CLI
+    under RABBITSALIGN_TPU_NO_NATIVE in a subprocess on the card, equal to
+    the same call with --no-tpu; (c) find_nams_sharded and
+    find_nams_rescue_sharded on a one-shard ShardedIndex on the card,
+    equal to the host find_nams. Returns the launches of its kernels."""
+    phase("Py: the Python mapper (phase_a_chunk -> BatchAligner on the card -> phase_b_chunk)")
+    from rabbitsalign_tpu_torch.align.aligner import Aligner, AlignmentParameters
+    from rabbitsalign_tpu_torch.chain.nams import find_nams, find_nams_rescue
+    from rabbitsalign_tpu_torch.chain.sharded_nams import (find_nams_rescue_sharded,
+                                                           find_nams_sharded)
+    from rabbitsalign_tpu_torch.cli import main
+    from rabbitsalign_tpu_torch.io.fastq import InputBuffer
+    from rabbitsalign_tpu_torch.io.sam import CIGAR_OPS_M, Sam
+    from rabbitsalign_tpu_torch.map.common import InsertSizeDistribution, MappingParameters
+    from rabbitsalign_tpu_torch.map.randomness import MinstdRand
+    from rabbitsalign_tpu_torch.map.stats import AlignmentStatistics
+    from rabbitsalign_tpu_torch.ops import extend_device as px
+    from rabbitsalign_tpu_torch.ops import shard_cuda, sw_cuda, tb_cuda
+    from rabbitsalign_tpu_torch.ops.batch_extend import DEFAULT_BUCKETS, BatchAligner
+    from rabbitsalign_tpu_torch.parallel.sharding import ShardedIndex, make_mesh
+    from rabbitsalign_tpu_torch.pipeline.batched import (native_available, phase_a_chunk,
+                                                         phase_b_chunk)
+    from rabbitsalign_tpu_torch.seed.randstrobes import randstrobes_query
+    from tests.torch_extend_cases import bucket_arrays, gap_pairs, mixed_pairs
+
+    check(native_available(), "the engine's helpers are off in this process")
+    t_phase = time.perf_counter()
+    index = load_index(ref)
+    params, refs = index.parameters, index.references
+    ap = AlignmentParameters()
+    mp = MappingParameters(r=150)
+    mp.rescue_cutoff = mp.rescue_level * index.filter_cutoff  # the runner's, at level 2
+    chunks = {"SE": next(InputBuffer(reads["SE"][1], "", PY_SE_READS).chunks()),
+              "PE": next(InputBuffer(reads["PE"][1], reads["PE"][2], PY_PE_PAIRS).chunks())}
+    totals = {"sw_forward": 0, "sw_traceback": 0, "find_runs": 0}
+
+    # the BatchAligner's layout on the card against the plain forward and
+    # packed walk on the same card tensors, at its three buckets
+    sw = sw_cuda.SwParams(ap.match, ap.mismatch, ap.gap_open, ap.gap_extend)
+    for Q, T, B in DEFAULT_BUCKETS:
+        q_t, t_t, qlen, tlen = bucket_arrays(
+            mixed_pairs(Q, T, B - 7, seed=Q + T) + gap_pairs(Q, T, seed=T), Q, T)
+        buf = torch.from_numpy(px.pack_input(q_t, t_t, qlen, tlen)).to(DEVICE)
+        got = px.extend_batch_packed(buf, Q, T, sw)
+        fwd = sw_cuda.sw_forward_plain(buf[:Q], buf[Q:Q + T], torch.from_numpy(qlen).to(DEVICE),
+                                       torch.from_numpy(tlen).to(DEVICE), sw, torch.int32)
+        want = tb_cuda.sw_traceback_packed_plain(fwd[3], *fwd[:3])
+        err = max_abs_err(torch, [(got, want)])
+        check(err == 0, f"Py: extend_batch_packed at ({Q}, {T}) x {B} differs from its plain "
+              f"version (max_abs_err {err})")
+        say(f"Py: extend_batch_packed at ({Q}, {T}) x {B} (mixed and gap pairs) equals the plain "
+            f"forward and packed walk on the card, max_abs_err 0")
+
+    # (a) the library API: one chunk each, seeded with chunk index 0, as
+    # the CLI's only chunk
+    for name, (_, r1, r2, r3) in chunks.items():
+        files = [WORK / f"py.{name}.1.fq"] + ([WORK / f"py.{name}.2.fq"] if r2 else [])
+        for path, recs in zip(files, (r1, r2)):
+            write_records(path, recs)
+        out = WORK / f"py.{name}.engine.sam"
+        log = io.StringIO()
+        with contextlib.redirect_stderr(log):
+            rc = main([str(ref), *map(str, files), "--use-index", "--no-progress", "-t", "1",
+                       "--device", DEVICE, "-o", str(out)])
+        check(rc == 0, f"Py {name}: the engine's CLI run exited {rc}:\n{log.getvalue()[-3000:]}")
+        want = sam_records(out)
+        out.unlink()
+        aligner, stats, isize = Aligner(ap), AlignmentStatistics(), InsertSizeDistribution()
+        batch = BatchAligner(ap, 1024, device=DEVICE)  # the CLI's --tpu-batch
+        engine = MinstdRand(0)
+        engine.seed(0)
+        torch.cuda.synchronize()
+        sw_cuda.launches = sw_cuda.launches_i16 = tb_cuda.launches = px.packed_calls = 0
+        t0 = time.perf_counter()
+        work, n = phase_a_chunk(r1, r2, r3, [], isize, aligner, batch, mp, params, refs, index,
+                                engine)
+        t1 = time.perf_counter()
+        token = batch.dispatch()
+        t2 = time.perf_counter()
+        infos = batch.collect(token)
+        t3 = time.perf_counter()
+        sam = Sam(refs, CIGAR_OPS_M, "", True, False)
+        phase_b_chunk(work, infos, sam, stats, isize, aligner, mp, params, refs, engine)
+        t4 = time.perf_counter()
+        got = sam.take().encode()
+        launches = {"sw_forward": sw_cuda.launches, "sw_forward_i16": sw_cuda.launches_i16,
+                    "sw_traceback": tb_cuda.launches, "extend_packed": px.packed_calls}
+        check(got == want, f"Py {name}: the Python mapper's SAM differs from the engine's CLI run")
+        check(launches["sw_forward"] > 0 and launches["sw_traceback"] > 0 and
+              launches["sw_forward_i16"] == 0,
+              f"Py {name}: the extend kernels did not launch as expected: {launches}")
+        totals["sw_forward"] += launches["sw_forward"]
+        totals["sw_traceback"] += launches["sw_traceback"]
+        say(f"Py {name}: {n} reads, SAM == the engine's CLI run (-t 1) on the same reads; "
+            f"{n / (t4 - t0):.1f} reads/s: phase A {t1 - t0:.3f} s, dispatch {t2 - t1:.3f} s, "
+            f"collect {t3 - t2:.3f} s, phase B {t4 - t3:.3f} s; jobs on the card "
+            f"{batch.n_device_jobs}, refused by every bucket {batch.n_host_jobs}, redone on the "
+            f"host {batch.n_fallbacks}; launches {json.dumps(launches)} [{card}]")
+
+    # (b) the CLI under the variable, on the card and with --no-tpu
+    env = dict(os.environ, PYTHONPATH=str(ROOT), RABBITSALIGN_TPU_NO_NATIVE="1")
+    small = {"SE": [chunks["SE"][1][:PY_CLI_SE]],
+             "PE": [chunks["PE"][1][:PY_CLI_PE], chunks["PE"][2][:PY_CLI_PE]]}
+    for name, parts in small.items():
+        files = [WORK / f"py.cli.{name}.{i}.fq" for i in range(len(parts))]
+        for path, recs in zip(files, parts):
+            write_records(path, recs)
+        res = {}
+        for mode, extra in (("cuda", ["--device", DEVICE]), ("host", ["--no-tpu"])):
+            out = WORK / f"py.cli.{name}.{mode}.sam"
+            cmd = [sys.executable, "-m", "rabbitsalign_tpu_torch.cli", str(ref), *map(str, files),
+                   "--use-index", "--no-progress", "-v", *extra, "-o", str(out)]
+            t0 = time.perf_counter()
+            p = subprocess.run(cmd, capture_output=True, text=True, env=env, cwd=ROOT,
+                               timeout=600)
+            wall = time.perf_counter() - t0
+            check(p.returncode == 0, f"Py CLI {name} {mode} exited {p.returncode}:\n"
+                  f"{p.stderr[-3000:]}")
+            m = re.search(r"Mapped (\d+) reads in ([0-9.]+) s \((\d+) reads/s\)", p.stderr)
+            k = re.search(r"Kernel launches: (.*)", p.stderr)
+            check(m and k and "RABBITSALIGN_TPU_NO_NATIVE" in p.stderr,
+                  f"Py CLI {name} {mode}: no Python mapper lines in the log:\n{p.stderr[-3000:]}")
+            jobs = re.search(r"Device extend: (.*)", p.stderr)
+            with open(out, "rb") as f:
+                res[mode] = (b"".join(line for line in f if not line.startswith(b"@PG")),
+                             int(m.group(1)), int(m.group(3)), wall, json.loads(k.group(1)),
+                             jobs.group(1) if jobs else "")
+            out.unlink()
+        n_cuda, n_host = res["cuda"][4], res["host"][4]
+        check(res["cuda"][0] == res["host"][0],
+              f"Py CLI {name}: the SAM on the card differs from --no-tpu")
+        check(n_cuda["extend_packed"] > 0 and n_cuda["sw_forward"] > 0 and
+              n_cuda["sw_traceback"] > 0, f"Py CLI {name}: the extend kernels never "
+              f"launched on the card: {n_cuda}")
+        check(n_host["extend_packed"] == 0 and n_host["sw_forward"] == 0,
+              f"Py CLI {name} --no-tpu launched kernels: {n_host}")
+        totals["sw_forward"] += n_cuda["sw_forward"]
+        totals["sw_traceback"] += n_cuda["sw_traceback"]
+        say(f"Py CLI {name} under RABBITSALIGN_TPU_NO_NATIVE: {res['cuda'][1]} reads, SAM on the "
+            f"card == --no-tpu apart from @PG; mapping loop {res['cuda'][2]} reads/s on the card, "
+            f"{res['host'][2]} reads/s with --no-tpu (calls {res['cuda'][3]:.1f} s and "
+            f"{res['host'][3]:.1f} s); {res['cuda'][5]}; launches {json.dumps(n_cuda)} [{card}]")
+
+    # (c) the sharded index's NAMs on the card against the host find_nams
+    sharded = ShardedIndex(make_mesh(1, DEVICE), index)
+    torch.cuda.synchronize()
+    shard_cuda.launches_find_runs = 0
+    n_nams = n_rescue = 0
+    t_dev = t_host = 0.0
+    rescue_cutoff = mp.rescue_cutoff
+    for i, rec in enumerate(chunks["SE"][1][:PY_SHARD_READS]):
+        q = randstrobes_query(rec.seq, params)
+        t0 = time.perf_counter()
+        frac, got = find_nams_sharded(q, sharded)
+        t1 = time.perf_counter()
+        want = find_nams(q, index)
+        t_dev, t_host = t_dev + t1 - t0, t_host + time.perf_counter() - t1
+        key = lambda n: (n.query_start, n.query_end, n.ref_start, n.ref_end, n.ref_id, n.n_hits,
+                         n.score, n.is_rc)
+        check(frac == want[0] and list(map(key, got)) == list(map(key, want[1])),
+              f"Py: find_nams_sharded differs from find_nams on read {rec.name}")
+        n_nams += len(got)
+        if i < PY_RESCUE_READS:
+            got = find_nams_rescue_sharded(q, sharded, rescue_cutoff)
+            check(list(map(key, got)) ==
+                  list(map(key, find_nams_rescue(q, index, rescue_cutoff))),
+                  f"Py: find_nams_rescue_sharded differs from find_nams_rescue on {rec.name}")
+            n_rescue += len(got)
+    n_find = shard_cuda.launches_find_runs
+    check(n_find > 0, "Py: find_runs never launched for find_nams_sharded")
+    totals["find_runs"] += n_find
+    say(f"Py sharded NAMs: find_nams_sharded == find_nams on {PY_SHARD_READS} reads ({n_nams} "
+        f"NAMs), find_nams_rescue_sharded == find_nams_rescue on {PY_RESCUE_READS} ({n_rescue}); "
+        f"find_runs launches {n_find}; {t_dev * 1e3 / PY_SHARD_READS:.3f} ms a read with the "
+        f"one-shard index on the card against {t_host * 1e3 / PY_SHARD_READS:.3f} ms on the host "
+        f"index [{card}]")
+    say(f"phase Py: {time.perf_counter() - t_phase:.1f} s")
+    return totals
+
+
 def main() -> int:
     torch, card = environment()
     build()
@@ -2008,6 +2234,8 @@ def main() -> int:
     for k, v in pod(card, reads, runs).items():
         if k in launches:
             launches[k] += v
+    for k, v in python_mapper(torch, card, ref, reads).items():
+        launches[k] += v
     launches["sw_forward_split"] = split_launches
     # no single PyTorch call computes an affine-gap Smith-Waterman pass,
     # its traceback, the probe's compare or the seeding: library_ms is

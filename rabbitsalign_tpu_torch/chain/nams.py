@@ -40,13 +40,15 @@ _INT_MAX = 2**31 - 1
 def _rh_items(hits_per_ref: "HitsPerRef"):
     """hits_per_ref groups in the reference's robin_hood map iteration
     order (dict preserves first-touch order == the map's insertion order,
-    from which the simulator reproduces the final slot order)."""
+    from which the simulator reproduces the final slot order). Under
+    RABBITSALIGN_TPU_NO_NATIVE the groups stay in insertion order."""
     items = list(hits_per_ref.items())
     if len(items) > 1:
         from .. import native
 
         perm = native.robinhood_order([ref_id for ref_id, _ in items])
-        items = [items[p] for p in perm]
+        if perm is not None:
+            items = [items[p] for p in perm]
     return items
 
 

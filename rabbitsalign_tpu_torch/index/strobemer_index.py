@@ -162,11 +162,17 @@ class StrobemerIndex:
     def populate(self, f: float, n_threads: int = 1) -> None:
         """Build the index (reference src/index.cpp:141-242): seeding and
         the (hash, position) sort run in the native engine, threaded per
-        contig like the reference's count/assign workers."""
+        contig like the reference's count/assign workers; under
+        RABBITSALIGN_TPU_NO_NATIVE they run in numpy (`_populate_numpy`)."""
         import time
 
+        from ..native import native_disabled
+
         t0 = time.perf_counter()
-        self._populate_native(n_threads)
+        if native_disabled():
+            self._populate_numpy()
+        else:
+            self._populate_native(n_threads)
         self.stats.tot_strobemer_count = int(self.hashes.shape[0])
         self.stats.elapsed_generating_seeds = time.perf_counter() - t0
 
@@ -219,6 +225,38 @@ class StrobemerIndex:
             self.packed.ctypes.data,
         )
         lib.index_build_free(handle)
+
+    def _populate_numpy(self) -> None:
+        """The same arrays from the numpy seeding of seed/randstrobes.py,
+        sorted by (hash, position) — RefRandstrobe::operator<."""
+        import time
+
+        from ..seed.randstrobes import randstrobes_reference
+
+        all_hashes = []
+        all_positions = []
+        all_packed = []
+        for ref_index, seq in enumerate(self.references.sequences):
+            h, p1, p2 = randstrobes_reference(seq, self.parameters)
+            all_hashes.append(h)
+            all_positions.append(p1.astype(np.uint32))
+            all_packed.append(
+                ((np.uint32(ref_index) << np.uint32(8)) + (p2 - p1).astype(np.uint32)).astype(
+                    np.uint32
+                )
+            )
+        hashes = np.concatenate(all_hashes) if all_hashes else np.zeros(0, dtype=np.uint64)
+        positions = (
+            np.concatenate(all_positions) if all_positions else np.zeros(0, dtype=np.uint32)
+        )
+        packed = np.concatenate(all_packed) if all_packed else np.zeros(0, dtype=np.uint32)
+
+        t1 = time.perf_counter()
+        order = np.lexsort((positions, hashes))
+        self.hashes = hashes[order]
+        self.positions = positions[order]
+        self.packed = packed[order]
+        self.stats.elapsed_sorting_seeds = time.perf_counter() - t1
 
     def _build_buckets(self) -> None:
         """Bucket table replicating the reference loop exactly

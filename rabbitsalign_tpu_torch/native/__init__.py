@@ -10,7 +10,13 @@ with g++ into a cache of this package's own
 ``~/.cache/rabbitsalign_tpu_torch``), and rebuilt unless the stamp beside
 the library holds the sha256 of both sources and the compiler flags
 (mtimes cannot be trusted: an unpacked archive carries its commit's
-times). A failed build raises: there is no Python host path behind it.
+times). A failed build raises, and its message names
+RABBITSALIGN_TPU_NO_NATIVE: only that variable, set by the caller, turns
+the engine off. Under it `load_engine` raises, `sort_perm`,
+`robinhood_order` and `hamming_try` return None, and their callers take
+the JAX package's Python paths (a stable sort, insertion order, the
+Python Hamming), as that package does without its library; the runner
+then maps with the Python mapper (pipeline/batched.py).
 """
 
 from __future__ import annotations
@@ -28,8 +34,16 @@ ENGINE_SRC_DIR = Path(__file__).resolve().parent
 ENGINE_SOURCES = ("engine.cpp", "seednam.cpp")
 GXX_FLAGS = ("-O3", "-march=native", "-std=c++17", "-shared", "-fPIC", "-fopenmp")
 
+NO_NATIVE_ENV = "RABBITSALIGN_TPU_NO_NATIVE"
+
 _lib: Optional[ctypes.CDLL] = None
 _lock = threading.Lock()
+
+
+def native_disabled() -> bool:
+    """True while RABBITSALIGN_TPU_NO_NATIVE is set to a non-empty value
+    (read at every call, so a test may set and clear it)."""
+    return bool(os.environ.get(NO_NATIVE_ENV))
 
 
 def cache_dir() -> Path:
@@ -44,6 +58,10 @@ def sources_digest() -> str:
     for name in ENGINE_SOURCES:
         h.update(name.encode() + b"\0" + (ENGINE_SRC_DIR / name).read_bytes() + b"\0")
     return h.hexdigest()
+
+
+_NO_NATIVE_HINT = (f"set {NO_NATIVE_ENV}=1 to map with the Python mapper instead "
+                   f"(about 100x slower)")
 
 
 def build_engine() -> Path:
@@ -83,18 +101,22 @@ def _compile(src: Path, out: Path) -> Path:
     try:
         res = subprocess.run(cmd, capture_output=True, text=True)
     except FileNotFoundError as e:
-        raise RuntimeError(f"native engine build failed: {e}") from e
+        raise RuntimeError(f"native engine build failed: {e}; {_NO_NATIVE_HINT}") from e
     if res.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(
-            f"native engine build failed ({' '.join(cmd)}):\n{res.stderr[-4000:]}")
+            f"native engine build failed ({' '.join(cmd)}); {_NO_NATIVE_HINT}:\n"
+            f"{res.stderr[-4000:]}")
     os.replace(tmp, out)
     return out
 
 
 def load_engine() -> ctypes.CDLL:
-    """Load (building if needed) the native engine library."""
+    """Load (building if needed) the native engine library. Raises under
+    RABBITSALIGN_TPU_NO_NATIVE."""
     global _lib
+    if native_disabled():
+        raise RuntimeError(f"the engine is turned off by {NO_NATIVE_ENV}")
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(str(build_engine()))
@@ -104,6 +126,10 @@ def load_engine() -> ctypes.CDLL:
                                ("robinhood_iteration_order", [p, i64, i64, p])):
                 getattr(lib, name).restype = None
                 getattr(lib, name).argtypes = args
+            # query, ref, n, match, mismatch, end_bonus, vals, cigar, cap, n_cigar
+            lib.hamming_try.restype = ctypes.c_int
+            lib.hamming_try.argtypes = [ctypes.c_char_p, ctypes.c_char_p, i64, ctypes.c_int,
+                                        ctypes.c_int, ctypes.c_int, p, p, i64, p]
             _lib = lib
         return _lib
 
@@ -111,9 +137,13 @@ def load_engine() -> ctypes.CDLL:
 def sort_perm(keys, descending: bool):
     """The permutation (int32) in which the reference's std::sort orders
     `keys`: uint64 ascending, or float64 descending (libstdc++'s introsort
-    is unstable, and its order of equal keys is observable output)."""
+    is unstable, and its order of equal keys is observable output).
+    None under RABBITSALIGN_TPU_NO_NATIVE: the caller then sorts stably,
+    which differs only in the order of equal keys."""
     import numpy as np
 
+    if native_disabled():
+        return None
     lib = load_engine()
     n = keys.shape[0]
     perm = np.empty(n, dtype=np.int32)
@@ -131,13 +161,45 @@ def robinhood_order(keys):
     inserting `keys` (unique u32 ref_ids) in first-touch order, as an
     int32 permutation: the order of NAMs on different contigs, which
     equal-score tie-breaks observe (reference ext/robin_hood.h, simulated
-    by the engine). Raises if the engine does not load; there is no
-    insertion-order fallback."""
+    by the engine). None under RABBITSALIGN_TPU_NO_NATIVE, where the
+    caller keeps insertion order; without the variable an engine that
+    does not load raises."""
     import numpy as np
 
+    if native_disabled():
+        return None
     lib = load_engine()
     arr = np.ascontiguousarray(keys, dtype=np.uint32)
     perm = np.empty(arr.shape[0], dtype=np.int32)
     # every reference construction site reserves 100 (src/nam.cpp:589 etc.)
     lib.robinhood_iteration_order(arr.ctypes.data, arr.shape[0], 100, perm.ctypes.data)
     return perm
+
+
+_HAM_CIGAR_CAP = 4096
+_ham_local = threading.local()
+
+
+def hamming_try(query: bytes, ref: bytes, match: int, mismatch: int, end_bonus: int):
+    """The engine's Hamming fast path (seednam.cpp hamming_try): (score,
+    seg_start, seg_end, edits, packed cigar ops) when the gate of under
+    5% mismatches passes, False when it fails (a gapped alignment is
+    needed), and None under RABBITSALIGN_TPU_NO_NATIVE (the caller runs
+    the Python Hamming)."""
+    import numpy as np
+
+    if native_disabled():
+        return None
+    lib = load_engine()
+    if len(query) != len(ref) or len(query) == 0:
+        return False  # the gate cannot pass
+    bufs = getattr(_ham_local, "bufs", None)
+    if bufs is None:  # per thread: mapping workers call this concurrently
+        bufs = _ham_local.bufs = (np.zeros(4, np.int32), np.zeros(_HAM_CIGAR_CAP, np.uint32),
+                                  np.zeros(1, np.int64))
+    vals, cigar, n_cigar = bufs
+    if not lib.hamming_try(query, ref, len(query), match, mismatch, end_bonus, vals.ctypes.data,
+                           cigar.ctypes.data, _HAM_CIGAR_CAP, n_cigar.ctypes.data):
+        return False
+    return (int(vals[0]), int(vals[1]), int(vals[2]), int(vals[3]),
+            cigar[: int(n_cigar[0])].tolist())

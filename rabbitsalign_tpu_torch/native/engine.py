@@ -469,6 +469,13 @@ class NativeEngine:
             "feed_miss": int(out[6]),
         }
 
+    def isize(self) -> Tuple[float, float, float]:
+        """(mu, sigma, sample_size) of the active insert-size estimator: the
+        cumulative one, or under ``--pe-ref-async`` the most recent chunk's."""
+        out = np.zeros(4, dtype=np.float64)
+        self.lib.engine_isize(self.handle, out.ctypes.data)
+        return float(out[0]), float(out[1]), float(out[2])
+
     def timers(self) -> dict:
         """Phase wall-clock aggregates (the reference's per-thread timing
         statistics, src/aln.hpp:13-56)."""

@@ -18,6 +18,11 @@ version). The transfer formats are the engine's and are unchanged:
          n_runs 0xFFFF marks a pair with more than RLE_M runs, which the
          host re-aligns (engine.cpp chunk_set_device_results).
 
+`extend_batch_packed` is the self-contained layout of the Python
+mapper's BatchAligner (ops/batch_extend.py): the input (Q + T + 4, B) u8
+holds the query codes, the target codes, then qlen and tlen as u16 (lo,
+hi) rows (`pack_input`); the output is the same packed rows.
+
 The reference genome stays resident on the device as one flat uint8
 tensor of nt4 codes padded with REF_PAGE_OVERLAP codes 4 ('N'):
 torch indexes with int64, so the 1 GiB int32-safe pages of the JAX
@@ -29,22 +34,25 @@ tests).
 from __future__ import annotations
 
 import threading
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from ..align.cigar import CIGAR_DEL, CIGAR_EQ, CIGAR_INS, CIGAR_X, Cigar
 from .sw_cuda import SwParams, sw_forward
-from .tb_cuda import OUT_ROWS, RLE_M, sw_traceback_packed
+from .tb_cuda import OP_D, OP_EQ, OP_I, OP_X, OUT_ROWS, RLE_M, sw_traceback_packed
 from .tb_cuda import pack_rle_output as _pack_rle_output  # noqa: F401  (the name callers use)
 
 REF_PAGE_BITS = 30  # the JAX package's 1 GiB reference pages
 REF_PAGE_SIZE = 1 << REF_PAGE_BITS
 REF_PAGE_OVERLAP = 4096  # >= max target window (T caps at 2048)
 
-# calls of extend_batch_packed_resident_q2 (one per dispatched batch);
-# mapping workers call it from several threads, so updates hold
-# _count_lock
+# calls of extend_batch_packed_resident_q2 (one per dispatched batch)
+# and of extend_batch_packed (one per BatchAligner batch); mapping
+# workers call them from several threads, so updates hold _count_lock
 calls = 0
+packed_calls = 0
 _count_lock = threading.Lock()
 
 
@@ -128,3 +136,75 @@ def extend_batch_packed_resident_q2(buf: torch.Tensor, ref_codes: torch.Tensor,
     q_t, t_t, qlen, tlen = unpack_q2(buf, ref_codes, Q, T)
     score, t_end, q_end, dirs = sw_forward(q_t, t_t, qlen, tlen, params)
     return sw_traceback_packed(dirs, score, t_end, q_end)
+
+
+def pack_input(q_t: np.ndarray, t_t: np.ndarray, qlen: np.ndarray, tlen: np.ndarray) -> np.ndarray:
+    """(Q, B) query codes, (T, B) target codes and (B,) lengths -> the
+    (Q + T + 4, B) u8 input of `extend_batch_packed`."""
+    Q, B = q_t.shape
+    T = t_t.shape[0]
+    buf = np.empty((Q + T + 4, B), dtype=np.uint8)
+    buf[:Q] = q_t
+    buf[Q : Q + T] = t_t
+    buf[Q + T] = qlen & 0xFF
+    buf[Q + T + 1] = (qlen >> 8) & 0xFF
+    buf[Q + T + 2] = tlen & 0xFF
+    buf[Q + T + 3] = (tlen >> 8) & 0xFF
+    return buf
+
+
+def extend_batch_packed(buf: torch.Tensor, Q: int, T: int, params: SwParams) -> torch.Tensor:
+    """(Q + T + 4, B) u8 input (`pack_input`) -> packed (OUT_ROWS, B) u8
+    output, on the device of `buf`: the forward kernel, then the
+    traceback kernel whose epilogue writes the packed rows. A CPU tensor
+    takes both plain versions; a CUDA tensor launches both kernels or
+    raises."""
+    global packed_calls
+    if buf.dim() != 2 or buf.dtype != torch.uint8 or buf.shape[0] != Q + T + 4:
+        raise ValueError(f"extend_batch_packed: a ({Q + T + 4}, B) uint8 buffer expected, "
+                         f"got {tuple(buf.shape)} {buf.dtype}")
+    with _count_lock:
+        packed_calls += 1
+    lens = buf[Q + T : Q + T + 4].to(torch.int32)
+    qlen = lens[0] | (lens[1] << 8)
+    tlen = lens[2] | (lens[3] << 8)
+    score, t_end, q_end, dirs = sw_forward(buf[:Q], buf[Q : Q + T], qlen, tlen, params)
+    return sw_traceback_packed(dirs, score, t_end, q_end)
+
+
+_CIGAR_OF_OP = {OP_EQ: CIGAR_EQ, OP_X: CIGAR_X, OP_I: CIGAR_INS, OP_D: CIGAR_DEL}
+
+
+def ops_to_cigars(
+    op_runs: np.ndarray,   # (M, B) uint8 run op codes
+    len_runs: np.ndarray,  # (M, B) int32 run lengths
+    n_runs: np.ndarray,    # (B,) int32; 0xFFFF = overflow
+    score: np.ndarray,
+) -> List[Optional[Tuple[Cigar, int]]]:
+    """Decode the packed runs into =/X/I/D cigars. Runs live at slots
+    [M - n_runs, M) in forward cigar order. Returns per pair (cigar,
+    n_ops_consumed), or None for score <= 0, an empty walk and a pair of
+    more than RLE_M runs (the caller re-aligns those on the host)."""
+    B = op_runs.shape[1]
+    opsT = np.ascontiguousarray(op_runs.T)
+    lensT = np.ascontiguousarray(len_runs.T)
+    out: List[Optional[Tuple[Cigar, int]]] = []
+    for b in range(B):
+        nr = int(n_runs[b])
+        if score[b] <= 0 or nr == 0 or nr > RLE_M:
+            out.append(None)
+            continue
+        cigar = Cigar()
+        total = 0
+        ok = True
+        off = RLE_M - nr
+        for r in range(off, off + nr):
+            op = int(opsT[b, r])
+            ln = int(lensT[b, r])
+            if not 1 <= op <= 4 or ln <= 0:
+                ok = False
+                break
+            cigar.push(_CIGAR_OF_OP[op], ln)
+            total += ln
+        out.append((cigar, total) if ok else None)
+    return out

@@ -184,6 +184,9 @@ class ShardedIndex:
         ends = np.concatenate([starts[1:], [n]])
         self.shard_sizes = [int(x) for x in ends - starts]
         self.filter_cutoff = int(index.filter_cutoff)
+        # the syncmer length the NAM walk of chain/sharded_nams.py needs; a
+        # bare index of arrays has none
+        self._k = index.k() if hasattr(index, "k") else None
         # host routing table: shard s owns keys in
         # [start_hash[s], start_hash[s+1]) — runs never straddle cuts, so
         # ownership is unique. An empty shard shares its successor's
@@ -199,6 +202,9 @@ class ShardedIndex:
         self._route_nonempty = np.maximum.accumulate(
             np.where(nonempty, np.arange(n_shards), 0))
         self.build_s = time.perf_counter() - t0
+
+    def k(self) -> int:
+        return self._k
 
     def _lookup(self, s: int, keys: np.ndarray):
         """Search shard s for `keys` (uint64) on its device: (gpos,

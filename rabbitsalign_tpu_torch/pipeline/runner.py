@@ -19,6 +19,15 @@ gloo group, each maps the chunks with index % N == its node id on one
 mapping thread and writes its own output shard beside ``-o``, and node 0
 merges the shards after a barrier; ``--pod-index-peers`` splits the
 index over the hosts.
+
+Under ``RABBITSALIGN_TPU_NO_NATIVE`` the engine is off, and the run maps
+with the Python mapper instead (`_map_reads_python`, the JAX runner's
+branch for a host without its library): pipeline/batched.py's phase A and
+phase B on the calling thread, with the gapped extensions of each chunk
+on the device (ops/batch_extend.py:BatchAligner) or, under ``--no-tpu``,
+on the host. ``-t``, ``--device-seed`` and ``--shard-index`` do not apply
+there, and a pod run refuses it. A failed engine build without the
+variable raises; the run never switches to this path by itself.
 """
 
 from __future__ import annotations
@@ -37,6 +46,7 @@ from ..io.fasta import References
 from ..io.fastq import estimate_read_length
 from ..io.sam import sam_header
 from ..map.common import MappingParameters
+from ..native import NO_NATIVE_ENV, native_disabled
 from ..utils.logger import logger
 
 
@@ -177,6 +187,11 @@ def run_aligner(opt: CommandLineOptions) -> int:
         prewarm.result()
 
     if opt.num_nodes > 1:
+        if native_disabled():
+            # N pod hosts on the Python mapper would all map the whole input
+            # into the same output file
+            raise RuntimeError(f"--num-nodes > 1 requires the native engine, which "
+                               f"{NO_NATIVE_ENV} turns off")
         # each host writes its own shard beside -o; node 0 merges them
         with _profiler(opt):
             _map_pod(opt, references, index, index_parameters, map_param, aln_params)
@@ -247,6 +262,9 @@ def _map_reads(opt, out, references, index, index_parameters, map_param,
             sam_header(references, opt.read_group_id, opt.read_group_fields,
                        " ".join(sys.argv)).encode()
         )
+    if native_disabled():
+        _map_reads_python(opt, out, references, index, index_parameters, map_param, aln_params)
+        return
     if opt.n_threads > 1:
         pipeline = ThreadedNativePipeline(
             index, index_parameters, references, aln_params, map_param,
@@ -272,6 +290,82 @@ def _map_reads(opt, out, references, index, index_parameters, map_param,
         opt.chunk_size, out.write, progress=_make_progress(opt, t0),
     )
     _log_mapping(opt, pipeline, n_reads, time.perf_counter() - t0)
+
+
+def _map_reads_python(opt, out, references, index, index_parameters, map_param,
+                      aln_params) -> None:
+    """The Python mapper (rabbitsalign_tpu/pipeline/runner.py's branch for
+    a host without the native library): chunk by chunk, phase A
+    (`phase_a_chunk`), the chunk's gapped extensions dispatched to the
+    BatchAligner, then phase B of the previous chunk while the device
+    extends this one, each chunk with its own MinstdRand seeded with its
+    index (the reference's per-chunk engine, src/pc.cpp:583,706,801)."""
+    from ..align.aligner import Aligner
+    from ..io.fastq import InputBuffer
+    from ..io.sam import CIGAR_OPS_EQX, CIGAR_OPS_M, Sam
+    from ..map.common import InsertSizeDistribution
+    from ..map.randomness import MinstdRand
+    from ..map.stats import AlignmentStatistics
+    from ..ops.batch_extend import BatchAligner, HostBatchAligner
+    from .batched import phase_a_chunk, phase_b_chunk
+
+    idle = [flag for flag, on in (("-t", opt.n_threads > 1), ("--device-seed", opt.device_seed),
+                                  ("--shard-index", opt.shard_index)) if on]
+    if idle:
+        logger.info(f"{NO_NATIVE_ENV}: the Python mapper runs one thread with host seeding; "
+                    f"{', '.join(idle)} do not apply")
+    aligner = Aligner(aln_params)
+    statistics = AlignmentStatistics()
+    isize_est = InsertSizeDistribution()
+    cigar_ops = CIGAR_OPS_EQX if opt.cigar_eqx else CIGAR_OPS_M
+    if opt.use_tpu:
+        batch_aligner = BatchAligner(aln_params, opt.tpu_batch, device=opt.device)
+    else:
+        batch_aligner = HostBatchAligner(aln_params)
+    input_buffer = InputBuffer(opt.reads_filename1, opt.reads_filename2, opt.chunk_size,
+                               opt.is_interleaved)
+
+    def finish(prev) -> None:
+        work, token, engine, paf_out = prev
+        infos = batch_aligner.collect(token)
+        sam = Sam(references, cigar_ops, opt.read_group_id, opt.output_unmapped, opt.details)
+        phase_b_chunk(work, infos, sam, statistics, isize_est, aligner, map_param,
+                      index_parameters, references, engine)
+        out.write(sam.take().encode() if map_param.is_sam_out else "".join(paf_out).encode())
+
+    n_reads = 0
+    t0 = time.perf_counter()
+    pending = None  # (work, token, engine, paf_out) of the previous chunk
+    for chunk_index, records1, records2, records3 in input_buffer.chunks():
+        engine = MinstdRand(0)
+        engine.seed(chunk_index)
+        paf_out = []
+        work, n = phase_a_chunk(records1, records2, records3, paf_out, isize_est, aligner,
+                                batch_aligner, map_param, index_parameters, references, index,
+                                engine)
+        n_reads += n
+        token = batch_aligner.dispatch()
+        if pending is not None:
+            finish(pending)
+        pending = (work, token, engine, paf_out)
+    if pending is not None:
+        finish(pending)
+
+    statistics.n_reads = n_reads
+    statistics.tot_aligner_calls = aligner.calls_count()
+    elapsed = time.perf_counter() - t0
+    logger.info(f"Mapped {n_reads} reads in {elapsed:.2f} s "
+                f"({n_reads / max(elapsed, 1e-9):.0f} reads/s)")
+    logger.info(f"Total mapping sites tried: {statistics.tot_all_tried}")
+    logger.info(f"Total calls to ssw: {statistics.tot_aligner_calls}")
+    logger.info(f"Inconsistent NAM ends: {statistics.inconsistent_nams}")
+    logger.info(f"Tried NAM rescue: {statistics.nam_rescue}")
+    logger.info(f"Mates rescued by alignment: {statistics.tot_rescued}")
+    if isinstance(batch_aligner, BatchAligner):
+        logger.info(f"Device extend: {batch_aligner.n_device_jobs} jobs on {batch_aligner.device}, "
+                    f"{batch_aligner.n_host_jobs} refused by every bucket, "
+                    f"{batch_aligner.n_fallbacks} redone on the host")
+    logger.debug(f"Kernel launches: {json.dumps(_kernel_launches())}")
 
 
 def _log_sharded_index(si) -> None:
@@ -315,7 +409,8 @@ def _kernel_launches() -> dict:
     """This process's extend dispatches and kernel launches so far."""
     from ..ops import extend_device, int16_probe, seed_cuda, shard_cuda, sw_cuda, tb_cuda
 
-    return {"extend_dispatches": extend_device.calls, "sw_forward": sw_cuda.launches,
+    return {"extend_dispatches": extend_device.calls,
+            "extend_packed": extend_device.packed_calls, "sw_forward": sw_cuda.launches,
             "sw_forward_i16": sw_cuda.launches_i16, "sw_traceback": tb_cuda.launches,
             "int16_probe": int16_probe.launches, "seed_randstrobes": seed_cuda.launches_seed,
             "index_find": seed_cuda.launches_find,

@@ -9,7 +9,9 @@ card where there are two or more): the round-robin extend, the genome
 a card, the workers' streams a card and the shards a card against the CPU;
 and the device NAM front end's kernels (the exact syncmer scan, the merge,
 the run walk) and its entry points against their plain versions and the
-host find_nams.
+host find_nams; and the Python mapper's extend layout
+(`extend_batch_packed`) at its three buckets and BatchAligner("cuda")
+against the CPU and the host aligner, with no plain version on the card.
 Needs an NVIDIA GPU and nvcc;
 skips without one. This file imports neither jax nor rabbitsalign_tpu,
 so it also runs where JAX is absent:
@@ -1023,3 +1025,104 @@ def test_device_nam_front_end_matches_the_cpu(cuda, chain_world):
         f, nams = find_nams_device_chain(qrs, index, device=cuda)
         host = find_nams(qrs, index)
         assert f == host[0] and [nam_key(n) for n in nams] == [nam_key(n) for n in host[1]]
+
+
+# -- the Python mapper's extend layout and BatchAligner ----------------------
+
+def _packed_inputs(Q, T, B, seed, device):
+    from .torch_extend_cases import bucket_arrays
+
+    pairs = (mixed_pairs(Q, T, max(B, 7), seed=seed) + gap_pairs(Q, T, seed))[:B]
+    return torch.from_numpy(px.pack_input(*bucket_arrays(pairs, Q, T))).to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Q,T", [(256, 512), (256, 1536), (512, 2048), (200, 1000)])
+@pytest.mark.parametrize("B", [1, 33, 512])
+def test_extend_batch_packed_matches_plain(cuda, Q, T, B):
+    """extend_batch_packed on the card (forward kernel, then the traceback
+    kernel's packed epilogue) against the plain forward and packed walk
+    on the same card tensors, at the BatchAligner's three buckets and at
+    a T that is not a multiple of 16, on mixed pairs."""
+    from rabbitsalign_tpu_torch.ops.batch_extend import DEFAULT_BUCKETS
+
+    assert {(q, t) for q, t, _ in DEFAULT_BUCKETS} <= {(256, 512), (256, 1536), (512, 2048)}
+    sw = SwParams(2, 8, 12, 1)
+    buf = _packed_inputs(Q, T, B, seed=Q + B, device=cuda)
+    launches = (sw_cuda.launches, tb_cuda.launches, px.packed_calls)
+    got = px.extend_batch_packed(buf, Q, T, sw)
+    assert (sw_cuda.launches, tb_cuda.launches, px.packed_calls) == \
+        (launches[0] + 1, launches[1] + 1, launches[2] + 1)
+    lens = buf[Q + T:].to(torch.int32)
+    fwd = sw_cuda.sw_forward_plain(buf[:Q], buf[Q:Q + T], lens[0] | (lens[1] << 8),
+                                   lens[2] | (lens[3] << 8), sw, torch.int32)
+    want = tb_cuda.sw_traceback_packed_plain(fwd[3], *fwd[:3])
+    assert got.device.type == "cuda" and torch.equal(got, want)
+
+
+def _info(a):
+    return (list(a.cigar.ops), a.edit_distance, a.ref_start, a.ref_end, a.query_start,
+            a.query_end, a.sw_score)
+
+
+def _batch_results(aligner_, jobs):
+    for q, r in jobs:
+        aligner_.submit(q, r)
+    return [_info(a) for a in aligner_.flush()]
+
+
+@pytest.fixture(scope="module")
+def batch_world():
+    from .torch_extend_cases import batch_jobs
+
+    rng = np.random.RandomState(99)
+    genome = "".join(rng.choice(list("ACGT"), 300_000))
+    return batch_jobs(genome) + batch_jobs(genome, seed=4)
+
+
+@pytest.mark.cuda
+def test_batch_aligner_on_cuda_matches_cpu_and_host(cuda, batch_world):
+    """BatchAligner("cuda") at the default buckets against
+    BatchAligner("cpu") (the plain versions) and the HostBatchAligner on
+    simulated jobs, with two dispatches in flight before either is
+    collected."""
+    from rabbitsalign_tpu_torch.align.aligner import AlignmentParameters
+    from rabbitsalign_tpu_torch.ops.batch_extend import BatchAligner, HostBatchAligner
+
+    ap = AlignmentParameters()
+    card = BatchAligner(ap, 32, device=cuda)
+    half = len(batch_world) // 2
+    tokens = []
+    for part in (batch_world[:half], batch_world[half:]):
+        for q, r in part:
+            card.submit(q, r)
+        tokens.append(card.dispatch())
+    got = [_info(a) for t in tokens for a in card.collect(t)]
+    cpu = BatchAligner(ap, 32, device="cpu")
+    assert got == _batch_results(cpu, batch_world)
+    assert got == _batch_results(HostBatchAligner(ap), batch_world)
+    assert (card.n_device_jobs, card.n_fallbacks, card.n_host_jobs) == \
+        (cpu.n_device_jobs, cpu.n_fallbacks, cpu.n_host_jobs)
+    assert card.n_device_jobs > 30 and card.n_fallbacks >= 1
+
+
+@pytest.mark.cuda
+def test_batch_aligner_on_cuda_runs_no_plain_version(cuda, batch_world, monkeypatch):
+    """The same jobs with every plain version of the forward, the walk and
+    the pack made to raise: the card launches its kernels or fails."""
+    from rabbitsalign_tpu_torch.align.aligner import AlignmentParameters
+    from rabbitsalign_tpu_torch.ops.batch_extend import BatchAligner
+
+    ap = AlignmentParameters()
+    want = _batch_results(BatchAligner(ap, 32, device="cpu"), batch_world)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a plain version ran on the card")
+
+    for mod, name in ((sw_cuda, "sw_forward_plain"), (px, "_pack_rle_output"),
+                      (tb_cuda, "pack_rle_output"), (tb_cuda, "sw_traceback_plain"),
+                      (tb_cuda, "sw_traceback_packed_plain")):
+        monkeypatch.setattr(mod, name, refuse)
+    launches = (sw_cuda.launches, tb_cuda.launches)
+    assert _batch_results(BatchAligner(ap, 32, device=cuda), batch_world) == want
+    assert sw_cuda.launches > launches[0] and tb_cuda.launches > launches[1]

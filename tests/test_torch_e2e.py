@@ -2,6 +2,8 @@
 rabbitsalign_tpu's CLI (its device path runs the lax.scan twins on the
 CPU mesh): SAM/PAF output byte-identical apart from the @PG line."""
 
+from unittest import mock
+
 import numpy as np
 import pytest
 
@@ -205,3 +207,135 @@ def test_pipeline_map_all_matches_jax(data):
     assert port_pipe.map_all(iter(chunks), port_out.append) == 600
     assert extend_device.calls > calls + 2
     assert port_out == jax_out
+
+
+# -- RABBITSALIGN_TPU_NO_NATIVE: the Python mapper ---------------------------
+
+NO_NATIVE = "RABBITSALIGN_TPU_NO_NATIVE"
+
+
+@pytest.fixture(scope="module")
+def small(data, tmp_path_factory):
+    """A smaller input for the Python mapper, whose host SSW takes a tenth
+    of a second a gapped job: 90 SE reads (a sixth with an indel, a quarter
+    reverse-complemented, one unrelated) and 60 pairs on data's genome,
+    and the genome indexed by the port's -i for --use-index."""
+    d = tmp_path_factory.mktemp("torch_no_native")
+    genome = b"".join(line.strip() for line in open(data / "ref.fa", "rb")
+                      if not line.startswith(b">"))
+    rng = np.random.RandomState(15)
+
+    def read(st, i):
+        rd = bytearray(genome[st:st + READ_LEN])
+        for _ in range(rng.randint(3)):
+            rd[rng.randint(READ_LEN)] = b"ACGT"[rng.randint(4)]
+        if i % 6 == 1:
+            cut = rng.randint(40, 100)
+            rd = rd[:cut] + genome[st + cut + 3:st + READ_LEN + 3]
+        return bytes(rd)
+
+    se = [read(rng.randint(len(genome) - 2 * READ_LEN), i) for i in range(90)]
+    se = [revcomp(rd) if i % 4 == 2 else rd for i, rd in enumerate(se)]
+    se[5] = rng.choice(np.frombuffer(b"ACGT", np.uint8), READ_LEN).tobytes()
+    write_fastq(d / "se.fq", se, b"s")
+    r1, r2 = [], []
+    for i in range(60):
+        st = rng.randint(len(genome) - 1000)
+        insert = int(np.clip(rng.normal(300, 30), 200, 500))
+        r1.append(read(st, i))
+        r2.append(revcomp(read(st + insert - READ_LEN, i + 3)))
+    write_fastq(d / "r1.fq", r1, b"p")
+    write_fastq(d / "r2.fq", r2, b"p")
+    (d / "ref.fa").write_bytes((data / "ref.fa").read_bytes())
+    assert port_main([str(d / "ref.fa"), "-i", "-r", "150", "--no-sidecar"]) == 0
+    return d
+
+
+@pytest.fixture
+def no_native(monkeypatch):
+    """RABBITSALIGN_TPU_NO_NATIVE set for both packages: the port reads it
+    at every call; the JAX package caches its library and whether it
+    tried, so both are reset here and restored after the test. Torch runs
+    on one thread meanwhile: the plain extends of 64 pairs gain nothing
+    from more, which would only crowd the other test workers' cores."""
+    import torch
+
+    from rabbitsalign_tpu import native as jnative
+
+    monkeypatch.setenv(NO_NATIVE, "1")
+    monkeypatch.setattr(jnative, "_tried", False)
+    monkeypatch.setattr(jnative, "_lib", None)
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+NO_NATIVE_MODES = {
+    "se-sam": (["se.fq"], []),
+    "pe-sam": (["r1.fq", "r2.fq"], []),
+    "se-paf": (["se.fq"], ["-x"]),
+    "pe-paf": (["r1.fq", "r2.fq"], ["-x"]),
+    "se-use-index": (["se.fq"], ["--use-index"]),
+}
+
+
+@pytest.mark.parametrize("mode", list(NO_NATIVE_MODES))
+def test_no_native_cli_matches_jax(small, no_native, mode, capsys):
+    """Under RABBITSALIGN_TPU_NO_NATIVE both CLIs map with the Python
+    mapper: the port with --device cpu (the BatchAligner on the kernels'
+    plain versions) and with --no-tpu (the host SSW) against the JAX CLI
+    with --no-tpu (its BatchAligner needs a TPU), apart from @PG."""
+    from rabbitsalign_tpu import native as jnative
+    from rabbitsalign_tpu_torch import native
+
+    reads, extra = NO_NATIVE_MODES[mode]
+    argv = [str(small / "ref.fa"), *(str(small / r) for r in reads), "--chunk-size", "50",
+            "--tpu-batch", "64", *extra]
+    assert jax_main(argv + ["--no-tpu", "-o", str(small / f"{mode}.jax")]) == 0
+    assert jnative._tried and jnative._lib is None  # the JAX run had no library
+    want = _without_pg(small / f"{mode}.jax")
+    calls = extend_device.packed_calls
+    with mock.patch.object(native, "load_engine", side_effect=AssertionError("engine used")):
+        assert port_main(argv + ["--device", "cpu", "-o", str(small / f"{mode}.cpu")]) == 0
+        assert port_main(argv + ["--no-tpu", "-o", str(small / f"{mode}.host")]) == 0
+    assert _without_pg(small / f"{mode}.cpu") == want
+    assert _without_pg(small / f"{mode}.host") == want
+    n_lines = 90 if mode.startswith("se") else 120
+    assert len(want.splitlines()) >= n_lines - (5 if "paf" in mode else 0)
+    err = capsys.readouterr().err
+    assert "-t do not apply" in err
+    if "paf" not in mode:
+        assert extend_device.packed_calls > calls
+        assert "Device extend:" in err
+
+
+def test_no_native_refuses_a_pod(small, no_native, capsys):
+    argv = [str(small / "ref.fa"), str(small / "se.fq"), "--device", "cpu", "--num-nodes", "2",
+            "--coordinator", "127.0.0.1:1", "-o", str(small / "pod.sam")]
+    assert port_main(argv) == 1
+    assert f"--num-nodes > 1 requires the native engine, which {NO_NATIVE} turns off" in \
+        capsys.readouterr().err
+
+
+def test_failed_engine_build_raises_and_names_the_variable(small, monkeypatch, tmp_path,
+                                                          capsys):
+    """Without the variable an engine that does not build fails the run,
+    and the message says how to take the Python mapper; nothing falls
+    back by itself."""
+    from rabbitsalign_tpu_torch import native
+
+    monkeypatch.setenv("RABBITSALIGN_TPU_TORCH_CACHE", str(tmp_path / "cache"))
+    monkeypatch.setattr(native, "_lib", None)
+    monkeypatch.setattr(native, "GXX_FLAGS", (*native.GXX_FLAGS, "--no-such-flag"))
+    with pytest.raises(RuntimeError, match=f"set {NO_NATIVE}=1 to map with the Python mapper"):
+        native.load_engine()
+    argv = [str(small / "ref.fa"), str(small / "se.fq"), "--device", "cpu", "-t", "1",
+            "--tpu-batch", "64", "-o", str(small / "nobuild.sam")]
+    assert port_main(argv) == 1
+    err = capsys.readouterr().err
+    assert "native engine build failed" in err and NO_NATIVE in err
+    monkeypatch.setenv(NO_NATIVE, "1")
+    with pytest.raises(RuntimeError, match=f"turned off by {NO_NATIVE}"):
+        native.load_engine()
+    assert port_main(argv) == 0

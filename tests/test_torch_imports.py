@@ -20,7 +20,10 @@ def test_every_module_imports_with_jax_blocked():
     for m in ("ops.sw_cuda", "ops.int16_probe", "ops.cuda_build", "pipeline.native_pipeline",
               "ops.seed_device", "ops.seed_cuda", "seed.hash", "seed.syncmers",
               "seed.randstrobes", "tools.dumpstrobes", "parallel.sharding",
-              "parallel.multihost"):
+              "parallel.multihost", "align.cigar", "align.hamming", "align.ssw",
+              "align.aligner", "io.sam", "io.paf", "io.fastq", "map.randomness", "map.stats",
+              "map.common", "map.se", "map.pe", "ops.batch_extend", "pipeline.batched",
+              "chain.sharded_nams"):
         assert f"rabbitsalign_tpu_torch.{m}" in mods
     code = (
         "import sys, importlib\n"

@@ -2,6 +2,8 @@
 and chip_smoke.py: numpy only (no jax, no torch), so they also run where
 JAX is absent."""
 
+import random
+
 import numpy as np
 
 KINDS = ("planted", "indel", "n-run", "tandem", "junk", "empty", "overflow")
@@ -32,6 +34,21 @@ def q2_batch(pairs, Q, seed=0):
         parts += [t, rng.randint(0, 4, 16).astype(np.uint8)]
         off += t.shape[0] + 16
     return buf, np.concatenate(parts)
+
+
+def bucket_arrays(pairs, Q, T):
+    """(q_t (Q, B), t_t (T, B) u8 padded with code 4, qlen, tlen (B,) i32)
+    of (query, target) code pairs: a BatchAligner bucket's arrays, which
+    extend_device.pack_input packs."""
+    B = len(pairs)
+    q_t = np.full((Q, B), 4, np.uint8)
+    t_t = np.full((T, B), 4, np.uint8)
+    qlen = np.zeros(B, np.int32)
+    tlen = np.zeros(B, np.int32)
+    for b, (q, t) in enumerate(pairs):
+        q_t[: q.shape[0], b], t_t[: t.shape[0], b] = q, t
+        qlen[b], tlen[b] = q.shape[0], t.shape[0]
+    return q_t, t_t, qlen, tlen
 
 
 def mixed_pairs(Q, T, B, seed=0):
@@ -127,3 +144,48 @@ def write_fastq(path, reads, prefix):
     with open(path, "wb") as f:
         for i, rd in enumerate(reads):
             f.write(b"@%s%d\n%s\n+\n%s\n" % (prefix, i, rd, b"I" * len(rd)))
+
+
+def batch_jobs(genome: str, seed: int = 3):
+    """(query, ref) BatchAligner jobs as phase A makes them, on a genome
+    string: reads with SNPs and indels against their window +- 50 bp,
+    reverse complements, unrelated reads, targets for the second and
+    third bucket, one that fits no small bucket of
+    tests/test_torch_align.py (aligned on the host) and one past 2000
+    (refused, like Aligner.align); then a zero-score pair, a pair of more than RLE_M
+    cigar runs (redone on the host), a tiny and an empty query, and two
+    reads with three mismatches in four bases (at -O 1 -E 1 an I and a D
+    cost less than an X, and paths of equal score abound)."""
+    rng = random.Random(seed)
+    comp = bytes.maketrans(b"ACGT", b"TGCA")
+    jobs = []
+    for i in range(18):
+        st = rng.randrange(100, len(genome) - 2200)
+        qlen = 200 if i % 8 == 5 else rng.choice((100, 150))
+        read = bytearray(genome[st:st + qlen].encode())
+        for _ in range(rng.randrange(0, 4)):
+            read[rng.randrange(qlen)] = ord(rng.choice("ACGT"))
+        if i % 4 == 1:
+            cut = rng.randrange(20, qlen - 20)
+            read = read[:cut] + read[cut + rng.randrange(1, 6):]
+        if i % 6 == 2:
+            cut = rng.randrange(20, qlen - 20)
+            read = read[:cut] + bytes(rng.choice(b"ACGT") for _ in range(3)) + read[cut:]
+        pad = {0: 50, 1: 150, 2: 400, 3: 50}[i % 4]
+        pad = {11: 1000, 17: 2000}.get(i, pad)  # no bucket; past 2000
+        ref = genome[st - 50:st + qlen + pad].encode()
+        if i % 5 == 3:
+            read, ref = bytes(read).translate(comp)[::-1], ref.translate(comp)[::-1]
+        if i % 10 == 9:
+            read = bytearray(rng.choice(b"ACGT") for _ in range(qlen))
+        jobs.append((bytes(read), ref))
+    over = bytearray(genome[500:650].encode())
+    over[3::6] = bytes(ord("A") if c != ord("A") else ord("C") for c in over[3::6])
+    jobs += [(b"A" * 40, b"C" * 80), (bytes(over), genome[450:700].encode()),
+             (b"ACGT" * 3, b"ACGT" * 3), (b"", genome[0:40].encode())]
+    for st in (1000, 2994):
+        read = bytearray(genome[st:st + 120].encode())
+        for p in (st % 50 + 30, st % 50 + 32, st % 50 + 33):
+            read[p] = b"CGTA"[b"ACGT".index(read[p])]
+        jobs.append((bytes(read), genome[st - 50:st + 170].encode()))
+    return jobs
