@@ -198,9 +198,29 @@ Py. The Python mapper (pipeline/batched.py, the JAX runner's branch for a
    the host `find_nams` on 1 000 reads of the SE chunk, and
    `find_nams_rescue_sharded` the host rescue on 200, with find_runs
    launched; ms a read on both.
+API. The public entry points no CLI path calls, with the launch counts set
+   to 0 before it and read after: an engine at -t 1 for the first SE chunk
+   (10 000 reads) and one for the first 5 000 pairs, the default buckets
+   at the CLI's batch size (1024). Every planned batch is filled three ways
+   (`fill_batch`, `fill_batch_q`, `fill_batch_q2`), uploaded, and extended
+   by `extend_batch_packed`, `extend_batch_packed_resident`,
+   `extend_batch_packed_resident_q2` and `extend_batch_packed_grouped` (at
+   the plan's sub): the four outputs must be byte-equal; on one batch a
+   bucket `extend_batch_device` (the forward and the unpacked traceback
+   kernel, launched once) must give runs and meta that pack to the same
+   rows. `job_shapes` must sum to the chunk's jobs (buckets plus
+   unbucketed, and each histogram), and is printed; `isize_per_chunk` must
+   be False, and True for an engine with `pe_ref_async` after the PE chunk.
+   `sharded_find` on [cuda:0] of the chunk's host-seeded strobes, 4096
+   random keys and the smallest hash must equal the host index's `find`;
+   `data_parallel_extend` on [cuda:0] and on [cuda:0, cuda:0] must equal one
+   `sw_forward` launch and the cells' sum. For each layout: its upload
+   bytes a pair, its host-paced ms a batch for fill, upload, extend and
+   copy back, and its extend's time on the card at the first (152, 256)
+   batch.
 
 The line before last is a JSON object with each kernel's launches in its
-path (phases 4, Multi, Pod and Py; the ILP phase for sw_forward_split; phase
+path (phases 4, Multi, Pod, Py and API; the ILP phase for sw_forward_split; phase
 Chain for its own kernels, and the seeding and lookup kernels it runs), its
 error against its plain version,
 times, bound and library call; the last line is {"ok": true, "device":
@@ -2209,6 +2229,196 @@ def python_mapper(torch, card, ref, reads):
     return totals
 
 
+
+API_SE_READS, API_PE_PAIRS = 10_000, 5_000  # phase API: the first SE chunk and 5 000 pairs
+API_MISSES = 4096  # random keys added to sharded_find's strobes
+
+
+def api(torch, card, ref, reads):
+    """Phase API: the public entry points no CLI path calls, at full width
+    on the card: an engine at -t 1 for the first SE chunk and one for the
+    first 5 000 pairs, the default buckets at the CLI's batch size. Every
+    planned batch through the three upload layouts (`fill_batch`,
+    `fill_batch_q`, `fill_batch_q2`) and four extends, byte-equal; on one
+    batch a bucket `extend_batch_device`'s runs and meta, packed, equal to
+    them; `job_shapes` and `isize_per_chunk`; `sharded_find` on the card
+    against the host index; `data_parallel_extend` on [cuda:0] and
+    [cuda:0, cuda:0] against one forward launch. Prints each layout's
+    upload bytes a pair, its host-paced ms a batch for fill, upload, extend
+    and copy back, and its extend's time on the card. Returns the
+    launches of its kernels."""
+    phase("API: the engine's fills and telemetry, the resident, grouped and unpacked extends, "
+          "sharded_find and data_parallel_extend on the card")
+    from rabbitsalign_tpu_torch.align.aligner import AlignmentParameters
+    from rabbitsalign_tpu_torch.io.fastq import InputBuffer
+    from rabbitsalign_tpu_torch.map.common import MappingParameters
+    from rabbitsalign_tpu_torch.native.engine import NativeEngine, engine_buckets
+    from rabbitsalign_tpu_torch.ops import extend_device as px
+    from rabbitsalign_tpu_torch.ops import shard_cuda, sw_cuda, tb_cuda
+    from rabbitsalign_tpu_torch.parallel.sharding import data_parallel_extend, sharded_find
+    import numpy as np
+
+    t_phase = time.perf_counter()
+    dev = torch.device(DEVICE)
+    index = load_index(ref)
+    ap = AlignmentParameters()
+    sw = sw_cuda.SwParams(ap.match, ap.mismatch, ap.gap_open, ap.gap_extend)
+    batch = 1024  # the CLI's --tpu-batch
+
+    def engine(**kw):
+        return NativeEngine(index, index.parameters, index.references, ap,
+                            MappingParameters(r=150, rescue_cutoff=2 * index.filter_cutoff, **kw))
+
+    chunks = {"SE": next(InputBuffer(reads["SE"][1], "", API_SE_READS).chunks()),
+              "PE": next(InputBuffer(reads["PE"][1], reads["PE"][2], API_PE_PAIRS).chunks())}
+    layouts = ("fill_batch", "fill_batch_q", "fill_batch_q2")
+    # layout -> [fill, upload, extend, copy back] seconds; its upload bytes;
+    # the batches' columns (pair slots)
+    host = {k: [0.0, 0.0, 0.0, 0.0] for k in layouts}
+    up_bytes = dict.fromkeys(layouts, 0)
+    n_pairs = n_batches = 0
+    timed = None  # the first batch of the tight bucket, for the card times
+    ref_dev = None
+    tight = engine_buckets(150)[0]
+    extend = {  # layout -> its extend (on_card, Q, T, sub)
+        "fill_batch": lambda buf, Q, T, sub: px.extend_batch_packed(buf, Q, T, sw),
+        "fill_batch_q": lambda buf, Q, T, sub: px.extend_batch_packed_resident(
+            buf, ref_dev, Q, T, sw, sub),
+        "fill_batch_q2": lambda buf, Q, T, sub: px.extend_batch_packed_resident_q2(
+            buf, ref_dev, Q, T, sw, sub)}
+    counts = {"sw_forward": 0, "sw_traceback": 0, "find_runs": 0}
+    with sw16(None):
+        torch.cuda.synchronize()
+        sw_cuda.launches = sw_cuda.launches_i16 = tb_cuda.launches = 0
+        shard_cuda.launches_find_runs = 0
+        for name, (_, r1, r2, r3) in chunks.items():
+            eng = engine()
+            if ref_dev is None:
+                ref_dev = px.resident_ref_codes(eng.ref_codes(), dev)
+            ch = eng.chunk_a(r1, r2, r3, 0)
+            n_jobs = ch.n_jobs
+            plans = eng.plan_batches(ch, batch)
+            unpacked = set()
+            for idxs, Q, T, B, sub in plans:
+                outs, on_card = {}, {}
+                for layout in layouts:
+                    t0 = time.perf_counter()
+                    if layout == "fill_batch":
+                        buf = eng.fill_batch(ch, idxs, B, Q, T)
+                    else:
+                        buf = getattr(eng, layout)(ch, idxs, B, Q)
+                    t1 = time.perf_counter()
+                    on_card[layout] = torch.from_numpy(buf).pin_memory().to(dev,
+                                                                            non_blocking=True)
+                    torch.cuda.synchronize()
+                    t2 = time.perf_counter()
+                    out = extend[layout](on_card[layout], Q, T, sub)
+                    torch.cuda.synchronize()
+                    t3 = time.perf_counter()
+                    outs[layout] = out.cpu()
+                    t4 = time.perf_counter()
+                    for i, dt in enumerate((t1 - t0, t2 - t1, t3 - t2, t4 - t3)):
+                        host[layout][i] += dt
+                    up_bytes[layout] += buf.nbytes
+                full = on_card["fill_batch"]
+                outs["grouped"] = px.extend_batch_packed_grouped(full, Q, T, sw, sub).cpu()
+                if timed is None and Q == tight[0]:
+                    timed = (Q, T, B, sub, on_card)
+                want = outs["fill_batch"]
+                for k, got in outs.items():
+                    check(torch.equal(got, want), f"API {name}: at ({Q}, {T}) B={B} the "
+                          f"{k} extend differs from extend_batch_packed(fill_batch)")
+                if (Q, T) not in unpacked:  # the unpacked walk, once a bucket
+                    unpacked.add((Q, T))
+                    lens = full[Q + T:Q + T + 4].to(torch.int32)
+                    before = tb_cuda.launches
+                    res = px.extend_batch_device(full[:Q], full[Q:Q + T], lens[0] | (lens[1] << 8),
+                                                 lens[2] | (lens[3] << 8), sw)
+                    check(tb_cuda.launches == before + 1, "API: extend_batch_device did not "
+                          "launch the unpacked traceback kernel once")
+                    packed = tb_cuda.pack_rle_output(res[3], res[4], *res[:3], res[5]).cpu()
+                    check(torch.equal(packed, want), f"API {name}: at ({Q}, {T}) B={B} "
+                          f"extend_batch_device's runs and meta, packed, differ from the packed "
+                          f"extend")
+                eng.set_device_results(ch, outs["fill_batch_q2"].numpy(), Q + T - 1, idxs)
+                n_pairs += B
+                n_batches += 1
+            eng.chunk_b_bytes(ch)
+            shapes = eng.job_shapes()
+            in_buckets = sum(n for _, _, n in shapes["buckets"])
+            check(in_buckets + shapes["unbucketed"] == n_jobs and
+                  int(shapes["qlen_hist_32"].sum()) == n_jobs and
+                  int(shapes["tlen_hist_32"].sum()) == n_jobs,
+                  f"API {name}: job_shapes does not sum to the chunk's {n_jobs} jobs: {shapes}")
+            check(not eng.isize_per_chunk(), f"API {name}: isize_per_chunk without pe_ref_async")
+            qh, th = ({32 * i: int(v) for i, v in enumerate(shapes[k]) if v}
+                      for k in ("qlen_hist_32", "tlen_hist_32"))
+            say(f"API {name}: {n_jobs} jobs, {len(plans)} batches, every batch byte-equal in "
+                f"extend_batch_packed(fill_batch), extend_batch_packed_resident(fill_batch_q), "
+                f"extend_batch_packed_resident_q2(fill_batch_q2) and "
+                f"extend_batch_packed_grouped(fill_batch, sub), and extend_batch_device packed "
+                f"equal on {len(unpacked)} bucket(s); job_shapes buckets {shapes['buckets']}, "
+                f"unbucketed {shapes['unbucketed']}, small_to_host {shapes['small_to_host']}, "
+                f"qlen_hist_32 {qh}, tlen_hist_32 {th} (bins by lower bound)")
+            eng.close()
+        # isize_per_chunk under pe_ref_async, after the PE chunk on the host
+        eng = engine(pe_ref_async=True)
+        _, r1, r2, r3 = chunks["PE"]
+        eng.chunk_b_bytes(eng.chunk_a(r1, r2, r3, 0))
+        check(eng.isize_per_chunk(), "API: isize_per_chunk is false with pe_ref_async")
+        say(f"API: isize_per_chunk True with pe_ref_async (isize {eng.isize()}), False without")
+        eng.close()
+
+        # sharded_find on the card against the host index
+        keys, _ = chunk_strobes(index, reads["SE"][1])
+        rng = np.random.default_rng(16)
+        keys = np.concatenate([keys, rng.integers(0, 2**63, API_MISSES, dtype=np.uint64),
+                               np.asarray(index.hashes[:1])])
+        t0 = time.perf_counter()
+        got = sharded_find([dev], index, keys)
+        t1 = time.perf_counter()
+        want = index.find(keys)
+        check(np.array_equal(got, want), "API: sharded_find on the card differs from the host "
+              "index's find")
+        say(f"API: sharded_find([{dev}]) == index.find on {keys.shape[0]} keys (the chunk's "
+            f"strobes, {API_MISSES} random keys and the smallest hash; {int((got < 0).sum())} "
+            f"absent), {(t1 - t0) * 1e3:.1f} ms with the shard's upload")
+
+        # data_parallel_extend on one and two entries against one launch
+        check(timed is not None, "API: the SE chunk planned no batch of the tight bucket")
+        Q, T, B, sub, on_card = timed
+        full = on_card["fill_batch"]
+        lens = full[Q + T:Q + T + 4].to(torch.int32)
+        qlen, tlen = lens[0] | (lens[1] << 8), lens[2] | (lens[3] << 8)
+        one = sw_cuda.sw_forward(full[:Q], full[Q:Q + T], qlen, tlen, sw)[:3]
+        cells = int((qlen.long() * tlen.long()).sum())
+        for devices in ([dev], [dev, dev]):
+            res = data_parallel_extend(devices, sw, full[:Q].T, full[Q:Q + T].T, qlen, tlen)
+            check(all(torch.equal(a, b) for a, b in zip(res[:3], one)) and int(res[3]) == cells,
+                  f"API: data_parallel_extend on {devices} differs from one sw_forward launch")
+        say(f"API: data_parallel_extend on [{dev}] and [{dev}, {dev}] at ({Q}, {T}) B={B} == "
+            f"one sw_forward launch (score, t_end, q_end), total_cells {cells}")
+        torch.cuda.synchronize()
+        counts = {"sw_forward": sw_cuda.launches, "sw_traceback": tb_cuda.launches,
+                  "find_runs": shard_cuda.launches_find_runs}
+        check(sw_cuda.launches_i16 == 0 and all(counts.values()),
+              f"API: a kernel of the phase never launched: {counts}")
+
+        # per layout: upload bytes a pair, host-paced ms a batch, and the
+        # extend's time on the card on the first tight batch
+        card_ms = {layout: device_ms(torch, lambda: extend[layout](on_card[layout], Q, T, sub), 20)
+                   for layout in layouts}
+    for layout in layouts:
+        f, u, e, c = (x * 1e3 / n_batches for x in host[layout])
+        say(f"API layout {layout}: {up_bytes[layout] / n_pairs:.2f} upload bytes a pair (a "
+            f"column of the batch); "
+            f"host-paced a batch (mean of {n_batches}, {n_pairs / n_batches:.0f} columns): fill "
+            f"{f:.4f} ms, upload {u:.4f} ms, extend {e:.4f} ms, copy back {c:.4f} ms; extend on "
+            f"the card at ({Q}, {T}) B={B}: {card_ms[layout]:.4f} ms [{card}]")
+    say(f"phase API: launches {json.dumps(counts)}; {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
 def main() -> int:
     torch, card = environment()
     build()
@@ -2235,6 +2445,8 @@ def main() -> int:
         if k in launches:
             launches[k] += v
     for k, v in python_mapper(torch, card, ref, reads).items():
+        launches[k] += v
+    for k, v in api(torch, card, ref, reads).items():
         launches[k] += v
     launches["sw_forward_split"] = split_launches
     # no single PyTorch call computes an affine-gap Smith-Waterman pass,

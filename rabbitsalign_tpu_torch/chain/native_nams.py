@@ -17,8 +17,19 @@ import numpy as np
 
 from ..index.params import IndexParameters
 from ..index.strobemer_index import StrobemerIndex
-from ..native import load_engine
+from ..native import load_engine, native_disabled
 from .nams import Nam
+
+
+def native_available() -> bool:
+    """Whether NAMs can be found in the engine: false only under
+    RABBITSALIGN_TPU_NO_NATIVE, where the Python find_nams takes over.
+    Otherwise the engine is loaded (built if need be), and a build that
+    fails raises; there is no silent fallback."""
+    if native_disabled():
+        return False
+    load_engine()
+    return True
 
 
 def _seednam_lib() -> ctypes.CDLL:

@@ -22,7 +22,7 @@ from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from . import load_engine
+from . import load_engine, native_disabled
 
 # (Q, T, kernel B, dispatch groups) device buckets, the same geometry as
 # rabbitsalign_tpu/native/engine.py so both packages plan identical
@@ -92,6 +92,14 @@ def _lib():
         lib.chunk_n_jobs.restype = c.c_int64
         lib.chunk_n_jobs.argtypes = [c.c_void_p]
         lib.chunk_job_lens.argtypes = [c.c_void_p, c.c_void_p, c.c_void_p]
+        lib.chunk_fill_batch.argtypes = [
+            c.c_void_p, c.c_void_p, c.c_int64, c.c_int64, c.c_int64, c.c_int64,
+            c.c_void_p,
+        ]
+        lib.chunk_fill_batch_q.argtypes = [
+            c.c_void_p, c.c_void_p, c.c_void_p, c.c_int64, c.c_int64,
+            c.c_int64, c.c_void_p,
+        ]
         lib.chunk_fill_batch_q2.argtypes = [
             c.c_void_p, c.c_void_p, c.c_void_p, c.c_int64, c.c_int64,
             c.c_int64, c.c_void_p,
@@ -152,6 +160,16 @@ def _lib():
     return lib
 
 
+def engine_available() -> bool:
+    """Whether the engine can be used: false only under
+    RABBITSALIGN_TPU_NO_NATIVE. Otherwise the engine is loaded (built if
+    need be), and a build that fails raises, as `load_engine` does."""
+    if native_disabled():
+        return False
+    _lib()
+    return True
+
+
 def _offsets(items: Sequence[bytes]) -> Tuple[np.ndarray, np.ndarray]:
     off = np.zeros(len(items) + 1, dtype=np.int64)
     for i, b in enumerate(items):
@@ -205,6 +223,15 @@ class NativeEngine:
         # high-volume bucket; see engine_buckets)
         self.buckets = (buckets if buckets is not None
                         else engine_buckets(getattr(map_param, "r", 150)))
+        # job-shape telemetry (`job_shapes`): per-bucket job counts (the
+        # last slot counts jobs no bucket fits, which go to the host), 32-bp
+        # (qlen, tlen) histograms of every planned job, and the sub-
+        # MIN_DEVICE_JOBS leftovers resolved on the host. Each worker owns
+        # its engine, so these need no lock.
+        self._shape_bucket = np.zeros(len(self.buckets) + 1, np.int64)
+        self._shape_q = np.zeros(80, np.int64)
+        self._shape_t = np.zeros(80, np.int64)
+        self._shape_small = 0
         # keep every borrowed array alive for the engine lifetime
         self._keep = []
         ref_blob, ref_off = _offsets(references.sequences)
@@ -392,6 +419,11 @@ class NativeEngine:
         for bi, (qcap, tcap, _, _) in enumerate(self.buckets):
             mask = (assigned < 0) & (q <= qcap) & (t <= tcap) & (t <= 2000)
             assigned[mask] = bi
+        self._shape_bucket += np.bincount(
+            np.where(assigned < 0, len(self.buckets), assigned),
+            minlength=len(self.buckets) + 1)
+        self._shape_q += np.bincount(np.minimum(q // 32, 79), minlength=80)
+        self._shape_t += np.bincount(np.minimum(t // 32, 79), minlength=80)
         plans = []
         for bi, (qcap, tcap, bcap, groups) in enumerate(self.buckets):
             idxs = np.flatnonzero(assigned == bi).astype(np.int64)
@@ -400,6 +432,7 @@ class NativeEngine:
             for start in range(0, idxs.shape[0], bsz):
                 part = idxs[start : start + bsz]
                 if part.shape[0] < self.MIN_DEVICE_JOBS:
+                    self._shape_small += int(part.shape[0])
                     continue  # host resolves these in phase B
                 # power-of-two group counts (1, 2, 4, ...): each distinct
                 # batch width is a separate compiled program, so widths
@@ -413,6 +446,28 @@ class NativeEngine:
                 n_groups = min(n_groups, groups)
                 plans.append((part, qcap, tcap, sub * n_groups, sub))
         return plans
+
+    def fill_batch(self, chunk: NativeChunk, idxs: np.ndarray, B: int, Q: int, T: int) -> np.ndarray:
+        """The self-contained fill, (Q + T + 4, B) u8: query codes, target
+        codes (both padded with code 4), then qlen and tlen as u16 (lo, hi)
+        rows; the layout of ops/extend_device.py `pack_input`."""
+        buf = np.empty((Q + T + 4, B), dtype=np.uint8)
+        self.lib.chunk_fill_batch(
+            chunk.handle, idxs.ctypes.data, idxs.shape[0], B, Q, T,
+            buf.ctypes.data,
+        )
+        return buf
+
+    def fill_batch_q(self, chunk: NativeChunk, idxs: np.ndarray, B: int, Q: int) -> np.ndarray:
+        """Query-only fill for the device-resident genome (targets gathered
+        on the device): (Q + 8, B) u8 = query codes padded with code 4,
+        qlen u16, tlen u16, the target's u32 offset into the genome."""
+        buf = np.empty((Q + 8, B), dtype=np.uint8)
+        self.lib.chunk_fill_batch_q(
+            self.handle, chunk.handle, idxs.ctypes.data, idxs.shape[0], B, Q,
+            buf.ctypes.data,
+        )
+        return buf
 
     def fill_batch_q2(self, chunk: NativeChunk, idxs: np.ndarray, B: int, Q: int) -> np.ndarray:
         """2-bit-packed query fill (4 codes/byte + N-mask bitmap + u16
@@ -454,6 +509,9 @@ class NativeEngine:
         chunk.free()
         return out.tobytes()
 
+    def chunk_b(self, chunk: NativeChunk) -> str:
+        return self.chunk_b_bytes(chunk).decode()
+
     # --- state ----------------------------------------------------------
 
     def counters(self) -> dict:
@@ -469,12 +527,35 @@ class NativeEngine:
             "feed_miss": int(out[6]),
         }
 
+    def job_shapes(self) -> dict:
+        """The job shapes `plan_batches` has seen: per bucket (Q, T, jobs),
+        the jobs no bucket fits (`unbucketed`), the sub-MIN_DEVICE_JOBS
+        leftovers resolved on the host (`small_to_host`), and 32-bp
+        qlen/tlen histograms of every planned job (80 bins, the last
+        open-ended)."""
+        return {
+            "buckets": [(int(qc), int(tc), int(n)) for (qc, tc, _, _), n
+                        in zip(self.buckets, self._shape_bucket)],
+            "unbucketed": int(self._shape_bucket[-1]),
+            "small_to_host": int(self._shape_small),
+            "qlen_hist_32": self._shape_q.copy(),
+            "tlen_hist_32": self._shape_t.copy(),
+        }
+
     def isize(self) -> Tuple[float, float, float]:
         """(mu, sigma, sample_size) of the active insert-size estimator: the
-        cumulative one, or under ``--pe-ref-async`` the most recent chunk's."""
+        cumulative one, or under ``--pe-ref-async`` the most recent chunk's
+        (`isize_per_chunk` tells which)."""
         out = np.zeros(4, dtype=np.float64)
         self.lib.engine_isize(self.handle, out.ctypes.data)
         return float(out[0]), float(out[1]), float(out[2])
+
+    def isize_per_chunk(self) -> bool:
+        """True when `isize` reports the per-chunk (``--pe-ref-async``)
+        estimator rather than the cumulative one."""
+        out = np.zeros(4, dtype=np.float64)
+        self.lib.engine_isize(self.handle, out.ctypes.data)
+        return bool(out[3])
 
     def timers(self) -> dict:
         """Phase wall-clock aggregates (the reference's per-thread timing

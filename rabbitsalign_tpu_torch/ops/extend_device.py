@@ -21,7 +21,12 @@ version). The transfer formats are the engine's and are unchanged:
 `extend_batch_packed` is the self-contained layout of the Python
 mapper's BatchAligner (ops/batch_extend.py): the input (Q + T + 4, B) u8
 holds the query codes, the target codes, then qlen and tlen as u16 (lo,
-hi) rows (`pack_input`); the output is the same packed rows.
+hi) rows (`pack_input`, engine `fill_batch`); the output is the same
+packed rows. `extend_batch_packed_grouped` is the same with the JAX
+signature's group width. `extend_batch_packed_resident` takes the
+query-only layout (Q + 8, B) of engine `fill_batch_q`: query codes, qlen
+and tlen u16, the target's u32 offset. `extend_batch_device` returns the
+forward's outputs and the traceback's unpacked runs and meta.
 
 The reference genome stays resident on the device as one flat uint8
 tensor of nt4 codes padded with REF_PAGE_OVERLAP codes 4 ('N'):
@@ -41,18 +46,24 @@ import torch
 
 from ..align.cigar import CIGAR_DEL, CIGAR_EQ, CIGAR_INS, CIGAR_X, Cigar
 from .sw_cuda import SwParams, sw_forward
-from .tb_cuda import OP_D, OP_EQ, OP_I, OP_X, OUT_ROWS, RLE_M, sw_traceback_packed
+from .tb_cuda import (OP_D, OP_EQ, OP_I, OP_NONE, OP_X, OUT_ROWS, RLE_M,  # noqa: F401
+                      sw_traceback, sw_traceback_packed)
 from .tb_cuda import pack_rle_output as _pack_rle_output  # noqa: F401  (the name callers use)
 
 REF_PAGE_BITS = 30  # the JAX package's 1 GiB reference pages
 REF_PAGE_SIZE = 1 << REF_PAGE_BITS
 REF_PAGE_OVERLAP = 4096  # >= max target window (T caps at 2048)
 
-# calls of extend_batch_packed_resident_q2 (one per dispatched batch)
-# and of extend_batch_packed (one per BatchAligner batch); mapping
-# workers call them from several threads, so updates hold _count_lock
+# calls of extend_batch_packed_resident_q2 (one per dispatched batch),
+# of extend_batch_packed (one per BatchAligner batch), and of
+# extend_batch_packed_resident, extend_batch_packed_grouped and
+# extend_batch_device; mapping workers call them from several threads,
+# so updates hold _count_lock
 calls = 0
 packed_calls = 0
+resident_calls = 0
+grouped_calls = 0
+device_calls = 0
 _count_lock = threading.Lock()
 
 
@@ -97,12 +108,21 @@ def unpack_q2(buf: torch.Tensor, ref_codes: torch.Tensor, Q: int, T: int):
     qlen = tail[0] | (tail[1] << 8)
     tlen = tail[2] | (tail[3] << 8)
     q_t = torch.where((nbit != 0) | (r[:, None] >= qlen[None, :]), 4, code)
-    tstart = tail[4] | (tail[5] << 8) | (tail[6] << 16) | (tail[7] << 24)
-    rows = torch.arange(T, device=dev)[:, None]
+    t_t = gather_targets(ref_codes, tail[4:], tlen, T)
+    return q_t.to(torch.uint8), t_t, qlen.to(torch.int32), tlen.to(torch.int32)
+
+
+def gather_targets(ref_codes: torch.Tensor, tstart_rows: torch.Tensor, tlen: torch.Tensor,
+                   T: int) -> torch.Tensor:
+    """The (T, B) u8 target windows of both resident layouts: tstart_rows
+    (4, B) holds each window's u32 offset into the flat genome as bytes,
+    low first; row r of window b reads ref_codes[min(tstart + r, len - 1)]
+    while r < tlen, and code 4 past it."""
+    t = tstart_rows.to(torch.int64)
+    tstart = t[0] | (t[1] << 8) | (t[2] << 16) | (t[3] << 24)
+    rows = torch.arange(T, device=tstart.device)[:, None]
     ridx = torch.clamp(tstart[None, :] + rows, max=ref_codes.shape[0] - 1)
-    t_t = torch.where(rows < tlen[None, :], ref_codes[ridx], 4)
-    return (q_t.to(torch.uint8), t_t.to(torch.uint8), qlen.to(torch.int32),
-            tlen.to(torch.int32))
+    return torch.where(rows < tlen[None, :], ref_codes[ridx], 4).to(torch.uint8)
 
 
 def unpack_output(out: np.ndarray):
@@ -138,6 +158,26 @@ def extend_batch_packed_resident_q2(buf: torch.Tensor, ref_codes: torch.Tensor,
     return sw_traceback_packed(dirs, score, t_end, q_end)
 
 
+def extend_batch_packed_resident(buf: torch.Tensor, ref_codes: torch.Tensor, Q: int, T: int,
+                                 params: SwParams, sub: int) -> torch.Tensor:
+    """The query-only upload (engine `fill_batch_q`, (Q + 8, B) u8: query
+    codes, qlen u16, tlen u16, the target's u32 offset) on the device of
+    `ref_codes` -> packed (OUT_ROWS, B) u8 output. The query rows go to
+    the forward as they are (the fill pads them with code 4); the targets
+    are gathered from the resident genome (`gather_targets`). `sub` is the
+    JAX signature's group width; the kernels take the whole B at once."""
+    global resident_calls
+    _check_buffer("extend_batch_packed_resident", buf, Q + 8)
+    with _count_lock:
+        resident_calls += 1
+    lens = buf[Q : Q + 4].to(torch.int32)
+    qlen = lens[0] | (lens[1] << 8)
+    tlen = lens[2] | (lens[3] << 8)
+    t_t = gather_targets(ref_codes, buf[Q + 4 : Q + 8], tlen, T)
+    score, t_end, q_end, dirs = sw_forward(buf[:Q], t_t, qlen, tlen, params)
+    return sw_traceback_packed(dirs, score, t_end, q_end)
+
+
 def pack_input(q_t: np.ndarray, t_t: np.ndarray, qlen: np.ndarray, tlen: np.ndarray) -> np.ndarray:
     """(Q, B) query codes, (T, B) target codes and (B,) lengths -> the
     (Q + T + 4, B) u8 input of `extend_batch_packed`."""
@@ -160,16 +200,54 @@ def extend_batch_packed(buf: torch.Tensor, Q: int, T: int, params: SwParams) -> 
     takes both plain versions; a CUDA tensor launches both kernels or
     raises."""
     global packed_calls
-    if buf.dim() != 2 or buf.dtype != torch.uint8 or buf.shape[0] != Q + T + 4:
-        raise ValueError(f"extend_batch_packed: a ({Q + T + 4}, B) uint8 buffer expected, "
-                         f"got {tuple(buf.shape)} {buf.dtype}")
+    _check_buffer("extend_batch_packed", buf, Q + T + 4)
     with _count_lock:
         packed_calls += 1
+    return _extend_packed(buf, Q, T, params)
+
+
+def extend_batch_packed_grouped(buf: torch.Tensor, Q: int, T: int, params: SwParams,
+                                sub: int) -> torch.Tensor:
+    """`extend_batch_packed` of the JAX signature that runs the kernels a
+    `sub`-column group at a time. Pairs are independent, so one launch of
+    each kernel over the whole B gives the same bytes, whether or not B
+    is a multiple of `sub`."""
+    global grouped_calls
+    _check_buffer("extend_batch_packed_grouped", buf, Q + T + 4)
+    if sub < 1:
+        raise ValueError(f"extend_batch_packed_grouped: sub must be positive, got {sub}")
+    with _count_lock:
+        grouped_calls += 1
+    return _extend_packed(buf, Q, T, params)
+
+
+def _check_buffer(name: str, buf: torch.Tensor, rows: int) -> None:
+    if buf.dim() != 2 or buf.dtype != torch.uint8 or buf.shape[0] != rows:
+        raise ValueError(f"{name}: a ({rows}, B) uint8 buffer expected, "
+                         f"got {tuple(buf.shape)} {buf.dtype}")
+
+
+def _extend_packed(buf: torch.Tensor, Q: int, T: int, params: SwParams) -> torch.Tensor:
     lens = buf[Q + T : Q + T + 4].to(torch.int32)
     qlen = lens[0] | (lens[1] << 8)
     tlen = lens[2] | (lens[3] << 8)
     score, t_end, q_end, dirs = sw_forward(buf[:Q], buf[Q : Q + T], qlen, tlen, params)
     return sw_traceback_packed(dirs, score, t_end, q_end)
+
+
+def extend_batch_device(q_t: torch.Tensor, t_t: torch.Tensor, qlen: torch.Tensor,
+                        tlen: torch.Tensor, params: SwParams):
+    """q_t (Q, B) u8, t_t (T, B) u8, qlen/tlen (B,) i32 -> (score, t_end,
+    q_end (B,) i32, runs_op, runs_len (RLE_M, B) i32, meta (8, B) i32):
+    the forward, then the traceback's runs-and-meta epilogue
+    (`tb_cuda.sw_traceback`). A CPU tensor takes both plain versions; a
+    CUDA tensor launches both kernels or raises."""
+    global device_calls
+    with _count_lock:
+        device_calls += 1
+    score, t_end, q_end, dirs = sw_forward(q_t, t_t, qlen, tlen, params)
+    runs_op, runs_len, meta = sw_traceback(dirs, score, t_end, q_end)
+    return score, t_end, q_end, runs_op, runs_len, meta
 
 
 _CIGAR_OF_OP = {OP_EQ: CIGAR_EQ, OP_X: CIGAR_X, OP_I: CIGAR_INS, OP_D: CIGAR_DEL}

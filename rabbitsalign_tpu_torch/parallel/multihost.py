@@ -197,7 +197,8 @@ class PodShardedIndex:
 
     Presents `find_runs_compact` (the lookup `_shard_chunk_a` makes, with
     the return dict of `ShardedIndex.find_runs_compact`), the dense
-    `find_runs_routed` of the JAX package, and `close()`."""
+    `find_runs_routed` of the JAX package (also as `find_runs`, as there),
+    `k()` and `close()`."""
 
     _HDR = "<qqq"  # nq, cap, opcode
 
@@ -249,6 +250,8 @@ class PodShardedIndex:
             np.where(nonempty, np.arange(process_count), 0))
         self._start_hash = sh
         self.filter_cutoff = int(index.filter_cutoff)
+        # the syncmer length (`k()`); a bare index of arrays has none
+        self._kparam = index.k() if hasattr(index, "k") else None
         self.pid = process_index
         self.nprocs = process_count
         self._peers = peers
@@ -275,6 +278,9 @@ class PodShardedIndex:
                                         name=f"pod-index-server-{process_index}")
         self._server.start()
         self.build_s = time.perf_counter() - t0
+
+    def k(self) -> int:
+        return self._kparam
 
     # --- this host's slice --------------------------------------------
 
@@ -507,6 +513,8 @@ class PodShardedIndex:
             "run_positions": runp,
             "run_packed": runk,
         }
+
+    find_runs = find_runs_routed
 
     def find_runs_compact(self, keys: np.ndarray, cap: Optional[int] = None) -> dict:
         """The routed lookup in the layout of `ShardedIndex.find_runs_compact`:

@@ -26,6 +26,9 @@ sends each key only to its owner, and `find_runs_compact`, the pipeline's
 lookup, does that and also builds the compacted run records the engine
 reads: on the device when every shard is on one device, else each device
 gathers its own keys' runs and the host places them by key.
+`sharded_find` and `data_parallel_extend` are the JAX module's one-off
+helpers over a device list: a lookup's positions, and the extend forward
+with the batch split over the devices.
 """
 
 from __future__ import annotations
@@ -38,6 +41,7 @@ import numpy as np
 import torch
 
 from ..ops import shard_cuda
+from ..ops.sw_cuda import sw_forward
 
 SENTINEL = np.uint64(0xFFFFFFFFFFFFFFFF)
 
@@ -368,3 +372,39 @@ class ShardedIndex:
             "run_positions": rows[0].view(np.uint32),
             "run_packed": rows[1].view(np.uint32),
         }
+
+
+def sharded_find(devices, index, queries, cap: Optional[int] = None) -> np.ndarray:
+    """A one-off `StrobemerIndex.find` over an index sharded across
+    `devices` (`make_mesh()` lists the local cards): the global
+    first-occurrence positions (int64, -1 if absent), the bucket table's
+    quirk for the smallest hash included."""
+    si = ShardedIndex(devices, index)
+    return si.find_runs(queries, cap or max(1, si.filter_cutoff))["position"]
+
+
+def data_parallel_extend(devices, params, q_codes, t_codes, qlen, tlen):
+    """The extend forward with the batch split over `devices`: q_codes
+    (B, Q) and t_codes (B, T) u8, qlen and tlen (B,), B a multiple of
+    len(devices). Shard i, rows [i B/n, (i+1) B/n), runs on devices[i]
+    through `sw_forward` (the kernel on a card, the plain version on the
+    CPU); a device may be named more than once. Returns (score, t_end,
+    q_end) (B,) int32 on devices[0] and total_cells, the int64 sum of
+    qlen * tlen over every shard."""
+    devices = check_devices(devices, "every shard")
+    q_codes, t_codes, qlen, tlen = (torch.as_tensor(x) for x in (q_codes, t_codes, qlen, tlen))
+    B, n = q_codes.shape[0], len(devices)
+    if B % n:
+        raise ValueError(f"the batch of {B} pairs does not split over {n} devices")
+    width = B // n
+    outs, cells = [], torch.zeros((), dtype=torch.int64, device=devices[0])
+    for i, dev in enumerate(devices):
+        rows = slice(i * width, (i + 1) * width)
+        ql = qlen[rows].to(dev, torch.int32)
+        tl = tlen[rows].to(dev, torch.int32)
+        score, t_end, q_end, _ = sw_forward(q_codes[rows].to(dev, torch.uint8).T,
+                                            t_codes[rows].to(dev, torch.uint8).T, ql, tl, params)
+        outs.append(torch.stack([score, t_end, q_end]).to(devices[0]))
+        cells += (ql.to(torch.int64) * tl.to(torch.int64)).sum().to(devices[0])
+    score, t_end, q_end = torch.cat(outs, dim=1)
+    return score, t_end, q_end, cells

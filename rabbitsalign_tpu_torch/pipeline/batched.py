@@ -29,6 +29,7 @@ from ..align.aligner import Aligner
 from ..align.cigar import Cigar
 from ..align.hamming import hamming_align, hamming_distance
 from ..chain.nams import Nam
+from ..chain.native_nams import native_available
 from ..index.params import IndexParameters
 from ..index.strobemer_index import StrobemerIndex
 from ..io.fasta import References
@@ -65,7 +66,6 @@ from ..utils.sorting import introsort
 INT_MAX = 2**31 - 1
 
 from ..native import hamming_try as _native_hamming
-from ..native import native_disabled
 
 
 @dataclass
@@ -801,14 +801,6 @@ def align_PE_last(
                 )
             else:
                 break
-
-
-def native_available() -> bool:
-    """Whether phase A finds its NAMs in the engine: false under
-    RABBITSALIGN_TPU_NO_NATIVE, where every read takes the Python
-    find_nams. Without the variable an engine that does not build
-    raises when it is first used; there is no silent fallback."""
-    return not native_disabled()
 
 
 def _chunk_nams_native(seqs, index, index_parameters, map_param):

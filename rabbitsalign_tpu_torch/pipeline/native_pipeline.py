@@ -54,7 +54,7 @@ from typing import Callable, Iterable, Optional, Tuple
 import numpy as np
 import torch
 
-from ..native.engine import NativeEngine, NativeReader
+from ..native.engine import NativeEngine, NativeReader, engine_available
 from ..ops.extend_device import extend_batch_packed_resident_q2, resident_ref_codes
 from ..ops.seed_device import seed_and_find, strobe_views
 from ..ops.sw_cuda import SwParams
@@ -553,6 +553,12 @@ class NativePipeline:
                 stack.enter_context(torch.cuda.stream(stream))
             stack.enter_context(torch.cuda.device(self.device))
             yield
+
+
+def native_pipeline_available() -> bool:
+    """`engine_available`: false only under RABBITSALIGN_TPU_NO_NATIVE; a
+    failed engine build raises."""
+    return engine_available()
 
 
 class DevicePrewarm(threading.Thread):

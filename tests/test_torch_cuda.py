@@ -11,7 +11,9 @@ and the device NAM front end's kernels (the exact syncmer scan, the merge,
 the run walk) and its entry points against their plain versions and the
 host find_nams; and the Python mapper's extend layout
 (`extend_batch_packed`) at its three buckets and BatchAligner("cuda")
-against the CPU and the host aligner, with no plain version on the card.
+against the CPU and the host aligner, with no plain version on the card;
+and the resident (query-only), grouped and unpacked extends and
+`data_parallel_extend` against the CPU.
 Needs an NVIDIA GPU and nvcc;
 skips without one. This file imports neither jax nor rabbitsalign_tpu,
 so it also runs where JAX is absent:
@@ -119,6 +121,55 @@ def test_traceback_edges_match_plain(cuda, Q, T, B):
     assert torch.equal(packed, tb_cuda.sw_traceback_packed_plain(dirs, score, t_end, q_end))
     if B > 1:
         assert int((score > 0).sum()) > B // 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sw", [SwParams(2, 8, 12, 1), SwParams(1, 1, 2, 1)],
+                         ids=["default", "flat"])
+def test_api_extends_on_cuda_match_cpu(cuda, monkeypatch, sw):
+    """The resident (query-only layout), grouped and unpacked extends and
+    `data_parallel_extend` on the card (over [cuda:0] and [cuda:0, cuda:0])
+    equal their CPU results, with windows at the genome's end; each
+    launches the kernels (the unpacked walk through `sw_traceback`)."""
+    from rabbitsalign_tpu_torch.parallel.sharding import data_parallel_extend
+
+    monkeypatch.delenv("RSB_SW16", raising=False)
+    Q, T = 152, 256
+    pairs = mixed_pairs(Q, T, 90, seed=16) + gap_pairs(Q, T, 16)
+    buf_q2, genome = q2_batch(pairs, Q, seed=16)
+    B = buf_q2.shape[1]
+    q_t, t_t, qlen, tlen = px.unpack_q2(torch.from_numpy(buf_q2),
+                                        px.resident_ref_codes(genome, "cpu"), Q, T)
+    tstart = torch.from_numpy(buf_q2[-4:].astype(np.int64))
+    tstart = tstart[0] | (tstart[1] << 8) | (tstart[2] << 16) | (tstart[3] << 24)
+    tstart[-3:] = torch.tensor([genome.shape[0] - 40, genome.shape[0] - 1, genome.shape[0] - 100])
+    t_t = px.gather_targets(px.resident_ref_codes(genome, "cpu"),
+                            torch.stack([(tstart >> (8 * i)) & 0xFF for i in range(4)]), tlen, T)
+    buf_q = torch.cat([q_t, torch.stack([qlen & 0xFF, qlen >> 8, tlen & 0xFF, tlen >> 8]).to(
+        torch.uint8), torch.stack([(tstart >> (8 * i)) & 0xFF for i in range(4)]).to(torch.uint8)])
+    buf = torch.from_numpy(px.pack_input(q_t.numpy(), t_t.numpy(), qlen.numpy(), tlen.numpy()))
+    want = px.extend_batch_packed(buf, Q, T, sw)
+    assert torch.equal(px.extend_batch_packed_resident(buf_q, px.resident_ref_codes(genome, "cpu"),
+                                                       Q, T, sw, 64), want)
+    f0, t0 = sw_cuda.launches, tb_cuda.launches
+    got = {"resident": px.extend_batch_packed_resident(
+               buf_q.to(cuda), px.resident_ref_codes(genome, cuda), Q, T, sw, 64),
+           "grouped": px.extend_batch_packed_grouped(buf.to(cuda), Q, T, sw, 7)}
+    for name, out in got.items():
+        assert torch.equal(out.cpu(), want), name
+    dev = px.extend_batch_device(q_t.to(cuda), t_t.to(cuda), qlen.to(cuda), tlen.to(cuda), sw)
+    cpu = px.extend_batch_device(q_t, t_t, qlen, tlen, sw)
+    for a, b in zip(dev, cpu):
+        assert torch.equal(a.cpu(), b)
+    assert (sw_cuda.launches, tb_cuda.launches) == (f0 + 3, t0 + 3)
+    n = B - B % 2
+    args = (q_t[:, :n].T, t_t[:, :n].T, qlen[:n], tlen[:n])
+    want_dp = data_parallel_extend(["cpu"], sw, *args)
+    for devices in ([cuda], [cuda, cuda]):
+        got_dp = data_parallel_extend(devices, sw, *(x.to(cuda) for x in args))
+        for a, b in zip(got_dp, want_dp):
+            assert torch.equal(a.cpu(), b)
+    assert sw_cuda.launches == f0 + 6
 
 
 @pytest.mark.cuda

@@ -387,15 +387,21 @@ def test_pod_bucket_table_is_trimmed(pods):
 
 def test_pod_index_close_frees_its_ports(world_index):
     """close() ends the server and its connections: a new pod binds the
-    same ports and answers across them again."""
+    same ports and answers across them again. Each host's `k()` is the
+    index's, and `find_runs` is the JAX package's alias of
+    `find_runs_routed`."""
     index, _ = world_index
     peers = [f"127.0.0.1:{_free_port()}" for _ in range(2)]
     keys = np.asarray(index.hashes)[97::97]  # not the smallest hash (the bucket quirk)
     for _ in range(2):
         pods = [pmh.PodShardedIndex(index, p, 2, peers, device="cpu") for p in range(2)]
         try:
+            assert [pod.k() for pod in pods] == [index.k()] * 2
             res = pods[0].find_runs_compact(keys)
             assert pods[0].stats["remote_keys"] > 0 and (res["count"] > 0).all()
+            dense, routed = pods[0].find_runs(keys, 4), pods[0].find_runs_routed(keys, 4)
+            for k, v in routed.items():
+                np.testing.assert_array_equal(dense[k], v, err_msg=k)
             assert pods[0].stats["remote_s"] > 0 and pods[1].stats["served_s"] > 0
             served = list(pods[1]._served.values())  # the connection's server thread
         finally:
