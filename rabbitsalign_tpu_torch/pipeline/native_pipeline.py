@@ -39,6 +39,16 @@ and with ``--pod-index-peers`` the lookups go to the pod-split index
 Without device extension (``--no-tpu``, or gap_extend >= gap_open) the
 engine's built-in SSW resolves every gapped job on the host, and seeding
 stays on the host too.
+
+Every boundary of a chunk's path is a `Span`: the reader's wait, the
+hand-off to the workers, a worker's set-up and its wait for input, then
+for chunk c phase A, the extend's dispatch, the wait on the device, phase
+B and the ordered output. Each adds its seconds to a timer of `timers()`
+(summed over the workers) and, while a torch profiler runs, is a
+`record_function` named ``rsb.<name>`` (``rsb.<name>#<c>`` for a chunk's
+span), on the trace's clock beside the card's kernels. `counters()`
+counts at the same boundaries: chunks, the extend's jobs, DP cells and
+upload bytes, and the jobs left to the host.
 """
 
 from __future__ import annotations
@@ -181,6 +191,60 @@ def _at_least_one(a: np.ndarray) -> np.ndarray:
     return a if a.size else np.zeros(1, a.dtype)
 
 
+# the pipeline's own timers (seconds, thread-seconds once summed over
+# workers), beside the engine's phase_a_s, seed_nam_s, host_align_s and
+# phase_b_s: the spans' keys, set_device_results' time, and the whole
+# mapping thread's (a worker from start to exit; the single pipeline's
+# mapping loop)
+SPAN_TIMERS = ("read_wait_s", "handoff_wait_s", "worker_setup_s", "input_wait_s", "dispatch_s",
+               "device_wait_s", "device_results_s", "emit_s", "worker_s")
+# the pipeline's own counters, beside the engine's
+EXTEND_COUNTERS = ("chunks", "device_jobs", "device_cells", "upload_bytes")
+
+_autograd_profiler = torch.autograd.profiler
+
+
+class Span:
+    """One span of a chunk's path. On exit its seconds (`perf_counter`)
+    are added to `timers[key]` (no key: none). While a torch profiler
+    runs it is also a `record_function` named ``rsb.<name>``, with
+    ``#<chunk>`` for a chunk's span (torch's ``ProfilerStep#N``
+    convention: the chrome trace keeps no arguments, so the chunk index,
+    which all of a chunk's spans share, goes in the name). Without a
+    profiler it costs two clock reads, a flag test and an add."""
+
+    __slots__ = ("timers", "key", "t0", "rf")
+
+    def __init__(self, timers: dict, key: Optional[str], name: str,
+                 chunk: Optional[int] = None):
+        self.timers = timers
+        self.key = key
+        self.rf = None
+        if _autograd_profiler._is_profiler_enabled:
+            self.rf = torch.profiler.record_function(
+                f"rsb.{name}" if chunk is None else f"rsb.{name}#{chunk}")
+
+    def __enter__(self) -> None:
+        if self.rf is not None:
+            self.rf.__enter__()
+        self.t0 = time.perf_counter()
+
+    def __exit__(self, exc_type, exc, tb) -> None:
+        dt = time.perf_counter() - self.t0
+        if self.rf is not None:
+            self.rf.__exit__(exc_type, exc, tb)
+        if self.key is not None:
+            self.timers[self.key] += dt
+
+
+def _summed(dicts) -> dict:
+    total: dict = {}
+    for d in dicts:
+        for k, v in d.items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
 class NativePipeline:
     def __init__(
         self,
@@ -243,6 +307,8 @@ class NativePipeline:
             self.sharded_index = build_sharded_index(index, self.device, self._devices)
         self.shard_lookup_s = 0.0  # wall time of the sharded lookups
         self.rescue_preflight_s = 0.0  # and of the host's rescue preflight
+        self.span_s = dict.fromkeys(SPAN_TIMERS, 0.0)
+        self.counts = dict.fromkeys(EXTEND_COUNTERS, 0)
         if use_device:
             self._sw = SwParams(aln_params.match, aln_params.mismatch,
                                 aln_params.gap_open, aln_params.gap_extend)
@@ -421,31 +487,68 @@ class NativePipeline:
         event.record(torch.cuda.current_stream(dev))
         return out_host, event
 
-    def _plan_and_dispatch(self, chunk) -> list:
+    def _plan_and_dispatch(self, chunk, chunk_index: int) -> list:
+        """The extend of a chunk after its phase A: plan, q2 fill, upload,
+        launches and the copy back enqueued, batch by batch; counts the
+        chunk and each batch's live jobs, DP cells (query length x target
+        window length) and upload bytes."""
         pending = []
-        if self.use_device and chunk.n_jobs:
-            for idxs, Q, T, B, sub in self.engine.plan_batches(chunk, self.batch_size):
-                buf = self.engine.fill_batch_q2(chunk, idxs, B, Q)
-                out, event = self._dispatch(buf, Q, T, sub)
-                pending.append((idxs, out, event, Q + T - 1))
+        counts = self.counts
+        with Span(self.span_s, "dispatch_s", "dispatch", chunk_index):
+            counts["chunks"] += 1
+            if self.use_device and chunk.n_jobs:
+                for idxs, Q, T, B, sub in self.engine.plan_batches(chunk, self.batch_size):
+                    buf = self.engine.fill_batch_q2(chunk, idxs, B, Q)
+                    counts["device_jobs"] += len(idxs)
+                    counts["device_cells"] += int(np.dot(chunk.qlens[idxs].astype(np.int64),
+                                                         chunk.tlens[idxs]))
+                    counts["upload_bytes"] += buf.nbytes
+                    out, event = self._dispatch(buf, Q, T, sub)
+                    pending.append((idxs, out, event, Q + T - 1))
         return pending
+
+    def _start_fx(self, reader, fx, n_records: int, chunk_index: int):
+        """Phase A of a reader chunk (its buffer back to the reader's
+        pool), then its extend dispatched; returns the state
+        `finish_chunk` takes."""
+        with Span(self.span_s, None, "phase_a", chunk_index):
+            try:
+                chunk = self._chunk_a(fx, n_records, chunk_index)
+            finally:
+                reader.free_chunk(fx)  # pooled buffer must always return
+        return chunk, self._plan_and_dispatch(chunk, chunk_index), chunk_index
 
     # --- two-phase API (callers drive the cross-chunk pipelining) -------
 
     def start_chunk(self, records1, records2, records3, chunk_index: int):
         """Phase A + async device dispatch; returns an opaque state."""
-        chunk = self.engine.chunk_a(records1, records2, records3, chunk_index)
-        return chunk, self._plan_and_dispatch(chunk)
+        with Span(self.span_s, None, "phase_a", chunk_index):
+            chunk = self.engine.chunk_a(records1, records2, records3, chunk_index)
+        return chunk, self._plan_and_dispatch(chunk, chunk_index), chunk_index
 
     def finish_chunk(self, state) -> bytes:
         """Wait for the chunk's device results, then phase B; returns the
-        output bytes (SAM/PAF text is ASCII; writers are binary)."""
-        chunk, pending = state
-        for idxs, out, event, D in pending:
-            if event is not None:
-                event.synchronize()
-            self.engine.set_device_results(chunk, out.numpy(), D, idxs)
-        return self.engine.chunk_b_bytes(chunk)
+        output bytes (SAM/PAF text is ASCII; writers are binary). Each
+        batch is waited for (a `device_wait` span a batch, inside
+        `phase_b`) and its results taken in turn, so taking one batch's
+        results overlaps the card's work on the next."""
+        chunk, pending, chunk_index = state
+        span_s = self.span_s
+        with Span(span_s, None, "phase_b", chunk_index):
+            for idxs, out, event, D in pending:
+                with Span(span_s, "device_wait_s", "device_wait", chunk_index):
+                    if event is not None:
+                        event.synchronize()
+                t0 = time.perf_counter()
+                self.engine.set_device_results(chunk, out.numpy(), D, idxs)
+                span_s["device_results_s"] += time.perf_counter() - t0
+            return self.engine.chunk_b_bytes(chunk)
+
+    def _finish_emit(self, state, emit) -> None:
+        """Phase B of a started chunk, then emit(chunk index, bytes)."""
+        text = self.finish_chunk(state)
+        with Span(self.span_s, "emit_s", "emit", state[2]):
+            emit(state[2], text)
 
     def map_all(
         self,
@@ -458,16 +561,24 @@ class NativePipeline:
         chunk i runs after phase A of chunks i+1..i+depth, so the
         insert-size estimator trails by `depth` chunks, as the
         reference's overlapped workers do."""
+        t0 = time.perf_counter()
         boost_mapping_thread()
         n_reads = 0
         in_flight = deque()
-        for chunk_index, r1, r2, r3 in chunks:
-            n_reads += len(r1) + len(r2) + len(r3)
-            in_flight.append(self.start_chunk(r1, r2, r3, chunk_index))
-            if len(in_flight) > depth:
-                write(self.finish_chunk(in_flight.popleft()))
-        while in_flight:
-            write(self.finish_chunk(in_flight.popleft()))
+
+        def emit(ci, text):
+            write(text)
+
+        try:
+            for chunk_index, r1, r2, r3 in chunks:
+                n_reads += len(r1) + len(r2) + len(r3)
+                in_flight.append(self.start_chunk(r1, r2, r3, chunk_index))
+                if len(in_flight) > depth:
+                    self._finish_emit(in_flight.popleft(), emit)
+            while in_flight:
+                self._finish_emit(in_flight.popleft(), emit)
+        finally:
+            self.span_s["worker_s"] += time.perf_counter() - t0
         return n_reads
 
     def map_file(self, path1, path2, interleaved, chunk_size, write,
@@ -496,35 +607,44 @@ class NativePipeline:
         without it) with up to `depth` in flight, calling emit(chunk
         index, bytes) in chunk order. The thread is boosted before the
         reader starts its producer thread, which inherits the priority."""
+        t0 = time.perf_counter()
         boost_mapping_thread()
         reader = NativeReader(path1, path2, interleaved, chunk_size)
+        chunks = iter(reader)
         n_reads = 0
         in_flight = deque()
         try:
-            for chunk_index, fx, n_pairs, n_singles in reader:
+            while True:
+                with Span(self.span_s, "read_wait_s", "read"):
+                    item = next(chunks, None)
+                if item is None:
+                    break
+                chunk_index, fx, n_pairs, n_singles = item
                 if owns is not None and not owns(chunk_index):
                     reader.free_chunk(fx)
                     continue
                 n_reads += 2 * n_pairs + n_singles
                 if progress is not None:
                     progress(n_reads)
-                try:
-                    chunk = self._chunk_a(fx, 2 * n_pairs + n_singles, chunk_index)
-                finally:
-                    reader.free_chunk(fx)  # pooled buffer must always return
-                in_flight.append((chunk_index, (chunk, self._plan_and_dispatch(chunk))))
+                in_flight.append(self._start_fx(reader, fx, 2 * n_pairs + n_singles,
+                                                chunk_index))
                 if len(in_flight) > depth:
-                    ci, state = in_flight.popleft()
-                    emit(ci, self.finish_chunk(state))
+                    self._finish_emit(in_flight.popleft(), emit)
             while in_flight:
-                ci, state = in_flight.popleft()
-                emit(ci, self.finish_chunk(state))
+                self._finish_emit(in_flight.popleft(), emit)
         finally:
             reader.close()
+            self.span_s["worker_s"] += time.perf_counter() - t0
         return n_reads
 
     def counters(self) -> dict:
-        return {**self.engine.counters(), "host_seeded": self.host_seeded}
+        """The engine's counters, then the pipeline's: reads seeded on the
+        host under --device-seed, chunks, the extend's jobs, DP cells and
+        upload bytes, and the planned jobs left to the host (no bucket
+        fits them, or a batch under MIN_DEVICE_JOBS)."""
+        shapes = self.engine.job_shapes()
+        return {**self.engine.counters(), "host_seeded": self.host_seeded, **self.counts,
+                "small_to_host": shapes["small_to_host"], "unbucketed": shapes["unbucketed"]}
 
     def dispatches(self) -> list:
         """Extend batches dispatched to each entry of the device list."""
@@ -533,7 +653,7 @@ class NativePipeline:
     def timers(self) -> dict:
         return {**self.engine.timers(), "device_seed_s": self.device_seed_s,
                 "shard_lookup_s": self.shard_lookup_s,
-                "rescue_preflight_s": self.rescue_preflight_s}
+                "rescue_preflight_s": self.rescue_preflight_s, **self.span_s}
 
     @contextlib.contextmanager
     def stream_context(self):
@@ -677,6 +797,7 @@ class ThreadedNativePipeline:
         self.pinned_cpus = []  # (wid, cpu) telemetry, filled by workers
         self._counters = []
         self._timers = []
+        self._main_s = dict.fromkeys(SPAN_TIMERS, 0.0)  # the reading thread's spans
         self.worker_dispatched = []  # each worker's extend batches an entry
 
     def map_file(self, path1, path2, interleaved, chunk_size, write,
@@ -685,6 +806,7 @@ class ThreadedNativePipeline:
         # the previous map_file call's counters twice
         self._counters = []
         self._timers = []
+        self._main_s = main_s = dict.fromkeys(SPAN_TIMERS, 0.0)
         self.worker_dispatched = []
 
         # deterministic mode: one queue per worker, chunks routed by
@@ -709,6 +831,8 @@ class ThreadedNativePipeline:
                 out_lock.notify_all()
 
         def worker(wid):
+            t0 = time.perf_counter()
+            own = dict.fromkeys(("worker_setup_s", "input_wait_s"), 0.0)
             if self.pin_workers:
                 cpu = pin_worker_thread(wid)
                 if cpu is not None:
@@ -716,36 +840,36 @@ class ThreadedNativePipeline:
             boost_mapping_thread()
             in_q = in_qs[wid % len(in_qs)]
             pipe = None
-            prev = None  # (ci, state): per-worker double buffering
+            prev = None  # a started chunk's state: per-worker double buffering
             try:
-                # inside the try: a construction failure (device OOM,
-                # no device) must reach `errors`, or the producer's
-                # bounded put would retry forever against a dead worker
-                pipe = self._mk()
-                with pipe.stream_context():
+                with contextlib.ExitStack() as stack:
+                    # inside the try: a construction failure (device OOM,
+                    # no device) must reach `errors`, or the producer's
+                    # bounded put would retry forever against a dead worker
+                    with Span(own, "worker_setup_s", "setup"):
+                        pipe = self._mk()
+                        stack.enter_context(pipe.stream_context())
                     while True:
-                        item = in_q.get()
+                        with Span(own, "input_wait_s", "input_wait"):
+                            item = in_q.get()
                         if item is None:
                             break
                         ci, fx, n_records = item
-                        try:
-                            chunk = pipe._chunk_a(fx, n_records, ci)
-                        finally:
-                            reader.free_chunk(fx)
-                        state = (chunk, pipe._plan_and_dispatch(chunk))
+                        state = pipe._start_fx(reader, fx, n_records, ci)
                         if prev is not None:
-                            emit(prev[0], pipe.finish_chunk(prev[1]))
-                        prev = (ci, state)
+                            pipe._finish_emit(prev, emit)
+                        prev = state
                     if prev is not None:
-                        emit(prev[0], pipe.finish_chunk(prev[1]))
+                        pipe._finish_emit(prev, emit)
             except Exception as e:  # propagated to the caller by map_file
                 errors.append(e)
                 with out_lock:
                     out_lock.notify_all()
             finally:
                 if pipe is not None:
+                    own["worker_s"] = time.perf_counter() - t0
                     self._counters.append(pipe.counters())
-                    self._timers.append(pipe.timers())
+                    self._timers.append(_summed([pipe.timers(), own]))
                     self.worker_dispatched.append(pipe.dispatched)
 
         reader = NativeReader(path1, path2, interleaved, chunk_size)
@@ -754,22 +878,29 @@ class ThreadedNativePipeline:
                    for w in range(self.n_workers)]
         for t in threads:
             t.start()
+        chunks = iter(reader)
         try:
-            for ci, fx, np_, ns in reader:
+            while True:
+                with Span(main_s, "read_wait_s", "read"):
+                    item = next(chunks, None)
+                if item is None:
+                    break
+                ci, fx, np_, ns = item
                 n_reads += 2 * np_ + ns
                 if progress is not None:
                     progress(n_reads)
                 q_i = ci % len(in_qs)
                 # bounded put that cannot deadlock if all workers died
-                while True:
-                    if errors:
-                        reader.free_chunk(fx)
-                        break
-                    try:
-                        in_qs[q_i].put((ci, fx, 2 * np_ + ns), timeout=1.0)
-                        break
-                    except queue.Full:
-                        continue
+                with Span(main_s, "handoff_wait_s", "handoff"):
+                    while True:
+                        if errors:
+                            reader.free_chunk(fx)
+                            break
+                        try:
+                            in_qs[q_i].put((ci, fx, 2 * np_ + ns), timeout=1.0)
+                            break
+                        except queue.Full:
+                            continue
                 if errors:
                     break
         finally:
@@ -822,15 +953,10 @@ class ThreadedNativePipeline:
         return [sum(col) for col in zip(*self.worker_dispatched)]
 
     def counters(self) -> dict:
-        total: dict = {}
-        for c in self._counters:
-            for k, v in c.items():
-                total[k] = total.get(k, 0) + v
-        return total
+        """The workers' counters, summed."""
+        return _summed(self._counters)
 
     def timers(self) -> dict:
-        total: dict = {}
-        for t in self._timers:
-            for k, v in t.items():
-                total[k] = total.get(k, 0.0) + v
-        return total
+        """The workers' timers and the reading thread's waits, summed:
+        thread-seconds."""
+        return _summed([*self._timers, self._main_s])

@@ -388,11 +388,23 @@ def _log_mapping(opt, pipeline, n_reads: int, elapsed: float) -> None:
     tm = pipeline.timers()
     # summed over workers with -t > 1: thread-seconds, not wall time
     logger.info(
-        "Phase times: seeding+NAMs %.2f s, phase A total %.2f s, "
-        "host alignment %.2f s, pairing+output %.2f s"
-        % (tm["seed_nam_s"], tm["phase_a_s"], tm["host_align_s"],
-           tm["phase_b_s"])
+        "Phase times: seeding+NAMs %.2f s, phase A total %.2f s, extend dispatch %.2f s, "
+        "device results in %.2f s, host alignment %.2f s, pairing+output %.2f s, "
+        "output copy and chunk release %.2f s"
+        % (tm["seed_nam_s"], tm["phase_a_s"], tm["dispatch_s"], tm["device_results_s"],
+           tm["host_align_s"], tm["phase_b_s"], tm["chunk_out_s"])
     )
+    logger.info(
+        "Waits: reader %.2f s, hand-off %.2f s, worker set-up %.2f s, input %.2f s, device "
+        "%.2f s, ordered output %.2f s; mapping threads %.2f s"
+        % (tm["read_wait_s"], tm["handoff_wait_s"], tm["worker_setup_s"], tm["input_wait_s"],
+           tm["device_wait_s"], tm["emit_s"], tm["worker_s"]))
+    if opt.use_tpu:
+        logger.info(f"Device extend: {c['device_jobs']} jobs, {c['device_cells']} DP cells in "
+                    f"{sum(pipeline.dispatches())} batches of {c['chunks']} chunks, "
+                    f"{c['upload_bytes'] / 1e6:.1f} MB uploaded; on the host "
+                    f"{c['small_to_host']} in small batches, {c['unbucketed']} unbucketed, "
+                    f"{c['fallbacks']} rejected")
     if len(pipeline.dispatches()) > 1:
         logger.info(f"Extend dispatches an entry of the device list: {pipeline.dispatches()}")
     if pipeline.sharded_index is not None:
