@@ -56,7 +56,7 @@ Data. A 40 Mbp simulated genome (bench.py's generator), 240k x 150 bp SE
    reads and 120k x 2x150 bp PE pairs (24 chunks each, so each of 3 workers
    maps several); the index built once with `-i` (which also writes the
    `--mmap-index` sidecar).
-Seed. The seeding kernels of `--device-seed` against their plain PyTorch
+Seed. The seeding kernels of the main path against their plain PyTorch
    versions on the card, tolerance 0 on every output: `seed_randstrobes`
    (counts, offsets, the total and the compacted strobes in one buffer,
    nothing written past them in its worst-case allocation) on a chunk's
@@ -127,7 +127,7 @@ Chain. The device NAM front end (no CLI path runs it, as in the JAX
    (torch.profiler); the composed batch's wall time a chunk, host-paced, in four parts (the
    device front end with its copy back, the host ordering, the merge, the
    attribution) beside the engine's `find_nams_chunk` on the same chunk.
-4. The main path through the CLI on that data: nine paths, each with the
+4. The main path through the CLI on that data: seven paths, each with the
    launch counts set to 0 before it and read after it, and each from a
    cold probe cache (so its prewarm runs the probe kernel):
    - `-t 1`: SE and PE, `--device cuda`;
@@ -138,19 +138,19 @@ Chain. The device NAM front end (no CLI path runs it, as in the JAX
    - SE, 3 workers, `--profile DIR`: the trace must hold both extend
      kernels, and the device busy share (the union of kernel and copy
      intervals over the trace's span) is printed;
-   - `--device-seed` at `-t 1` (SE and PE) and with 3 workers (SE with the
-     default `-t`, PE with `--deterministic -t 3`);
-   - `--shard-index` the same way (`t1-shard`, `t3-shard`).
+   - `--shard-index` at `-t 1` (SE and PE) and with 3 workers (SE with the
+     default `-t`, PE with `--deterministic -t 3`): `t1-shard`, `t3-shard`.
    Each device SAM must equal, apart from @PG, the host-only SAM
-   (`--no-tpu`) of the same threading, the `-t 1` device SAM (SE) and the
-   int32 device SAM (RSB_SW16); the mmap and profile SAMs must equal the
-   3-worker SE SAM; the `--device-seed` and `--shard-index` SAMs the device
-   SAMs of the same threading; the device runs must have dispatched extend
-   batches, every kernel of a path must have launched in it, the seeding
-   kernels and the run lookup in no other path, and the sharded runs must
-   report no feed misses. Each `--device-seed` run's device seeding time
-   and its tie-or-long reads, and each `--shard-index` run's lookup time,
-   are printed beside its phase times.
+   (`--no-tpu`, host seeding) of the same threading, the `-t 1` device SAM
+   (SE) and the int32 device SAM (RSB_SW16); the mmap and profile SAMs must
+   equal the 3-worker SE SAM; the `--shard-index` SAMs the device SAMs of
+   the same threading; the device runs must have dispatched extend
+   batches, every kernel of a path must have launched in it: the seeding
+   kernels in every path but the sharded ones (the default seeds on the
+   card), the run lookup in those alone, and the sharded runs must report
+   no feed misses. Each run's device seeding time and its tie-or-long
+   reads, or its sharded lookups' time, are printed beside its phase
+   times.
 
 Multi. The CLI's 3-worker runs on a host whose local devices are the card
    named twice (`local_devices` made to return [cuda:0, cuda:0], as a
@@ -285,8 +285,7 @@ KERNELS = {
     "walk_hits": ("rabbitsalign_tpu_torch/csrc/walk_hits.cu",
                   "rabbitsalign_tpu/ops/front_device.py:80"),
 }
-SEED_PATHS = ("t1-dseed", "t3-dseed")  # the paths that run the seeding kernels
-SHARD_PATHS = ("t1-shard", "t3-shard")  # the paths that run the run lookup
+SHARD_PATHS = ("t1-shard", "t3-shard")  # the paths that run the run lookup, and no seeding
 POD_PATHS = ("pod2", "pod2-shard")  # phase Pod: two hosts on the one card
 # the card's peak rates for the bounds (H100 SXM): HBM3 bytes/s, and int32
 # operations/s = 132 SMs x 64 INT32 lanes x 1.98 GHz (Hopper white paper;
@@ -792,7 +791,7 @@ def ilp(torch, card):
 def map_run(main, tag, argv):
     """One CLI call; returns (sha256 of its SAM without @PG, reads,
     mapping-loop reads/s, whole-call reads/s, wall s, phase times, index
-    read s, the --device-seed or --shard-index line or "")."""
+    read s, the device seeding or sharded lookups line or "")."""
     out = WORK / f"{tag}.sam"
     log = io.StringIO()
     t0 = time.perf_counter()
@@ -961,7 +960,7 @@ def load_index(ref):
 def seed_kernels(torch, card, index, se_fastq):
     """Phase Seed: the seeding and lookup kernels against their plain
     versions on the card, times, bounds and the library call."""
-    phase("Seed: the --device-seed kernels against their plain versions")
+    phase("Seed: the seeding kernels against their plain versions")
     import numpy as np
 
     from rabbitsalign_tpu_torch.index.strobemer_index import StrobemerIndex
@@ -1698,10 +1697,6 @@ def main_path(torch, card, reads):
         "t3-sw16": ("1", {"SE": [], "PE": ["--deterministic", "-t", "3"]}),
         "t3-mmap": (None, {"SE": ["--mmap-index"]}),
         "t3-profile": (None, {"SE": ["--profile", str(trace_dir)]}),
-        "t1-dseed": (None, {"SE": ["-t", "1", "--device-seed"],
-                            "PE": ["-t", "1", "--device-seed"]}),
-        "t3-dseed": (None, {"SE": ["--device-seed"],
-                            "PE": ["--deterministic", "-t", "3", "--device-seed"]}),
         "t1-shard": (None, {"SE": ["-t", "1", "--shard-index"],
                             "PE": ["-t", "1", "--shard-index"]}),
         "t3-shard": (None, {"SE": ["--shard-index"],
@@ -1748,7 +1743,7 @@ def main_path(torch, card, reads):
               f"{path}: a kernel of the path never launched: {launches[path]}")
         check(launches[path][unused] == 0, f"{path}: {unused} launched: {launches[path]}")
         seeding = [launches[path][k] for k in ("seed_randstrobes", "index_find")]
-        check(all(seeding) if path in SEED_PATHS else not any(seeding),
+        check(not any(seeding) if path in SHARD_PATHS else all(seeding),
               f"{path}: seeding kernel launches {seeding}")
         n_find = launches[path]["find_runs"]
         check(n_find > 0 if path in SHARD_PATHS else n_find == 0,
@@ -1768,8 +1763,6 @@ def main_path(torch, card, reads):
             (("t3", "PE"), ("t3", "PE", "host")),
             (("t3-sw16", "SE"), ("t3", "SE")), (("t3-sw16", "PE"), ("t3", "PE")),
             (("t3-mmap", "SE"), ("t3", "SE")), (("t3-profile", "SE"), ("t3", "SE")),
-            (("t1-dseed", "SE"), ("t1", "SE")), (("t1-dseed", "PE"), ("t1", "PE")),
-            (("t3-dseed", "SE"), ("t3", "SE")), (("t3-dseed", "PE"), ("t3", "PE")),
             (("t1-shard", "SE"), ("t1", "SE")), (("t1-shard", "PE"), ("t1", "PE")),
             (("t3-shard", "SE"), ("t3", "SE")), (("t3-shard", "PE"), ("t3", "PE"))]
     for a, b in same:
@@ -1780,13 +1773,13 @@ def main_path(torch, card, reads):
         say(f"{name} mapping loop, device: -t 1 {runs['t1', name][2]} reads/s, "
             f"3 workers {runs['t3', name][2]} reads/s, 3 workers int16 "
             f"{runs['t3-sw16', name][2]} reads/s [{card}]")
-    for path in SEED_PATHS + SHARD_PATHS:
+    for path in SHARD_PATHS:
         plain = path.split("-")[0]
-        what = "device seeding" if path in SEED_PATHS else "sharded lookups"
         for name in reads:
             a, b = runs[path, name], runs[plain, name]
             say(f"{name} {path} against {plain}: mapping loop {a[2]} against {b[2]} reads/s; "
-                f"{a[5]}; {what} {a[7]} | {plain}: {b[5]} [{card}]")
+                f"{a[5]}; sharded lookups {a[7]} | {plain}: {b[5]}; device seeding {b[7]} "
+                f"[{card}]")
     say(f"SE index open, 3 workers: 'Total time reading index' {runs['t3', 'SE'][6]} s from the "
         f".sti, {runs['t3-mmap', 'SE'][6]} s with --mmap-index [{card}]")
 

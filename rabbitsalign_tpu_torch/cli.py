@@ -166,7 +166,11 @@ def parse_command_line_arguments(argv: Optional[List[str]] = None) -> CommandLin
     # device extensions
     p.add_argument("--device-seed", action="store_true",
                    help="Run seeding + index lookup on the device given by "
-                        "--device (its first card)")
+                        "--device (its first card). On a CUDA card this is "
+                        "the default and the flag names it; with --device "
+                        "cpu it runs the kernels' plain PyTorch versions "
+                        "instead of the host seeding; --no-tpu keeps host "
+                        "seeding")
     p.add_argument("--shard-index", action="store_true",
                    help="Serve every index lookup from a hash-sharded "
                         "index on the device given by --device (one shard "
@@ -185,11 +189,12 @@ def parse_command_line_arguments(argv: Optional[List[str]] = None) -> CommandLin
     p.add_argument("--no-tpu", action="store_true",
                    help="Disable the device extend path (host alignment only)")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
-                   help="Device of the kernels (the extend, --device-seed "
-                        "and --shard-index) [cuda]; cuda uses every card "
-                        "the process sees (CUDA_VISIBLE_DEVICES), the "
-                        "extend batches going to them in turn; cpu runs "
-                        "their plain PyTorch versions")
+                   help="Device of the kernels (the extend, the seeding "
+                        "and lookups, --shard-index) [cuda]; cuda uses "
+                        "every card the process sees (CUDA_VISIBLE_DEVICES), "
+                        "the extend batches going to them in turn, and "
+                        "seeds on the first; cpu runs their plain PyTorch "
+                        "versions and seeds on the host")
     p.add_argument("--profile", metavar="DIR", default=None,
                    help="Write a torch.profiler trace of the mapping run to "
                         "DIR (view with TensorBoard / Perfetto)")

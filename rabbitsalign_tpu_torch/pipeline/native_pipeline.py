@@ -18,15 +18,17 @@ A pipeline's device list defaults to every local card (`local_devices`,
 the counterpart of `jax.local_devices()`): the extend batches go to its
 entries in turn, each card holding one copy of the genome for the whole
 run, as the JAX package's `_dispatch` spreads them over its local
-devices. Seeding (``--device-seed``) stays on the first entry.
+devices. Seeding stays on the first entry.
 
-With ``--device-seed`` phase A takes each chunk's seeds and index hits
-from the device (ops/seed_device.py:seed_and_find, two kernels against
-the index arrays kept resident on the device); reads the closed form
-cannot seed exactly (a min-queue tie, or longer than SEED_L) are seeded
-by the engine itself.
+Wherever the extend runs on a CUDA card, phase A takes each chunk's
+seeds and index hits from that card (`seeds_on_device`;
+ops/seed_device.py:seed_and_find, two kernels against the index arrays
+uploaded once a run, in set-up); reads the closed form cannot seed
+exactly (a min-queue tie, or longer than SEED_L) are seeded by the
+engine itself. ``--device-seed`` names that default, and on the CPU
+asks for the kernels' plain versions.
 
-With ``--shard-index`` (which takes precedence over ``--device-seed``)
+With ``--shard-index`` (which takes precedence over seeding on the device)
 every index lookup of phase A is served by the hash-sharded index
 (parallel/sharding.py, one shard an entry of the device list): the engine seeds the chunk
 without touching the index, the strobes' hashes go through one batched
@@ -38,17 +40,19 @@ and with ``--pod-index-peers`` the lookups go to the pod-split index
 
 Without device extension (``--no-tpu``, or gap_extend >= gap_open) the
 engine's built-in SSW resolves every gapped job on the host, and seeding
-stays on the host too.
+stays on the host too, as it does under ``--device cpu``.
 
 Every boundary of a chunk's path is a `Span`: the reader's wait, the
 hand-off to the workers, a worker's set-up and its wait for input, then
 for chunk c phase A, the extend's dispatch, the wait on the device, phase
-B and the ordered output. Each adds its seconds to a timer of `timers()`
+B and the ordered output; the seeding on the device is a span inside
+phase A. Each adds its seconds to a timer of `timers()`
 (summed over the workers) and, while a torch profiler runs, is a
 `record_function` named ``rsb.<name>`` (``rsb.<name>#<c>`` for a chunk's
 span), on the trace's clock beside the card's kernels. `counters()`
-counts at the same boundaries: chunks, the extend's jobs, DP cells and
-upload bytes, and the jobs left to the host.
+counts at the same boundaries: the records the engine seeded itself,
+chunks, the extend's jobs, DP cells and upload bytes, and the jobs left
+to the host.
 """
 
 from __future__ import annotations
@@ -142,8 +146,18 @@ def _resident_ref_codes(references, engine, device: torch.device) -> torch.Tenso
 
 
 # one resident index (hashes, bucket table) per run and device, shared by
-# every worker's pipeline (--device-seed)
+# every worker's pipeline (seeding on the device)
 _SEED_IX_CACHE: dict = {}
+
+
+def seeds_on_device(device: torch.device, device_seed: bool = False) -> bool:
+    """Whether a pipeline that extends on `device` (the first entry of its
+    list) seeds and looks up each chunk there too: on a CUDA card always
+    (``--device-seed`` names that default), on the CPU only where
+    `device_seed` asks for the kernels' plain versions, which are far
+    slower than the engine's host seeding. Under --shard-index the
+    sharded index serves the lookups instead."""
+    return device.type == "cuda" or device_seed
 
 
 def _int64_bits(a: np.ndarray) -> np.ndarray:
@@ -196,8 +210,9 @@ def _at_least_one(a: np.ndarray) -> np.ndarray:
 # phase_b_s: the spans' keys, set_device_results' time, and the whole
 # mapping thread's (a worker from start to exit; the single pipeline's
 # mapping loop)
-SPAN_TIMERS = ("read_wait_s", "handoff_wait_s", "worker_setup_s", "input_wait_s", "dispatch_s",
-               "device_wait_s", "device_results_s", "emit_s", "worker_s")
+SPAN_TIMERS = ("read_wait_s", "handoff_wait_s", "worker_setup_s", "input_wait_s",
+               "device_seed_s", "dispatch_s", "device_wait_s", "device_results_s", "emit_s",
+               "worker_s")
 # the pipeline's own counters, beside the engine's
 EXTEND_COUNTERS = ("chunks", "device_jobs", "device_cells", "upload_bytes")
 
@@ -278,14 +293,12 @@ class NativePipeline:
                 "(host SSW resolves all gapped alignments)")
             use_device = False
         self.use_device = use_device
-        # --device-seed needs the device path: --no-tpu keeps host seeding
-        self.device_seed = device_seed and use_device
         # --shard-index: the shards stay on the devices even with --no-tpu,
         # which turns off only the extend
         self.shard_index = bool(shard_index)
         # the extend's devices, round-robin (`_dispatch`): the devices
         # given, else every local one where the run needs a device; the
-        # first one also seeds (--device-seed)
+        # first one also seeds (`seeds_on_device`)
         if devices is not None:
             self._devices = check_devices(devices)
         elif use_device or self.shard_index:
@@ -293,15 +306,18 @@ class NativePipeline:
         else:
             self._devices = [torch.device(device)]
         self.device = self._devices[0]
+        # seeding needs the device path (--no-tpu keeps host seeding), and
+        # the sharded index takes precedence
+        self.device_seed = (use_device and not self.shard_index
+                            and seeds_on_device(self.device, device_seed))
         self._next_dev = 0  # dispatches to a list of more than one entry
         self.dispatched = [0] * len(self._devices)  # extend batches an entry
         self.streams = {}  # a mapping thread's stream a card (stream_context)
         self._index = index
         self._params = index_parameters
         self._map_param = map_param
-        self._seed_ix = None
-        self.device_seed_s = 0.0  # wall time of _preseed before the engine
-        self.host_seeded = 0  # records the engine seeded under --device-seed
+        self._seed_ix = None  # the resident seed index, when seeding on the device
+        self.host_seeded = 0  # records the engine seeded itself
         self.sharded_index = sharded_index
         if self.shard_index and sharded_index is None:
             self.sharded_index = build_sharded_index(index, self.device, self._devices)
@@ -317,6 +333,8 @@ class NativePipeline:
             copies = {d: _resident_ref_codes(references, self.engine, d)
                       for d in dict.fromkeys(self._devices)}
             self._ref_codes = [copies[d] for d in self._devices]
+        if self.device_seed:
+            self._seed_ix = _resident_seed_index(index, self.device)
 
     SEED_L = 256  # longest read seeded on the device (longer: host)
 
@@ -332,25 +350,24 @@ class NativePipeline:
         the device: the chunk's codes go up, `seed_and_find` seeds,
         compacts and looks them up there into one buffer, and the arrays
         `chunk_a_fx_pre` reads come back in one copy into pinned memory
-        (counts[i] = -1: the engine seeds record i itself)."""
-        t0 = time.perf_counter()
-        if self._seed_ix is None:
-            self._seed_ix = _resident_seed_index(self._index, self.device)
-        codes, lens = self.engine.fx_codes(fx, n_records, self.SEED_L)
-        sp, rp = self._params.syncmer, self._params.randstrobe
-        buf, total = seed_and_find(self._upload(codes, self.device),
-                                   self._upload(lens, self.device), *self._seed_ix, sp.k,
-                                   sp.s, sp.t_syncmer, rp.w_min, rp.w_max, rp.q, rp.max_dist,
-                                   self.SEED_L, self._index.bits)
-        if buf.device.type == "cuda":  # the chunk's arrays back in one copy
-            host = torch.empty(buf.shape, dtype=torch.uint8, pin_memory=True)
-            host.copy_(buf, non_blocking=True)
-            torch.cuda.current_stream(buf.device).synchronize()
-            buf = host
-        counts, offsets, hashes, starts, ends, is_rev, positions = (
-            x.numpy() for x in strobe_views(buf, n_records, total))
-        self.host_seeded += int((counts < 0).sum())
-        self.device_seed_s += time.perf_counter() - t0
+        (counts[i] = -1: the engine seeds record i itself). The seeding,
+        from the codes' export to the arrays on the host, is the span
+        ``rsb.seed#<chunk>`` (`device_seed_s`)."""
+        with Span(self.span_s, "device_seed_s", "seed", chunk_index):
+            codes, lens = self.engine.fx_codes(fx, n_records, self.SEED_L)
+            sp, rp = self._params.syncmer, self._params.randstrobe
+            buf, total = seed_and_find(self._upload(codes, self.device),
+                                       self._upload(lens, self.device), *self._seed_ix, sp.k,
+                                       sp.s, sp.t_syncmer, rp.w_min, rp.w_max, rp.q,
+                                       rp.max_dist, self.SEED_L, self._index.bits)
+            if buf.device.type == "cuda":  # the chunk's arrays back in one copy
+                host = torch.empty(buf.shape, dtype=torch.uint8, pin_memory=True)
+                host.copy_(buf, non_blocking=True)
+                torch.cuda.current_stream(buf.device).synchronize()
+                buf = host
+            counts, offsets, hashes, starts, ends, is_rev, positions = (
+                x.numpy() for x in strobe_views(buf, n_records, total))
+            self.host_seeded += int((counts < 0).sum())
         return self.engine.chunk_a_fx_pre(
             fx, chunk_index, counts, offsets, _at_least_one(hashes.view(np.uint64)),
             *map(_at_least_one, (starts, ends, is_rev, positions)))
@@ -458,12 +475,13 @@ class NativePipeline:
 
     def _chunk_a(self, fx, n_records: int, chunk_index: int):
         """Phase A of one reader chunk: its lookups served by the sharded
-        index under --shard-index, else seeded on the device under
-        --device-seed."""
-        if self.shard_index:
-            return self._shard_chunk_a(fx, n_records, chunk_index)
+        index under --shard-index, else seeded and looked up on the
+        device where `device_seed`, else all on the host."""
         if self.device_seed:
             return self._preseed(fx, n_records, chunk_index)
+        self.host_seeded += n_records
+        if self.shard_index:
+            return self._shard_chunk_a(fx, n_records, chunk_index)
         return self.engine.chunk_a_fx(fx, chunk_index)
 
     def _dispatch(self, buf: np.ndarray, Q: int, T: int, sub: int):
@@ -521,8 +539,10 @@ class NativePipeline:
     # --- two-phase API (callers drive the cross-chunk pipelining) -------
 
     def start_chunk(self, records1, records2, records3, chunk_index: int):
-        """Phase A + async device dispatch; returns an opaque state."""
+        """Phase A (host seeding) + async device dispatch; returns an
+        opaque state."""
         with Span(self.span_s, None, "phase_a", chunk_index):
+            self.host_seeded += len(records1) + len(records2) + len(records3)
             chunk = self.engine.chunk_a(records1, records2, records3, chunk_index)
         return chunk, self._plan_and_dispatch(chunk, chunk_index), chunk_index
 
@@ -638,10 +658,11 @@ class NativePipeline:
         return n_reads
 
     def counters(self) -> dict:
-        """The engine's counters, then the pipeline's: reads seeded on the
-        host under --device-seed, chunks, the extend's jobs, DP cells and
-        upload bytes, and the planned jobs left to the host (no bucket
-        fits them, or a batch under MIN_DEVICE_JOBS)."""
+        """The engine's counters, then the pipeline's: the records the
+        engine seeded on the host (every record, or where seeding runs on
+        the device its tie and long reads), chunks, the extend's jobs, DP
+        cells and upload bytes, and the planned jobs left to the host (no
+        bucket fits them, or a batch under MIN_DEVICE_JOBS)."""
         shapes = self.engine.job_shapes()
         return {**self.engine.counters(), "host_seeded": self.host_seeded, **self.counts,
                 "small_to_host": shapes["small_to_host"], "unbucketed": shapes["unbucketed"]}
@@ -651,8 +672,7 @@ class NativePipeline:
         return list(self.dispatched)
 
     def timers(self) -> dict:
-        return {**self.engine.timers(), "device_seed_s": self.device_seed_s,
-                "shard_lookup_s": self.shard_lookup_s,
+        return {**self.engine.timers(), "shard_lookup_s": self.shard_lookup_s,
                 "rescue_preflight_s": self.rescue_preflight_s, **self.span_s}
 
     @contextlib.contextmanager
@@ -784,6 +804,15 @@ class ThreadedNativePipeline:
         # once, and each worker looks up on its own streams
         self.sharded_index = (build_sharded_index(index, torch.device(device), devices)
                               if shard_index else None)
+        # where the workers will seed on the device, its resident index goes
+        # up here, in set-up, once for all of them (`_SEED_IX_CACHE`); the
+        # workers' pipelines decide the same way (the gap rule: NativePipeline)
+        self.device_seed = False
+        if use_device and aln_params.gap_extend < aln_params.gap_open and not shard_index:
+            first = (check_devices(devices) if devices is not None else local_devices(device))[0]
+            self.device_seed = seeds_on_device(first, device_seed)
+            if self.device_seed:
+                _resident_seed_index(index, first)
         self._mk = lambda: NativePipeline(
             index, index_parameters, references, aln_params, map_param,
             read_group_id, use_device=use_device, batch_size=batch_size,

@@ -4,10 +4,10 @@ Plays the role of reference src/main.cpp run_rabbitsalign on one host:
 the native pipeline (pipeline/native_pipeline.py) runs the C++ engine's
 phases with the extend batches on the devices of ``--device`` (for
 cuda every card the process sees, in turn), on one mapping thread
-(``-t 1``) or on ``-t`` workers (default 3), with ``--device-seed``
-seeding and looking up each chunk's reads on the first card, or
-``--shard-index`` serving phase A's index lookups from the index cut
-into hash ranges, one a card. The device prewarm (kernel build, every
+(``-t 1``) or on ``-t`` workers (default 3), each chunk's reads seeded
+and looked up on the first card (``--device-seed`` names that default),
+or with ``--shard-index`` phase A's index lookups served from the index
+cut into hash ranges, one a card. The device prewarm (kernel build, every
 card's CUDA context, int16 probe) runs while the reference and index
 load. ``--mmap-index`` opens the index
 through its columnar sidecar, which ``-i`` writes beside the ``.sti``;
@@ -411,7 +411,7 @@ def _log_mapping(opt, pipeline, n_reads: int, elapsed: float) -> None:
         # the lookups' share of phase A, beside the engine's seeding
         logger.info(f"Sharded lookups: {tm['shard_lookup_s']:.2f} s, rescue preflight "
                     f"{tm['rescue_preflight_s']:.2f} s, feed misses {c['feed_miss']}")
-    elif opt.device_seed and opt.use_tpu:
+    elif pipeline.device_seed:
         # the device's share of phase A, which the engine's timers do not see
         logger.info(f"Device seeding: {tm['device_seed_s']:.2f} s, "
                     f"{c['host_seeded']} tie or long reads seeded on the host")

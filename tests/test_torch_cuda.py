@@ -1,9 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch versions on the
 same GPU inputs, exact, at every engine bucket shape (the extend) and at
 B = 1, 33 and 4096 reads (seeding and lookup), the sharded index's run
-lookup at 1 and 4 shards of one card, and the 3-worker pipeline,
---device-seed and --shard-index on the GPU against one worker and the
-default run, the multi-host pod's split index and a two-process pod on
+lookup at 1 and 4 shards of one card, and the 3-worker pipeline, the
+default run's seeding on the card against host seeding and --shard-index
+on the GPU against one worker and the default run, the multi-host pod's split index and a two-process pod on
 the card, and a device list of several entries (two of the one card; every
 card where there are two or more): the round-robin extend, the genome
 a card, the workers' streams a card and the shards a card against the CPU;
@@ -465,8 +465,10 @@ def test_index_find_all_equal_index_on_cuda(cuda, seed_world):
 @pytest.mark.cuda
 @pytest.mark.parametrize("threads", ["1", "3"])
 def test_device_seed_matches_host_seeding_on_cuda(cuda, tmp_path, threads):
-    """--device-seed on the card: the SAM equals the default run's, and
-    both seeding kernels launched, besides the extend kernels."""
+    """The default run on the card seeds and looks up there: both seeding
+    kernels launch, besides the extend kernels, and its SAM equals a
+    host-seeded run's (`--device cpu`) byte for byte. `--device-seed`
+    names that default: the same launches, the same SAM."""
     rng = np.random.RandomState(6)
     genome = rng.choice(np.frombuffer(b"ACGT", np.uint8), 200_000).tobytes()
     (tmp_path / "ref.fa").write_bytes(b">chr1\n" + genome + b"\n")
@@ -475,18 +477,24 @@ def test_device_seed_matches_host_seeding_on_cuda(cuda, tmp_path, threads):
     write_fastq(tmp_path / "se.fq", [revcomp(r) if i % 4 == 1 else r for i, r in enumerate(reads)],
                 b"s")
     argv = [str(tmp_path / "ref.fa"), str(tmp_path / "se.fq"), "--chunk-size", "250",
-            "--tpu-batch", "128", "--device", "cuda", "-t", threads]
-    outs = []
-    for extra in ([], ["--device-seed"]):
+            "--tpu-batch", "128", "-t", threads]
+    outs = {}
+    for name, extra in (("card", ["--device", "cuda"]),
+                        ("flag", ["--device", "cuda", "--device-seed"]),
+                        ("host", ["--device", "cpu"])):
         seeds, finds, fwd = seed_cuda.launches_seed, seed_cuda.launches_find, sw_cuda.launches
         assert port_main([*argv, *extra, "-o", str(tmp_path / "out.sam")]) == 0
         launched = (seed_cuda.launches_seed - seeds, seed_cuda.launches_find - finds)
-        assert sw_cuda.launches > fwd
-        assert (min(launched) >= 8) if extra else launched == (0, 0)
-        outs.append(b"".join(ln for ln in open(tmp_path / "out.sam", "rb")
-                             if not ln.startswith(b"@PG")))
-    assert outs[0] == outs[1]
-    assert len(outs[0].splitlines()) > 2000
+        if name == "host":
+            assert launched == (0, 0) and sw_cuda.launches == fwd
+        else:
+            assert sw_cuda.launches > fwd
+            assert min(launched) >= 8  # a launch of each a chunk: 9 chunks of 250 reads
+        outs[name] = b"".join(ln for ln in open(tmp_path / "out.sam", "rb")
+                              if not ln.startswith(b"@PG"))
+    assert outs["card"] == outs["host"]
+    assert outs["flag"] == outs["host"]
+    assert len(outs["host"].splitlines()) > 2000
 
 
 class _SentinelIndex:

@@ -126,3 +126,71 @@ def test_device_seed_without_gpu_is_refused(data, capsys):
     assert port_main([str(data / "ref.fa"), str(data / "se.fq"), "-t", "1", "--device-seed",
                       "-o", str(data / "nogpu.sam")]) == 1
     assert "no CUDA device" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("device,flag,seeds", [
+    ("cuda", False, True), ("cuda:0", False, True), ("cuda", True, True),
+    ("cpu", False, False), ("cpu", True, True),
+])
+def test_seeds_on_device_where_the_extend_runs_on_a_card(device, flag, seeds):
+    """Phase A seeds on the first device of the extend's list where it is
+    a CUDA card, with or without --device-seed; on the CPU only where the
+    flag asks for the plain versions."""
+    import torch
+
+    assert pnp.seeds_on_device(torch.device(device), flag) is seeds
+
+
+def _pipeline_args(data):
+    refs = References.from_fasta(str(data / "ref.fa"))
+    index = StrobemerIndex(refs, IndexParameters.from_read_length(150))
+    index.populate(0.0002)
+    mp = MappingParameters(r=150, rescue_cutoff=min(2 * index.filter_cutoff, 1000))
+    return index, index.parameters, refs, AlignmentParameters(), mp
+
+
+HOST_SEEDING = {
+    "device-cpu": {"use_device": True, "device": "cpu"},
+    "no-tpu": {"use_device": False},
+    "shard-index": {"use_device": True, "device": "cpu", "shard_index": True},
+}
+
+
+@pytest.mark.parametrize("workers", [1, 2])
+@pytest.mark.parametrize("mode", list(HOST_SEEDING))
+def test_host_seeding_off_the_card(data, mode, workers, monkeypatch):
+    """With --device cpu, --no-tpu or --shard-index the engine seeds every
+    record on the host: no seeding kernel or plain version is called, no
+    seed index goes up, `device_seed_s` stays 0 and `host_seeded` counts
+    every record."""
+    monkeypatch.setattr(pnp, "seed_and_find", lambda *a: pytest.fail("device seeding ran"))
+    monkeypatch.setattr(pnp, "_resident_seed_index",
+                        lambda *a: pytest.fail("the seed index was uploaded"))
+    args = _pipeline_args(data)
+    kw = HOST_SEEDING[mode]
+    if workers == 1:
+        pipe = pnp.NativePipeline(*args, **kw)
+    else:
+        pipe = pnp.ThreadedNativePipeline(*args, n_workers=workers, **kw)
+    assert not pipe.device_seed
+    out = []
+    assert pipe.map_file(str(data / "se.fq"), "", False, 64, out.append) == 300
+    assert pipe.timers()["device_seed_s"] == 0
+    assert pipe.counters()["host_seeded"] == 300
+
+
+def test_threaded_pipeline_uploads_the_seed_index_in_setup(data, monkeypatch):
+    """The seed index goes up once, when the threaded pipeline is built
+    (set-up), and the workers' pipelines find it there: mapping uploads
+    nothing more."""
+    monkeypatch.setattr(pnp, "_SEED_IX_CACHE", {})
+    args = _pipeline_args(data)
+    tp = pnp.ThreadedNativePipeline(*args, n_workers=2, device="cpu", device_seed=True)
+    assert tp.device_seed
+    (key, cached), = pnp._SEED_IX_CACHE.items()
+    assert key == (id(args[0]), "cpu")
+    monkeypatch.setattr(pnp, "_int64_bits", lambda a: pytest.fail("uploaded while mapping"))
+    out = []
+    assert tp.map_file(str(data / "se.fq"), "", False, 64, out.append) == 300
+    assert pnp._SEED_IX_CACHE == {key: cached}
+    assert tp.timers()["device_seed_s"] > 0

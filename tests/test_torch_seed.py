@@ -24,7 +24,8 @@ from rabbitsalign_tpu.seed import syncmers as jsy
 from rabbitsalign_tpu_torch.index.params import IndexParameters
 from rabbitsalign_tpu_torch.ops import seed_cuda
 from rabbitsalign_tpu_torch.ops import seed_device as psd
-from rabbitsalign_tpu_torch.pipeline.native_pipeline import NativePipeline
+from rabbitsalign_tpu_torch.pipeline.native_pipeline import (SPAN_TIMERS, NativePipeline,
+                                                             _resident_seed_index)
 from rabbitsalign_tpu_torch.seed import hash as phash
 from rabbitsalign_tpu_torch.seed import randstrobes as prs
 from rabbitsalign_tpu_torch.seed import syncmers as psy
@@ -341,8 +342,10 @@ def test_preseed_arrays_match_jax():
     jax_pipe._devices = jax.devices()
     port = object.__new__(NativePipeline)
     port.engine = _StubEngine(codes, lens)
-    port._seed_ix, port._index, port._params = None, index, IndexParameters.from_read_length(150)
-    port.device, port.device_seed_s, port.host_seeded = torch.device("cpu"), 0.0, 0
+    port._index, port._params = index, IndexParameters.from_read_length(150)
+    port.device, port.host_seeded = torch.device("cpu"), 0
+    port._seed_ix = _resident_seed_index(index, port.device)  # uploaded in set-up
+    port.span_s = dict.fromkeys(SPAN_TIMERS, 0.0)
     assert jax_pipe._preseed(None, len(reads), 0) == port._preseed(None, len(reads), 0) == "chunk"
 
     want, got = jax_pipe.engine.arrays, port.engine.arrays
@@ -354,4 +357,5 @@ def test_preseed_arrays_match_jax():
         assert g.dtype == w.dtype and g.size == max(total, 1)
         assert np.array_equal(g[:total], w[:total])
     assert port.host_seeded == int((counts < 0).sum()) >= 40  # ties and reads over 256
+    assert port.span_s["device_seed_s"] > 0
     assert (got[6][:total] >= 0).sum() > total // 2  # most strobes hit the index

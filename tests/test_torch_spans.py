@@ -30,8 +30,9 @@ MAIN_SPANS = {"rsb.read", "rsb.handoff"}
 WORKER_SPANS = {"rsb.setup", "rsb.input_wait"}
 CHUNK_SPANS = ("phase_a", "dispatch", "device_wait", "phase_b", "emit")
 # the worker budget's named parts: the pipeline's timers and the engine's
-NAMED_PARTS = ("worker_setup_s", "input_wait_s", "phase_a_s", "dispatch_s", "device_wait_s",
-               "device_results_s", "host_align_s", "phase_b_s", "chunk_out_s", "emit_s")
+NAMED_PARTS = ("worker_setup_s", "input_wait_s", "device_seed_s", "phase_a_s", "dispatch_s",
+               "device_wait_s", "device_results_s", "host_align_s", "phase_b_s", "chunk_out_s",
+               "emit_s")
 
 
 @pytest.fixture(scope="module")
@@ -56,41 +57,44 @@ def small_batches(monkeypatch):
     monkeypatch.setattr(NativeEngine, "MIN_DEVICE_JOBS", 8)
 
 
-def _map(world, n_workers=None):
+def _map(world, n_workers=None, device_seed=False):
     """Map the SE reads on the CPU: the sequential NativePipeline when
-    n_workers is None, else ThreadedNativePipeline. Returns (n_reads,
-    bytes, pipe)."""
+    n_workers is None, else ThreadedNativePipeline; `device_seed` seeds
+    with the kernels' plain versions. Returns (n_reads, bytes, pipe)."""
     d, refs, index = world
     mp = MappingParameters(r=150, rescue_cutoff=2 * index.filter_cutoff)
     args = (index, index.parameters, refs, AlignmentParameters(), mp)
     if n_workers is None:
-        pipe = pnp.NativePipeline(*args, use_device=True, batch_size=32, device="cpu")
+        pipe = pnp.NativePipeline(*args, use_device=True, batch_size=32, device="cpu",
+                                  device_seed=device_seed)
     else:
         pipe = pnp.ThreadedNativePipeline(*args, use_device=True, batch_size=32,
-                                          n_workers=n_workers, device="cpu")
+                                          n_workers=n_workers, device="cpu",
+                                          device_seed=device_seed)
     out = []
     n = pipe.map_file(str(d / "se.fq"), "", False, CHUNK, out.append)
     return n, b"".join(out), pipe
 
 
-def _profiled_spans(world, tmp_path):
+def _profiled_spans(world, tmp_path, device_seed=False):
     """A 3-worker run under torch.profiler with every thread profiled:
-    (name, thread id) of each `rsb.*` span, the main thread's id, and the
-    extend batches dispatched."""
+    (name, thread id, start, end) of each `rsb.*` span, the main thread's
+    id, and the pipeline."""
     from torch._C._profiler import _ExperimentalConfig
 
     with profile(activities=[ProfilerActivity.CPU],
                  experimental_config=_ExperimentalConfig(profile_all_threads=True)) as prof:
         with torch.profiler.record_function("test.main"):
-            n, _, pipe = _map(world, 3)
+            n, _, pipe = _map(world, 3, device_seed)
             assert n == N_SE
     path = tmp_path / "trace.json"
     prof.export_chrome_trace(str(path))
     events = [e for e in json.loads(path.read_text())["traceEvents"]
               if e.get("ph") == "X" and e.get("cat") == "user_annotation"]
     main_tid = next(e["tid"] for e in events if e["name"] == "test.main")
-    spans = [(e["name"], e["tid"]) for e in events if e["name"].startswith("rsb.")]
-    return spans, main_tid, sum(pipe.dispatches())
+    spans = [(e["name"], e["tid"], float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+             for e in events if e["name"].startswith("rsb.")]
+    return spans, main_tid, pipe
 
 
 def test_spans_in_the_profiler_trace(world, small_batches, tmp_path):
@@ -99,7 +103,9 @@ def test_spans_in_the_profiler_trace(world, small_batches, tmp_path):
     has exactly one phase A, dispatch, phase B and emit span and a device
     wait span for each of its extend batches, and all of a chunk's spans
     sit on one worker thread."""
-    spans, main_tid, n_batches = _profiled_spans(world, tmp_path)
+    spans, main_tid, pipe = _profiled_spans(world, tmp_path)
+    n_batches = sum(pipe.dispatches())
+    spans = [(n, tid) for n, tid, _, _ in spans]
     names = {n for n, _ in spans}
     assert MAIN_SPANS | WORKER_SPANS <= names
     assert {tid for n, tid in spans if n in MAIN_SPANS} == {main_tid}
@@ -119,6 +125,25 @@ def test_spans_in_the_profiler_trace(world, small_batches, tmp_path):
         assert len(tids) == 1 and main_tid not in tids, (ci, found)
     waits = sum(k == "device_wait" for found in by_chunk.values() for k, _ in found)
     assert waits == n_batches > 0
+
+
+def test_seed_span_inside_phase_a(world, tmp_path):
+    """Seeding on the device (the kernels' plain versions, asked for on
+    the CPU): each chunk has one `rsb.seed#c`, inside its
+    `rsb.phase_a#c` on the same thread, and `device_seed_s` is the sum of
+    their seconds; the default run on the CPU has none."""
+    spans, _, pipe = _profiled_spans(world, tmp_path, device_seed=True)
+    chunk_spans = {(n, tid): (t0, t1) for n, tid, t0, t1 in spans if "#" in n}
+    seeds = [(n, tid) for n, tid in chunk_spans if n.startswith("rsb.seed#")]
+    assert sorted(int(n.split("#")[1]) for n, _ in seeds) == list(range(-(-N_SE // CHUNK)))
+    for name, tid in seeds:
+        t0, t1 = chunk_spans[name, tid]
+        a0, a1 = chunk_spans[name.replace("seed", "phase_a"), tid]
+        assert a0 <= t0 <= t1 <= a1, name
+    seconds = sum(t1 - t0 for t0, t1 in (chunk_spans[k] for k in seeds)) / 1e6
+    assert pipe.timers()["device_seed_s"] == pytest.approx(seconds, rel=0.2)
+    plain, _, _ = _profiled_spans(world, tmp_path)
+    assert not any(n.startswith("rsb.seed#") for n, *_ in plain)
 
 
 def test_no_record_function_without_a_profiler(world, monkeypatch):
