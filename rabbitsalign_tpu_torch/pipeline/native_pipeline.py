@@ -68,7 +68,7 @@ from typing import Callable, Iterable, Optional, Tuple
 import numpy as np
 import torch
 
-from ..native.engine import NativeEngine, NativeReader, engine_available
+from ..native.engine import ENGINE_BUCKETS, NativeEngine, NativeReader, engine_available
 from ..ops.extend_device import extend_batch_packed_resident_q2, resident_ref_codes
 from ..ops.seed_device import seed_and_find, strobe_views
 from ..ops.sw_cuda import SwParams
@@ -661,11 +661,17 @@ class NativePipeline:
         """The engine's counters, then the pipeline's: the records the
         engine seeded on the host (every record, or where seeding runs on
         the device its tie and long reads), chunks, the extend's jobs, DP
-        cells and upload bytes, and the planned jobs left to the host (no
-        bucket fits them, or a batch under MIN_DEVICE_JOBS)."""
+        cells and upload bytes, the planned jobs left to the host (no
+        bucket fits them, or a batch under MIN_DEVICE_JOBS), the jobs
+        planned into the read-length profile's tight bucket
+        (`engine_buckets(r)[0]`; 0 where the engine has none) and every
+        job `plan_batches` saw."""
         shapes = self.engine.job_shapes()
+        per_bucket = [n for _, _, n in shapes["buckets"]]
+        tight = per_bucket[0] if self.engine.buckets[0] not in ENGINE_BUCKETS else 0
         return {**self.engine.counters(), "host_seeded": self.host_seeded, **self.counts,
-                "small_to_host": shapes["small_to_host"], "unbucketed": shapes["unbucketed"]}
+                "small_to_host": shapes["small_to_host"], "unbucketed": shapes["unbucketed"],
+                "tight_jobs": tight, "planned_jobs": sum(per_bucket) + shapes["unbucketed"]}
 
     def dispatches(self) -> list:
         """Extend batches dispatched to each entry of the device list."""

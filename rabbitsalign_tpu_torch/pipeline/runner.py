@@ -404,7 +404,8 @@ def _log_mapping(opt, pipeline, n_reads: int, elapsed: float) -> None:
                     f"{sum(pipeline.dispatches())} batches of {c['chunks']} chunks, "
                     f"{c['upload_bytes'] / 1e6:.1f} MB uploaded; on the host "
                     f"{c['small_to_host']} in small batches, {c['unbucketed']} unbucketed, "
-                    f"{c['fallbacks']} rejected")
+                    f"{c['fallbacks']} rejected; {c['planned_jobs']} planned, "
+                    f"{c['tight_jobs']} in the tight bucket")
     if len(pipeline.dispatches()) > 1:
         logger.info(f"Extend dispatches an entry of the device list: {pipeline.dispatches()}")
     if pipeline.sharded_index is not None:

@@ -21,6 +21,8 @@ so it also runs where JAX is absent:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
 
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -36,10 +38,16 @@ from .torch_chain_cases import (chain_reads, composed_reads, merge_edge_streams,
                                 mixed_merge_streams, mixed_runs, nam_key, stream_tensors,
                                 synthetic_streams, wide_streams, world_genome)
 from .torch_extend_cases import (READ_LEN, gap_pairs, mixed_pairs, q2_batch, revcomp, sim_read,
-                                 write_fastq)
+                                 write_fastq, write_pe250)
 from .torch_gather_lanes import RunsIndex
 from .torch_seed_cases import code_batch, edge_reads, long_scan_reads, sampled_reads, tie_reads
 from .util import random_dna
+
+
+# the engine's buckets at r = 150, and the tight bucket of 250-base reads,
+# (256, 360): the forward at R = 8 with T = 360
+BUCKET_SHAPES = ([(q, t) for q, t, _, _ in engine_buckets(150)]
+                 + [engine_buckets(250)[0][:2]])
 
 
 @pytest.fixture
@@ -68,7 +76,7 @@ def _assert_forward_equal(got, want, valid):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("Q,T", [(q, t) for q, t, _, _ in engine_buckets(150)])
+@pytest.mark.parametrize("Q,T", BUCKET_SHAPES)
 @pytest.mark.parametrize("sw", [SwParams(2, 8, 12, 1), SwParams(1, 1, 2, 1)],
                          ids=["default", "flat"])
 def test_kernels_match_plain_versions(cuda, Q, T, sw):
@@ -94,7 +102,7 @@ def test_kernels_match_plain_versions(cuda, Q, T, sw):
     assert torch.equal(packed, tb_cuda.sw_traceback_packed_plain(kernel[3], *kernel[:3]))
 
 
-TB_SHAPES = [(q, t) for q, t, _, _ in engine_buckets(150)] + [(40, 72), (13, 21)]
+TB_SHAPES = BUCKET_SHAPES + [(40, 72), (13, 21)]
 
 
 @pytest.mark.cuda
@@ -198,7 +206,7 @@ def test_fused_extend_packs_in_the_traceback_kernel(cuda, monkeypatch):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("Q,T", [(q, t) for q, t, _, _ in engine_buckets(150)])
+@pytest.mark.parametrize("Q,T", BUCKET_SHAPES)
 def test_int16_kernel_matches_plain_and_int32_kernel(cuda, monkeypatch, Q, T):
     buf, genome = q2_batch(mixed_pairs(Q, T, 70, seed=Q), Q, seed=Q)
     q_t, t_t, qlen, tlen = px.unpack_q2(
@@ -222,7 +230,7 @@ def test_int16_kernel_matches_plain_and_int32_kernel(cuda, monkeypatch, Q, T):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("Q,T", [(q, t) for q, t, _, _ in engine_buckets(150)])
+@pytest.mark.parametrize("Q,T", BUCKET_SHAPES)
 @pytest.mark.parametrize("split", sw_cuda.SPLITS)
 def test_split_kernel_matches_plain_and_one_pair_kernel(cuda, monkeypatch, Q, T, split):
     """The split kernels (2 and 4 pairs a warp) against their plain
@@ -245,7 +253,7 @@ def test_split_kernel_matches_plain_and_one_pair_kernel(cuda, monkeypatch, Q, T,
     assert sw_cuda.launches_split == launches + 1
 
 
-EDGE_SHAPES = [(q, t) for q, t, _, _ in engine_buckets(150)] + [(24, 40), (33, 47), (100, 130)]
+EDGE_SHAPES = BUCKET_SHAPES + [(24, 40), (33, 47), (100, 130)]
 
 
 @pytest.mark.cuda
@@ -1185,3 +1193,38 @@ def test_batch_aligner_on_cuda_runs_no_plain_version(cuda, batch_world, monkeypa
     launches = (sw_cuda.launches, tb_cuda.launches)
     assert _batch_results(BatchAligner(ap, 32, device=cuda), batch_world) == want
     assert sw_cuda.launches > launches[0] and tb_cuda.launches > launches[1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sw16", ["0", "1"], ids=["int32", "int16"])
+def test_pe250_on_the_card_matches_the_cpu(cuda, tmp_path, monkeypatch, capsys, sw16):
+    """2x250 pairs under the 250 profile the CLI estimates for them, at the
+    default 3 workers: the run on the card (both seeding kernels, the
+    (256, 360) extend at R = 8 in batches of 512, the forward in int32 or,
+    under RSB_SW16, int16) writes the SAM of the same run on the CPU (host
+    seeding, the extend's plain versions), and every planned job is in the
+    tight bucket."""
+    monkeypatch.setenv("RSB_SW16", sw16)
+    assert sw_cuda.pick_dtype(256, 360, SwParams(2, 8, 12, 1)) == (
+        torch.int16 if sw16 == "1" else torch.int32)
+    write_pe250(tmp_path, seed=251, n_pairs=3000)
+    argv = [str(tmp_path / "ref.fa"), str(tmp_path / "r1.fq"), str(tmp_path / "r2.fq"),
+            "--chunk-size", "1000", "-v"]
+    seeds, fwd, fwd16, tb = (seed_cuda.launches_seed, sw_cuda.launches, sw_cuda.launches_i16,
+                             tb_cuda.launches)
+    assert port_main(argv + ["-o", str(tmp_path / "card.sam")]) == 0
+    log = capsys.readouterr().err
+    assert "Estimated read length: 250 bp" in log
+    assert seed_cuda.launches_seed >= seeds + 3  # a launch a chunk: 3 chunks of 1000 pairs
+    assert tb_cuda.launches > tb
+    assert (sw_cuda.launches_i16 > fwd16) if sw16 == "1" else (sw_cuda.launches > fwd)
+    extend = re.search(r"Device extend: (\d+) jobs, \d+ DP cells in (\d+) batches.*; (\d+) "
+                       r"planned, (\d+) in the tight bucket", log)
+    assert extend, log[-3000:]
+    jobs, batches, planned, tight = map(int, extend.groups())
+    assert tight == planned >= jobs > 1000 and batches >= 3
+    assert port_main(argv + ["--device", "cpu", "-o", str(tmp_path / "cpu.sam")]) == 0
+    sams = [b"".join(ln for ln in open(tmp_path / f"{name}.sam", "rb")
+                     if not ln.startswith(b"@PG")) for name in ("card", "cpu")]
+    assert sams[0] == sams[1]
+    assert len(sams[0].splitlines()) >= 6000

@@ -96,15 +96,15 @@ def _emu_forward(launch, q_t, t_t, qlen, tlen, *before, sw=SW):
     return out[0], out[1], out[2], dirs
 
 
-@pytest.mark.parametrize("Q,T,B", [(40, 64, 16), (33, 47, 12), (152, 256, 8)],
-                         ids=["40x64", "33x47", "152x256"])
+@pytest.mark.parametrize("Q,T,B", [(40, 64, 16), (33, 47, 12), (152, 256, 8), (256, 360, 8)],
+                         ids=["40x64", "33x47", "152x256", "256x360"])
 @pytest.mark.parametrize("variant", ["int32", "int16", "split2", "split4"])
 @pytest.mark.parametrize("sw", [SW, FLAT], ids=["default", "flat"])
 def test_forward_source_on_host_matches_plain(forward_emu, monkeypatch, sw, variant, Q, T, B):
     """sw_forward.cu's own kernels, run on the host: score, t_end, q_end
     and the (B, Q, T) dirs on valid cells equal `sw_forward_plain` (int16
     in its own accumulator), at T a multiple of 16 (16-byte stores) and
-    not (byte stores), R = 2 and 5 rows a lane, with empty and clamped
+    not (byte stores), R = 2, 5 and 8 rows a lane (8: the 250 profile's bucket), with empty and clamped
     pairs, and with a gap extension of 0 (where the state the split
     kernels keep for idle lanes shows in the extension bits); the split
     kernels also equal `sw_forward_split_plain`."""

@@ -179,21 +179,38 @@ def test_randstrobes_query_vec_matches_jax(case):
         assert list(ps[i][valid[i]]) == list(g.start) and list(pe[i][valid[i]]) == list(g.end)
 
 
-@pytest.mark.parametrize("M", [256, 12])
-@pytest.mark.parametrize("window", ["r150", "wide"])
+def _window_profile(window: str) -> IndexParameters:
+    """The 150 profile, a wide window (w 20) at 150, or the 250 profile
+    (w_min 8, w_max 17, max_dist 180)."""
+    if window == "wide":
+        return IndexParameters.from_read_length(150, l=0, u=19, max_seed_len=255)
+    return IndexParameters.from_read_length(250 if window == "r250" else 150)
+
+
+def _read_len(window: str) -> int:
+    return 250 if window == "r250" else 150
+
+
+# M under a read's syncmers makes tie rows; at the 250 profile a row needs
+# over w_min = 8 syncmers for a strobe, so its small M is 24, not 12
+WINDOWS_M = [("r150", 256), ("r150", 12), ("wide", 256), ("wide", 12), ("r250", 256),
+             ("r250", 24)]
+
+
+@pytest.mark.parametrize("window,M", WINDOWS_M)
 def test_seed_lane_replay_matches_plain(window, M):
     """The lane-by-lane replay of csrc/seed_randstrobes.cu (tests/
     torch_seed_lanes.py: lane runs, rolled values, the warp scan, the
     tiles' scan and offsets, the linking lanes) writes the bytes of
     `seed_strobes_plain` on the edge reads (lengths 0 to 300, N's, tie
     rows) and reads of a genome; with M = 12 < L - k + 1 the rows with
-    more than M syncmers are tie rows too."""
-    p = (IndexParameters.from_read_length(150) if window == "r150" else
-         IndexParameters.from_read_length(150, l=0, u=19, max_seed_len=255))
+    more than M syncmers are tie rows too (M = 24 at the 250 profile)."""
+    p = _window_profile(window)
     sp, rp = p.syncmer, p.randstrobe
     args = (sp.k, sp.s, sp.t_syncmer, rp.w_min, rp.w_max, rp.q, rp.max_dist, M)
     genome = random_dna(20000, seed=5).encode()
-    reads = edge_reads(2) + sampled_reads(genome, 40, seed=3) + [genome[:50], genome[:256]]
+    reads = (edge_reads(2) + sampled_reads(genome, 40, seed=3, length=_read_len(window))
+             + [genome[:50], genome[:256]])
     codes, lens = code_batch(reads)
     got, total, lanes = seed_lanes(codes, lens, *args)
     want, want_total = psd.seed_strobes_plain(torch.from_numpy(codes), torch.from_numpy(lens),
@@ -202,7 +219,7 @@ def test_seed_lane_replay_matches_plain(window, M):
     assert np.array_equal(got, want.numpy())
     counts = psd.strobe_views(want, len(reads), total)[0].numpy()
     assert (counts == -1).sum() >= 3 and (counts > 0).any()
-    if M == 12:  # over M syncmers: tie rows
+    if M < 256:  # over M syncmers: tie rows
         assert (counts[len(edge_reads(2)):] == -1).sum() > 30
     else:
         assert (counts > 0).sum() >= 30
@@ -221,8 +238,7 @@ def seed_emu(tmp_path_factory):
     return lib
 
 
-@pytest.mark.parametrize("M", [256, 12])
-@pytest.mark.parametrize("window", ["r150", "wide"])
+@pytest.mark.parametrize("window,M", WINDOWS_M)
 def test_seed_kernel_source_on_host_matches_plain(seed_emu, window, M):
     """The seeding kernel's own source, run on the host by the thread-a-lane
     emulation, writes the bytes of `seed_strobes_plain` through the
@@ -230,12 +246,12 @@ def test_seed_kernel_source_on_host_matches_plain(seed_emu, window, M):
     nothing between the strobes and its scratch."""
     import ctypes
 
-    p = (IndexParameters.from_read_length(150) if window == "r150" else
-         IndexParameters.from_read_length(150, l=0, u=19, max_seed_len=255))
+    p = _window_profile(window)
     sp, rp = p.syncmer, p.randstrobe
     args = (sp.k, sp.s, sp.t_syncmer, rp.w_min, rp.w_max, rp.q, rp.max_dist, M)
     genome = random_dna(20000, seed=6).encode()
-    reads = edge_reads(5) + sampled_reads(genome, 60, seed=4) + [genome[:40], genome[:70]]
+    reads = (edge_reads(5) + sampled_reads(genome, 60, seed=4, length=_read_len(window))
+             + [genome[:40], genome[:70]])
     codes, lens = (torch.from_numpy(a) for a in code_batch(reads))
     N, L = codes.shape
     want, total = psd.seed_strobes_plain(codes, lens, *args)

@@ -189,3 +189,37 @@ def batch_jobs(genome: str, seed: int = 3):
             read[p] = b"CGTA"[b"ACGT".index(read[p])]
         jobs.append((bytes(read), genome[st - 50:st + 170].encode()))
     return jobs
+
+
+def write_pe250(d, seed: int, n_pairs: int = 300, genome_bp: int = 300_000,
+                deletion_every: int = 2, random_every: int = 25):
+    """`ref.fa`, `r1.fq` and `r2.fq` in `d`: 2x250 Illumina-like pairs on a
+    random genome, insert N(550, 100) clipped to [300, 1000], 0-5
+    substitutions a mate, a 1-5 bp deletion at read offset 40-200 in mate 1
+    of every `deletion_every`-th pair (gapped extends of 250-base queries),
+    and a random mate 2 in every `random_every`-th pair. Returns, for each
+    pair, whether its mate 2 is random."""
+    rng = np.random.RandomState(seed)
+    genome = rng.choice(np.frombuffer(b"ACGT", np.uint8), genome_bp).tobytes()
+    with open(d / "ref.fa", "wb") as f:
+        f.write(b">chr1\n" + genome + b"\n")
+    L = 250
+
+    def mate(st: int, deletion: int) -> bytes:
+        cut = int(rng.randint(40, 201))
+        rd = bytearray(genome[st:st + cut] + genome[st + cut + deletion:st + L + deletion])
+        for p in rng.choice(L, int(rng.randint(0, 6)), replace=False):
+            rd[p] = b"ACGT"[(b"ACGT".index(rd[p]) + int(rng.randint(1, 4))) % 4]
+        return bytes(rd)
+
+    r1, r2, random_mate = [], [], []
+    for i in range(n_pairs):
+        insert = int(np.clip(rng.normal(550, 100), 300, 1000))
+        st = int(rng.randint(genome_bp - 1010))
+        r1.append(mate(st, int(rng.randint(1, 6)) if i % deletion_every == 0 else 0))
+        random_mate.append(i % random_every == random_every - 1)
+        r2.append(rng.choice(np.frombuffer(b"ACGT", np.uint8), L).tobytes() if random_mate[-1]
+                  else revcomp(mate(st + insert - L, 0)))
+    write_fastq(d / "r1.fq", r1, b"p")
+    write_fastq(d / "r2.fq", r2, b"p")
+    return random_mate
