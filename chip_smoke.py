@@ -111,14 +111,18 @@ Chain. The device NAM front end (no CLI path runs it, as in the JAX
    against their plain versions, tolerance 0: the scan on the chunk and on
    10 000 tie-heavy reads (tests/torch_seed_cases.py `tie_reads`: tandem
    repeats of 1-29 bp units, homopolymers, N runs, where the scan replays
-   its automaton), the walk on the chunk's strobes, on the 80-copy repeat
-   of `long_runs_world` (runs of ~80 rows) and on `mixed_runs` (runs of 1
+   its automaton), the walk on the chunk's strobes in both layouts (the
+   dense (N, 192, 6) of the composed batch, and the compact one of the
+   main path, `walk_hits_compact` at cap = cutoff = the filter cutoff),
+   on the 80-copy repeat of `long_runs_world` (runs of ~80 rows; compact
+   too, where reads overflow their room) and on `mixed_runs` (runs of 1
    to 80 rows in one round), the merge on every stream of the chunk at
    caps 32, 4 (where streams overflow) and 200, and on its boundary
    streams (tests/torch_chain_cases.py `merge_edge_streams`, more than 128
    NAMs open among them) at caps 200, 129, 65, 33, 32, 8 and 3. Each
    kernel's time after an L2 flush and back to back, plain time, bound
-   and launches; the scan's time on the tie-heavy batch; the time of one
+   and launches (the walk's in the compact layout, with the dense
+   layout's time beside it); the scan's time on the tie-heavy batch; the time of one
    merge launch of `find_nams_device_chain` (one read's streams, 20
    reads); for the merge (`merge_report`) the chunk's stream lengths, the
    streams and hits a lane and the warp take, the slowest warp's work, a
@@ -147,7 +151,9 @@ Chain. The device NAM front end (no CLI path runs it, as in the JAX
    the same threading; the device runs must have dispatched extend
    batches, every kernel of a path must have launched in it: the seeding
    kernels in every path but the sharded ones (the default seeds on the
-   card), the run lookup in those alone, and the sharded runs must report
+   card), and the run walk (csrc/walk_hits.cu) there once a chunk (as
+   often as the seeding kernel), the run lookup in the sharded ones
+   alone, which launch neither, and the sharded runs must report
    no feed misses. Each run's device seeding time and its tie-or-long
    reads, or its sharded lookups' time, are printed beside its phase
    times.
@@ -329,8 +335,9 @@ SHARD_ROW_BYTES = 16
 # window and case tests against the NAM it joins, or its append: a floor,
 # since the tests against the other open NAMs depend on the table). The
 # walk: 16 bytes a strobe (its position and hash), 16 a walked run row
-# (hash, position, packed), 24 a slot of the (N, maxh, 6) hits (kept or
-# zero: the function writes them all), 25 a read (its count and offset
+# (hash, position, packed), 24 a slot of the hits (kept or zero: the
+# kernel writes every slot of a room), a strobe's in the compact layout of
+# the main path and maxh a read in the dense (N, maxh, 6), 25 a read (its count and offset
 # read, n_hits, total, good and overflow written). The scan seeder:
 # OPS_PER_SMER an s-mer, and the codes read and its (B, M) outputs written
 # once.
@@ -1312,6 +1319,20 @@ def shard_kernels(torch, card, index, se_fastq):
         {"find_runs": lib_ms}
 
 
+def walk_compact_err(torch, chain_cuda, front_device, args, n: int, total: int, err: dict,
+                     name: str):
+    """`walk_hits_compact` on `args` against its plain version, tolerance
+    0, the error folded into err["walk_hits"]; returns the kernel's views
+    (hits, n_hits, total, good, overflow)."""
+    got = front_device.walk_views(chain_cuda.walk_hits_compact(*args), n, total)
+    want = front_device.walk_views(front_device.walk_hits_compact_plain(*args), n, total)
+    e = max_abs_err(torch, zip(got, want))
+    err["walk_hits"] = max(err["walk_hits"], e)
+    check(e == 0, f"walk_hits_compact disagrees with its plain version on {name} "
+                  f"(max_abs_err {e})")
+    return got
+
+
 def chain_kernels(torch, card, index, se_fastq):
     """Phase Chain: the device NAM front end (kernels syncmers_scan,
     merge_hits and walk_hits, with the seeding and lookup kernels) on the
@@ -1440,6 +1461,11 @@ def chain_kernels(torch, card, index, se_fastq):
     err["walk_hits"] = max_abs_err(torch, zip(walked, front_device.walk_hits_plain(*walk_args)))
     check(err["walk_hits"] == 0, f"walk_hits disagrees with its plain version "
                                  f"(max_abs_err {err['walk_hits']})")
+    # the main path's layout: each read's room its strobe count at its
+    # strobe offset, every run that passes the filter walked whole
+    compact_args = (*views[:7], *planes, k, fc, fc)
+    compact = walk_compact_err(torch, chain_cuda, front_device, compact_args, n, total, err,
+                               "the chunk")
     front = front_device.front_hits(chunk, dev_index, params, fc)
     streams, _ = front_device.hit_streams(front)
     batch = chain_device.stream_batch(streams, dev)
@@ -1463,7 +1489,9 @@ def chain_kernels(torch, card, index, se_fastq):
     n_hits_all, n_emit = batch[0].shape[0], int(emitted[1].sum())
     say(f"index_find_device_gary equals the index_find kernel on the chunk's {total} strobes; "
         f"walk_hits equals its plain version ({int(walked[1].sum())} kept hits, "
-        f"{int(walked[2].sum())} found, {int(walked[3].sum())} walked strobes); merge_hits "
+        f"{int(walked[2].sum())} found, {int(walked[3].sum())} walked strobes), and "
+        f"walk_hits_compact its plain version ({int(compact[1].sum())} kept hits, "
+        f"{int(compact[4].sum())} reads overflow); merge_hits "
         f"equals its plain version on all {len(streams)} streams of the chunk ({n_hits_all} "
         f"hits, {n_emit} NAMs) at cap 32 ({n_ovf['chunk', 32]} streams overflow), 4 "
         f"({n_ovf['chunk', 4]}) and 200 ({n_ovf['chunk', 200]}), and on the "
@@ -1502,6 +1530,13 @@ def chain_kernels(torch, card, index, se_fastq):
                       f"{cutoff}, maxh {maxh}, cap {cap} (max_abs_err {e})")
         walks.append(f"{name} cutoff {cutoff} maxh {maxh} cap {cap}: {int(got[1].sum())} hits, "
                      f"{int(got[4].sum())} reads overflow")
+    rep_compact = walk_compact_err(torch, chain_cuda, front_device,
+                                   (*rep_args, rep_params.syncmer.k, rfc, rfc),
+                                   rep_args[0].numel(), rep_args[2].numel(), err, "the repeat")
+    check(bool(rep_compact[4].any()), "walk_hits_compact: no read of the 80-copy repeat "
+                                      "overflows its room")
+    walks.append(f"repeat compact cutoff {rfc} cap {rfc}: {int(rep_compact[1].sum())} hits, "
+                 f"{int(rep_compact[4].sum())} reads overflow")
     say(f"syncmers_scan equals its plain version on {n} tie-heavy reads "
         f"({int(tie_got[2].sum())} syncmers); walk_hits equals its plain version on the 80-copy "
         f"repeat's {len(rep_reads)} reads and the mixed runs' {mixed_args[0].numel()} reads "
@@ -1539,13 +1574,14 @@ def chain_kernels(torch, card, index, se_fastq):
         f"[{card}]")
     scan = lambda: seed_cuda.syncmers_scan(codes, lens, sp.k, sp.s, sp.t_syncmer, SEED_L)
     merge = lambda: chain_cuda.merge_hits(*batch, k, 32)
-    walk = lambda: chain_cuda.walk_hits(*walk_args)
+    walk = lambda: chain_cuda.walk_hits_compact(*compact_args)
+    dense_ms = device_ms(torch, lambda: (flush(), chain_cuda.walk_hits(*walk_args)), 10) - flush_ms
     times = {}
     for name, fn, plain_fn, reps in (
             ("syncmers_scan", scan, lambda: sd.syncmers_scan_plain(
                 codes, lens, sp.k, sp.s, sp.t_syncmer, SEED_L), 1),
             ("merge_hits", merge, lambda: chain_device.merge_hits_plain(*batch, k, 32), 1),
-            ("walk_hits", walk, lambda: front_device.walk_hits_plain(*walk_args), 3)):
+            ("walk_hits", walk, lambda: front_device.walk_hits_compact_plain(*compact_args), 3)):
         cold = device_ms(torch, lambda: (flush(), fn()), 10) - flush_ms
         times[name] = (cold, time_ms(torch, plain_fn, reps))
         say(f"{name}: {cold:.4f} ms on the card after an L2 flush, {device_ms(torch, fn, 10):.4f} "
@@ -1564,22 +1600,26 @@ def chain_kernels(torch, card, index, se_fastq):
     walk_mask = found & ~filtered
     run_end = torch.searchsorted(sd.flip(dev_index[7]), sd.flip(views[2]), right=True)
     rows = int(torch.where(walk_mask, (run_end - p).clamp(max=fc), 0).sum())
-    kept = int(walked[1].sum())
+    kept = int(compact[1].sum())
     bounds = {"syncmers_scan": bound(scan_bytes, OPS_PER_SMER * n_smer),
               "merge_hits": bound(MERGE_HIT_BYTES * n_hits_all + MERGE_NAM_BYTES * n_emit,
                                   OPS_PER_MERGE_HIT * n_hits_all),
-              "walk_hits": bound(WALK_STROBE_BYTES * total + WALK_ROW_BYTES * rows
-                                 + WALK_SLOT_BYTES * n * walk_maxh + WALK_READ_BYTES * n, 0)}
+              "walk_hits": bound((WALK_STROBE_BYTES + WALK_SLOT_BYTES) * total
+                                 + WALK_ROW_BYTES * rows + WALK_READ_BYTES * n, 0)}
+    dense_bound = bound(WALK_STROBE_BYTES * total + WALK_ROW_BYTES * rows
+                        + WALK_SLOT_BYTES * n * walk_maxh + WALK_READ_BYTES * n, 0)
     for name, (ms, plain_ms) in times.items():
         say(f"{name}: kernel {ms:.4f} ms on the card after an L2 flush, plain {plain_ms:.4f} ms, "
             f"bound {bounds[name][0]:.6f} ms ({bounds[name][1]}), one PyTorch call none, "
             f"launches {launches[name]} [{card}]")
     say(f"bounds' inputs: {n_smer} s-mers; {n_hits_all} hits and {n_emit} NAMs in "
         f"{len(streams)} streams (the merge's bound ignores that a stream is a serial chain); "
-        f"{total} strobes, {rows} walked run rows, {kept} kept hits in {n} x {walk_maxh} slots")
-    say(f"walk_hits' {n} x {walk_maxh} x 6 int32 hits written by one torch zero_: "
-        f"{slots_ms:.4f} ms after an L2 flush, against the walk's {times['walk_hits'][0]:.4f} "
-        f"[{card}]")
+        f"{total} strobes, {rows} walked run rows, {kept} kept hits in {total} slots (the compact "
+        f"layout, one a strobe)")
+    say(f"walk_hits in the dense layout ({n} x {walk_maxh} slots, the composed batch's): "
+        f"{dense_ms:.4f} ms after an L2 flush, bound {dense_bound[0]:.6f} ms; its {n} x "
+        f"{walk_maxh} x 6 int32 hits written by one torch zero_: {slots_ms:.4f} ms after an L2 "
+        f"flush; the compact layout's walk {times['walk_hits'][0]:.4f} ms [{card}]")
     say(f"syncmers_scan on the tie-heavy batch (the replay's worst case): {tie_ms:.4f} ms after "
         f"an L2 flush, {tie_ms / bounds['syncmers_scan'][0]:.1f}x the chunk's bound, "
         f"{tie_ms / times['syncmers_scan'][0]:.2f}x the chunk's time [{card}]")
@@ -1685,7 +1725,7 @@ def main_path(torch, card, reads):
     from rabbitsalign_tpu_torch.native import cache_dir
     from rabbitsalign_tpu_torch.ops import extend_device as px
     from rabbitsalign_tpu_torch.ops import int16_probe as probe
-    from rabbitsalign_tpu_torch.ops import seed_cuda, shard_cuda, sw_cuda, tb_cuda
+    from rabbitsalign_tpu_torch.ops import chain_cuda, seed_cuda, shard_cuda, sw_cuda, tb_cuda
 
     base = ["--use-index", "--no-progress"]
     trace_dir = WORK / "trace"
@@ -1709,6 +1749,7 @@ def main_path(torch, card, reads):
                 "int16_probe": lambda: probe.launches,
                 "seed_randstrobes": lambda: seed_cuda.launches_seed,
                 "index_find": lambda: seed_cuda.launches_find,
+                "walk_hits": lambda: chain_cuda.launches_walk,
                 "find_runs": lambda: shard_cuda.launches_find_runs}
     runs, launches, dispatches = {}, {}, {}
     for path, (sw16_value, flags) in paths.items():
@@ -1719,7 +1760,7 @@ def main_path(torch, card, reads):
         with sw16(sw16_value):
             sw_cuda.launches = sw_cuda.launches_i16 = tb_cuda.launches = 0
             probe.launches = px.calls = 0
-            seed_cuda.launches_seed = seed_cuda.launches_find = 0
+            seed_cuda.launches_seed = seed_cuda.launches_find = chain_cuda.launches_walk = 0
             shard_cuda.launches_find_runs = 0
             for name, extra in flags.items():
                 runs[path, name] = map_run(main, f"{name}.{path}.cuda",
@@ -1745,6 +1786,10 @@ def main_path(torch, card, reads):
         seeding = [launches[path][k] for k in ("seed_randstrobes", "index_find")]
         check(not any(seeding) if path in SHARD_PATHS else all(seeding),
               f"{path}: seeding kernel launches {seeding}")
+        n_walk = launches[path]["walk_hits"]
+        check(n_walk == 0 if path in SHARD_PATHS else n_walk == seeding[0],
+              f"{path}: walk_hits launches {n_walk}, once a chunk (seed_randstrobes "
+              f"{seeding[0]}) expected, none with --shard-index")
         n_find = launches[path]["find_runs"]
         check(n_find > 0 if path in SHARD_PATHS else n_find == 0,
               f"{path}: find_runs launches {n_find}")

@@ -19,15 +19,19 @@
 // `good` and its run is walked, at most `cap` rows while the hash stays
 // its own: ref_start = positions[p], ref_end = ref_start + (packed[p] &
 // 0xFF) + k, ref_id = packed[p] >> 8, and a row is kept when |qspan -
-// (ref_end - ref_start)| is at most every earlier row's of the run. Kept
-// hits go to hits (N, maxh, 6) i32 as [is_rc, ref_id, qs, qe, rs, re],
-// strobe-major and run-minor (the host's processing order), the first
-// maxh of them, and zeros past them; n_hits (N,) holds min(kept, maxh),
-// overflow (N,) u8 kept > maxh.
+// (ref_end - ref_start)| is at most every earlier row's of the run. A
+// probe past the index reads 2^64 - 1, as the host's hash_at. Kept hits
+// go to a read's room as [is_rc, ref_id, qs, qe, rs, re] i32, strobe-major
+// and run-minor (the host's processing order), as many as the room holds,
+// and zeros past them; n_hits (N,) holds min(kept, room), overflow (N,)
+// u8 kept > room. With maxh > 0 the room is row b of hits (N, maxh, 6);
+// with maxh = 0 (the compact layout) it is the read's own strobe count of
+// rows at its strobe offset in hits (T, 6), T the strobe arrays' length.
 //
 // Bound: bytes, 16 B a strobe (its position and hash), 16 B a walked row
-// (hash, position, packed) and the (N, maxh, 6) hits, 24 B a slot, kept
-// or zero (46 MB at N = 10 000, maxh = 192: 14 us at 3.35 TB/s). What
+// (hash, position, packed) and the hits, 24 B a slot, kept or zero (46 MB
+// at N = 10 000, maxh = 192: 14 us at 3.35 TB/s; 24 B a strobe in the
+// compact layout, 10 MB for 10 000 150-base reads). What
 // sets the time is latency: a strobe's run is a chain of dependent trips
 // to device memory (its position, then the filter's probe and its rows)
 // on random rows of an index larger than the L2, and on simulated reads
@@ -86,7 +90,8 @@ __global__ void __launch_bounds__(kWarps * 32) walk_hits_kernel(
     if (b >= N) return;  // a whole warp
     const int cnt = counts[b];
     const long long off = offsets[b];
-    int32_t* out = hits + b * (long long)maxh * 6;
+    const int room = maxh > 0 ? maxh : max(cnt, 0);
+    int32_t* out = hits + (maxh > 0 ? b * (long long)maxh : off) * 6;
     const int rows = cap < kLaneRows ? cap : kLaneRows;  // the lane's rows of a run
     int kept = 0, n_found = 0, n_good = 0;               // uniform
     for (int i0 = 0; i0 < cnt; i0 += 32) {
@@ -110,14 +115,14 @@ __global__ void __launch_bounds__(kWarps * 32) walk_hits_kernel(
         uint32_t rp[kLaneRows], rk[kLaneRows];
         if (p >= 0) {
             const long long pc = p + cutoff;
-            const u64 probe = pc < n ? idx_hashes[pc] : 0;
+            const u64 probe = pc < n ? idx_hashes[pc] : ~0ull;
             if (p < n) {
                 h0 = idx_hashes[p];
                 rp[0] = idx_pos[p];
                 rk[0] = idx_packed[p];
             }
             hnext = p + 1 < n ? idx_hashes[p + 1] : 0;
-            walk = !(pc < n && probe == key);
+            walk = probe != key;
         }
         // the lane's walk: rows j < rows while the hash stays its own, a
         // row's position and packed word (and the next hash) loaded once
@@ -194,7 +199,7 @@ __global__ void __launch_bounds__(kWarps * 32) walk_hits_kernel(
                 const unsigned kb = __ballot_sync(kFull, keep);
                 if (keep) {
                     const int r = at + got + __popc(kb & ((1u << lane) - 1));
-                    if (r < maxh) {
+                    if (r < room) {
                         int32_t* o = out + (long long)r * 6;
                         o[0] = src_rc;
                         o[1] = rid;
@@ -216,7 +221,7 @@ __global__ void __launch_bounds__(kWarps * 32) walk_hits_kernel(
 #pragma unroll
         for (int j = 0; j < kLaneRows; ++j) {
             if (!(kmask >> j & 1)) continue;
-            if (r < maxh) {
+            if (r < room) {
                 const int rs = (int)rp[j];
                 int32_t* o = out + (long long)r * 6;
                 o[0] = rc;
@@ -231,13 +236,13 @@ __global__ void __launch_bounds__(kWarps * 32) walk_hits_kernel(
         kept += round_kept + extra;
     }
     // the row's slots past its hits, zeroed by consecutive lanes
-    for (long long j = (long long)min(kept, maxh) * 6 + lane; j < (long long)maxh * 6; j += 32)
+    for (long long j = (long long)min(kept, room) * 6 + lane; j < (long long)room * 6; j += 32)
         out[j] = 0;
     if (lane == 0) {
-        n_hits[b] = kept < maxh ? kept : maxh;
+        n_hits[b] = kept < room ? kept : room;
         total[b] = n_found;
         good[b] = n_good;
-        overflow[b] = kept > maxh;
+        overflow[b] = kept > room;
     }
 }
 
@@ -245,16 +250,17 @@ __global__ void __launch_bounds__(kWarps * 32) walk_hits_kernel(
 
 // The strobe arrays (counts, offsets, hashes, starts, ends, is_rev,
 // positions) of N reads and the index (idx_hashes, idx_pos, idx_packed
-// of n rows) in; hits (N, maxh, 6) i32 (every slot written), n_hits,
-// total, good (N,) i32 and overflow (N,) u8 out. Returns the
-// cudaGetLastError() after the launch, or cudaErrorInvalidValue.
+// of n rows) in; hits (N, maxh, 6) i32, or (T, 6) where maxh is 0 (every
+// slot of a room written), n_hits, total, good (N,) i32 and overflow (N,)
+// u8 out. Returns the cudaGetLastError() after the launch, or
+// cudaErrorInvalidValue.
 extern "C" int walk_hits_launch(const void* counts, const void* offsets, const void* hashes,
                                 const void* starts, const void* ends, const void* is_rev,
                                 const void* positions, long long N, const void* idx_hashes,
                                 const void* idx_pos, const void* idx_packed, long long n, int k,
                                 int cutoff, int maxh, int cap, void* hits, void* n_hits,
                                 void* total, void* good, void* overflow, void* stream) {
-    if (N < 0 || n < 0 || maxh < 1 || cap < 0 || cutoff < 0) return (int)cudaErrorInvalidValue;
+    if (N < 0 || n < 0 || maxh < 0 || cap < 0 || cutoff < 0) return (int)cudaErrorInvalidValue;
     if (N == 0) return (int)cudaGetLastError();
     walk_hits_kernel<<<(unsigned)((N + kWarps - 1) / kWarps), kWarps * 32, 0,
                        (cudaStream_t)stream>>>(

@@ -1711,7 +1711,12 @@ struct SeedScratch {
 // Preseeded strobe batch for one chunk (--device-seed): per-read counts
 // (-1 = fall back to host seeding for that read) + flat per-strobe
 // arrays in the exact host emission order (forward then reverse), plus
-// the index-find result for each strobe.
+// the index-find result for each strobe, and the device's run walk of
+// each record (ops/chain_cuda.py walk_hits_compact): its kept hits
+// [is_rc, ref_id, qs, qe, rs, re] at the record's strobe offset, in
+// add_to_hits_per_ref's push order, with their count, the found and
+// unfiltered strobe counts, and an overflow flag (the hits did not fit
+// the record's room: the engine walks it on the host index).
 struct PreSeed {
     const int32_t* counts = nullptr;  // per record
     const i64* offsets = nullptr;     // per record, into the flat arrays
@@ -1720,16 +1725,15 @@ struct PreSeed {
     const int32_t* ends = nullptr;
     const u8* is_rev = nullptr;
     const i64* positions = nullptr;   // ix_find result, -1 = absent
+    const int32_t* hits = nullptr;    // 6 a hit at offsets[rec]
+    const int32_t* n_hits = nullptr;  // per record
+    const int32_t* total = nullptr;   // per record: found strobes
+    const int32_t* good = nullptr;    // per record: found and not repetitive
+    const u8* overflow = nullptr;     // per record
 };
 
-// nams_for_read with device-precomputed seeding + lookups: identical
-// RNG/detail/ordering semantics, but phase 1 (syncmers, randstrobes,
-// index find) is replaced by the preseed arrays; NAM rescue re-runs its
-// own host lookups (it needs counts and full runs, and fires rarely).
-static void nams_for_read_pre(EngineC& eng, const PreSeed& pre, i64 rec,
-                              SeedScratch& ss, MinstdRand& rng,
-                              DetailsC& details, std::vector<NamT>& nams) {
-    auto t0 = std::chrono::steady_clock::now();
+// the record's strobes as host QueryRandstrobes and their lookups
+static void pre_strobes(const PreSeed& pre, i64 rec, SeedScratch& ss) {
     i64 n = pre.counts[rec];
     i64 off = pre.offsets[rec];
     ss.qrs.clear();
@@ -1739,12 +1743,46 @@ static void nams_for_read_pre(EngineC& eng, const PreSeed& pre, i64 rec,
                           (int)pre.ends[off + i], pre.is_rev[off + i] != 0});
         ss.nsc.found[(size_t)i] = pre.positions[off + i];
     }
+}
+
+// find_nams_phase2 from the device's walk: the same hits pushed in the
+// same order into the same groups, the same fraction, the same merge
+static void find_nams_walked(const PreSeed& pre, i64 rec, int k, ReadResult& rr,
+                             NamScratch& scratch) {
+    HitsPerRef* hpr = scratch.hpr;
+    hpr[0].clear();
+    hpr[1].clear();
+    const int32_t* h = pre.hits + 6 * pre.offsets[rec];
+    for (int32_t j = 0; j < pre.n_hits[rec]; ++j, h += 6)
+        hpr[h[0] != 0].get(h[1]).push_back({h[2], h[3], h[4], h[5]});
+    int total_hits = pre.total[rec], good_hits = pre.good[rec];
+    rr.nonrep_frac = total_hits > 0 ? (float)good_hits / (float)total_hits : 1.0f;
+    for (int rc = 0; rc < 2; ++rc)
+        merge_hits(hpr[rc], k, true, rc != 0, rr.nams);
+}
+
+// nams_for_read with device-precomputed seeding, lookups and run walk
+// (an overflowed record walked on the host index): identical
+// RNG/detail/ordering semantics, but phase 1 (syncmers, randstrobes,
+// index find) is replaced by the preseed arrays; NAM rescue re-runs its
+// own host lookups (it needs counts and full runs, and fires rarely).
+static void nams_for_read_pre(EngineC& eng, const PreSeed& pre, i64 rec,
+                              SeedScratch& ss, MinstdRand& rng,
+                              DetailsC& details, std::vector<NamT>& nams) {
+    auto t0 = std::chrono::steady_clock::now();
     ReadResult& rr = ss.rr;
     rr.nams.clear();
     rr.nonrep_frac = 1.0f;
     rr.used_rescue = 0;
-    find_nams_phase2(eng.ix, ss.qrs, ss.nsc.found, rr, ss.nsc);
+    const bool walked = !pre.overflow[rec];
+    if (walked) {
+        find_nams_walked(pre, rec, eng.ix.k, rr, ss.nsc);
+    } else {
+        pre_strobes(pre, rec, ss);
+        find_nams_phase2(eng.ix, ss.qrs, ss.nsc.found, rr, ss.nsc);
+    }
     if (eng.mp.rescue_level > 1 && (rr.nams.empty() || rr.nonrep_frac < 0.7f)) {
+        if (walked) pre_strobes(pre, rec, ss);
         find_nams_rescue_one(eng.ix, ss.qrs, eng.mp.rescue_cutoff, rr, ss.nsc);
         details.nam_rescue = true;
     }
@@ -4182,11 +4220,14 @@ void fx_chunk_codes(void* c_, i64 L, u8* codes, int32_t* lens,
 
 // Phase A from a reader chunk with device-precomputed seeding + index
 // lookups (see engine::PreSeed). counts[i] < 0 = host seeding for read i.
+// hits, n_hits, total, good and overflow: the device's run walk.
 void* engine_chunk_a_fx_pre(void* e, void* c_, u64 chunk_seed,
                             const int32_t* counts, const i64* offsets,
                             const u64* hashes, const int32_t* starts,
                             const int32_t* ends, const u8* is_rev,
-                            const i64* positions) {
+                            const i64* positions, const int32_t* hits,
+                            const int32_t* n_hits, const int32_t* total,
+                            const int32_t* good, const u8* overflow) {
     auto* c = (engine::FxChunk*)c_;
     engine::PreSeed pre;
     pre.counts = counts;
@@ -4196,6 +4237,11 @@ void* engine_chunk_a_fx_pre(void* e, void* c_, u64 chunk_seed,
     pre.ends = ends;
     pre.is_rev = is_rev;
     pre.positions = positions;
+    pre.hits = hits;
+    pre.n_hits = n_hits;
+    pre.total = total;
+    pre.good = good;
+    pre.overflow = overflow;
     return engine_chunk_a_impl(
         e, (const u8*)c->seqs.data(), c->seq_off.data(),
         (const u8*)c->names.data(), c->name_off.data(),

@@ -144,7 +144,8 @@ def _lib():
         lib.engine_chunk_a_fx_pre.argtypes = [
             c.c_void_p, c.c_void_p, c.c_uint64,
             c.c_void_p, c.c_void_p, c.c_void_p, c.c_void_p, c.c_void_p,
-            c.c_void_p, c.c_void_p,
+            c.c_void_p, c.c_void_p, c.c_void_p, c.c_void_p, c.c_void_p, c.c_void_p,
+            c.c_void_p,
         ]
         # --shard-index: host seeding without the index, and phase A from
         # the sharded index's run records
@@ -301,18 +302,24 @@ class NativeEngine:
                        counts: np.ndarray, offsets: np.ndarray,
                        hashes: np.ndarray, starts: np.ndarray,
                        ends: np.ndarray, is_rev: np.ndarray,
-                       positions: np.ndarray) -> NativeChunk:
+                       positions: np.ndarray, walk) -> NativeChunk:
         """Phase A with device-computed seeding and index lookups:
         counts (N,) i32 (-1 = host seeding for that record), offsets (N,)
         i64 into the flat per-strobe arrays, which hold each record's
         strobes in host emission order (forward, then reverse): hashes
         u64, starts and ends i32, is_rev u8, positions i64 (-1 = absent).
-        Every array must hold at least one element."""
+        `walk` is the device's run walk of the chunk (ops/front_device.py
+        `walk_views`: hits (T, 6) i32 at each record's strobe offset,
+        n_hits, total, good (N,) i32, overflow (N,) u8), from which the
+        engine builds each record's hits; for a record whose hits
+        overflowed it walks the runs on the host index. Every array must
+        hold at least one element."""
+        walk_ptrs = [a.ctypes.data for a in walk]
         handle = self.lib.engine_chunk_a_fx_pre(
             self.handle, fx_chunk, ctypes.c_uint64(chunk_seed),
             counts.ctypes.data, offsets.ctypes.data, hashes.ctypes.data,
             starts.ctypes.data, ends.ctypes.data, is_rev.ctypes.data,
-            positions.ctypes.data,
+            positions.ctypes.data, *walk_ptrs,
         )
         return NativeChunk(self.lib, handle)
 

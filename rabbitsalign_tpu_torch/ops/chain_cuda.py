@@ -19,7 +19,7 @@ from typing import Tuple
 import torch
 
 from .chain_device import EMIT_FIELDS, merge_hits_plain
-from .front_device import walk_hits_plain
+from .front_device import walk_hits_compact_plain, walk_hits_plain, walk_views, walk_words
 
 # launches of the merge kernel by merge_hits and of the walk kernel by
 # walk_hits; plain-version calls and empty batches are not counted
@@ -89,6 +89,40 @@ def merge_hits(hits: torch.Tensor, seg: torch.Tensor, offsets: torch.Tensor, k: 
     return out, counts, overflow
 
 
+def _walk_args(args, cap: int, cutoff: int) -> int:
+    """Checks `walk_hits`' tensors, cap and cutoff; returns the index's rows."""
+    want = (torch.int32, torch.int64, torch.int64, torch.int32, torch.int32, torch.uint8,
+            torch.int64, torch.int64, torch.int32, torch.int32)
+    counts = args[0]
+    for x, dt in zip(args, want):
+        if x.dtype != dt or x.dim() != 1 or x.device != counts.device:
+            raise ValueError(f"walk_hits: 1-D tensors of {want} on one device expected")
+    idx_hashes, idx_pos, idx_packed = args[7:]
+    n = idx_hashes.numel()
+    if idx_pos.numel() < n or idx_packed.numel() < n or args[1].numel() != counts.numel():
+        raise ValueError("walk_hits: the index planes are shorter than its hashes, or the "
+                         "offsets do not match the counts")
+    if cap < 0 or cutoff < 0:
+        raise ValueError(f"walk_hits: cap {cap}, cutoff {cutoff}")
+    return n
+
+
+def _launch_walk(args, n: int, k: int, cutoff: int, maxh: int, cap: int, outs) -> None:
+    """One launch of the walk kernel on `args`' card into `outs` (hits,
+    n_hits, total, good, overflow)."""
+    global launches_walk
+    counts = args[0]
+    lib = _kernels(counts, "walk_hits")
+    args = tuple(x.contiguous() for x in args)
+    with torch.cuda.device(counts.device):
+        err = lib.walk_hits_launch(*(x.data_ptr() for x in args[:7]), counts.numel(),
+                                   *(x.data_ptr() for x in args[7:]), n, k, cutoff, maxh, cap,
+                                   *(x.data_ptr() for x in outs), _stream(counts))
+    _check_launch(err, "walk_hits")
+    with _count_lock:
+        launches_walk += 1
+
+
 def walk_hits(counts: torch.Tensor, offsets: torch.Tensor, hashes: torch.Tensor,
               starts: torch.Tensor, ends: torch.Tensor, is_rev: torch.Tensor,
               positions: torch.Tensor, idx_hashes: torch.Tensor, idx_pos: torch.Tensor,
@@ -102,40 +136,43 @@ def walk_hits(counts: torch.Tensor, offsets: torch.Tensor, hashes: torch.Tensor,
     min-length-diff keep rule and the kept hits compacted. Returns (hits
     (N, maxh, 6) int32 [is_rc, ref_id, qs, qe, rs, re], n_hits, total,
     good (N,) int32, overflow (N,) bool), as `front_device.walk_hits_plain`.
-    CPU tensors take that plain version; CUDA tensors launch the kernel,
-    a warp a read and a lane a strobe (the warp for runs past a few
-    rows)."""
-    global launches_walk
+    CPU tensors take that plain version; CUDA tensors launch the kernel, a
+    warp a read and a lane a strobe (the warp for runs past a few rows).
+    `walk_hits_compact` is the layout of the main path."""
     args = (counts, offsets, hashes, starts, ends, is_rev, positions, idx_hashes, idx_pos,
             idx_packed)
-    want = (torch.int32, torch.int64, torch.int64, torch.int32, torch.int32, torch.uint8,
-            torch.int64, torch.int64, torch.int32, torch.int32)
-    for x, dt in zip(args, want):
-        if x.dtype != dt or x.dim() != 1 or x.device != counts.device:
-            raise ValueError(f"walk_hits: 1-D tensors of {want} on one device expected")
-    n = idx_hashes.numel()
-    if idx_pos.numel() < n or idx_packed.numel() < n or offsets.numel() != counts.numel():
-        raise ValueError("walk_hits: the index planes are shorter than its hashes, or the "
-                         "offsets do not match the counts")
-    if maxh < 1 or cap < 0 or cutoff < 0:
-        raise ValueError(f"walk_hits: maxh {maxh}, cap {cap}, cutoff {cutoff}")
+    n = _walk_args(args, cap, cutoff)
+    if maxh < 1:
+        raise ValueError(f"walk_hits: maxh {maxh}")
     if counts.device.type == "cpu":
         return walk_hits_plain(*args, k, cutoff, maxh, cap)
-    lib = _kernels(counts, "walk_hits")
     N = counts.numel()
     dev = counts.device
     hits = torch.empty((N, maxh, 6), dtype=torch.int32, device=dev)  # the kernel zeroes
     n_hits, total, good = (torch.empty(N, dtype=torch.int32, device=dev) for _ in range(3))
     overflow = torch.empty(N, dtype=torch.uint8, device=dev)
-    if N == 0:
-        return hits, n_hits, total, good, overflow.bool()
-    args = tuple(x.contiguous() for x in args)
-    with torch.cuda.device(dev):
-        err = lib.walk_hits_launch(*(x.data_ptr() for x in args[:7]), N,
-                                   *(x.data_ptr() for x in args[7:]), n, k, cutoff, maxh, cap,
-                                   hits.data_ptr(), n_hits.data_ptr(), total.data_ptr(),
-                                   good.data_ptr(), overflow.data_ptr(), _stream(counts))
-    _check_launch(err, "walk_hits")
-    with _count_lock:
-        launches_walk += 1
+    if N:
+        _launch_walk(args, n, k, cutoff, maxh, cap, (hits, n_hits, total, good, overflow))
     return hits, n_hits, total, good, overflow.bool()
+
+
+def walk_hits_compact(counts: torch.Tensor, offsets: torch.Tensor, hashes: torch.Tensor,
+                      starts: torch.Tensor, ends: torch.Tensor, is_rev: torch.Tensor,
+                      positions: torch.Tensor, idx_hashes: torch.Tensor, idx_pos: torch.Tensor,
+                      idx_packed: torch.Tensor, k: int, cutoff: int, cap: int) -> torch.Tensor:
+    """`walk_hits` at maxh 0 into one int32 buffer of
+    `front_device.walk_words(N, T)` words, whose `walk_views` are the
+    hits (T, 6), n_hits, total, good and overflow (uint8): a chunk's walk
+    comes to the host in one copy. CPU tensors take
+    `front_device.walk_hits_compact_plain`; CUDA tensors launch the
+    kernel once."""
+    args = (counts, offsets, hashes, starts, ends, is_rev, positions, idx_hashes, idx_pos,
+            idx_packed)
+    n = _walk_args(args, cap, cutoff)
+    if counts.device.type == "cpu":
+        return walk_hits_compact_plain(*args, k, cutoff, cap)
+    N, T = counts.numel(), hashes.numel()
+    buf = torch.empty(walk_words(N, T), dtype=torch.int32, device=counts.device)
+    if N:
+        _launch_walk(args, n, k, cutoff, 0, cap, walk_views(buf, N, T))
+    return buf

@@ -24,7 +24,7 @@ find_nams (reference src/nam.cpp:771-926). No mapping path runs it.
 from __future__ import annotations
 
 import time
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -45,19 +45,23 @@ def walk_hits_plain(counts: torch.Tensor, offsets: torch.Tensor, hashes: torch.T
     `walk_hits`, which documents the arguments): the walked strobes' runs
     read one row index a step for all of them, the keep rule against each
     run's least diff so far, the kept hits ordered strobe-major and
-    run-minor and written, the first maxh of each read, into zeros."""
+    run-minor and written, as many of each read's as its room holds, into
+    zeros. The room is row b of hits (N, maxh, 6), or where maxh is 0 the
+    read's strobe count of rows at its strobe offset in hits (T, 6)."""
     dev = counts.device
     N = counts.numel()
     n = idx_hashes.numel()
     T = hashes.numel()
-    hits = torch.zeros((N, maxh, 6), dtype=torch.int32, device=dev)
+    room = counts.clamp(min=0).to(I64) if maxh == 0 else torch.full((N,), maxh, device=dev)
+    hits = torch.zeros((T, 6) if maxh == 0 else (N, maxh, 6), dtype=torch.int32, device=dev)
     read = torch.repeat_interleave(torch.arange(N, device=dev), counts.clamp(min=0).to(I64),
                                    output_size=T)
     found = positions >= 0
     p = torch.where(found, positions, 0)
     pc = p + cutoff
-    filtered = found & (pc < n) & (idx_hashes[pc.clamp(max=max(n - 1, 0))] == hashes)
-    walk = found & ~filtered
+    # a probe past the index reads 2**64 - 1 (int64 bits -1), as the host's hash_at
+    probe = torch.where(pc < n, idx_hashes[pc.clamp(max=max(n - 1, 0))], -1)
+    walk = found & (probe != hashes)
     total = torch.zeros(N, dtype=I64, device=dev).index_add_(0, read, found.to(I64))
     good = torch.zeros(N, dtype=I64, device=dev).index_add_(0, read, walk.to(I64))
 
@@ -89,12 +93,44 @@ def walk_hits_plain(counts: torch.Tensor, offsets: torch.Tensor, hashes: torch.T
         n_kept.index_add_(0, r, torch.ones_like(r))
         first = torch.cumsum(n_kept, 0) - n_kept  # each read's first kept hit
         rank = torch.arange(r.numel(), device=dev) - first[r]
-        sel = rank < maxh
+        sel = rank < room[r]
         vals = torch.stack([is_rev[strobe].to(I64), rid, starts[strobe].to(I64),
-                            ends[strobe].to(I64), rs, re], 1)
-        hits[r[sel], rank[sel]] = vals[sel].to(torch.int32)
-    return (hits, n_kept.clamp(max=maxh).to(torch.int32), total.to(torch.int32),
-            good.to(torch.int32), n_kept > maxh)
+                            ends[strobe].to(I64), rs, re], 1)[sel].to(torch.int32)
+        if maxh == 0:
+            hits[offsets[r[sel]] + rank[sel]] = vals
+        else:
+            hits[r[sel], rank[sel]] = vals
+    return (hits, torch.minimum(n_kept, room).to(torch.int32), total.to(torch.int32),
+            good.to(torch.int32), n_kept > room)
+
+
+def walk_words(n_reads: int, n_strobes: int) -> int:
+    """int32 words of the compact walk buffer (`walk_views`)."""
+    return 6 * n_strobes + 3 * n_reads + (n_reads + 3) // 4
+
+
+def walk_views(buf: torch.Tensor, n_reads: int, n_strobes: int) -> Tuple[torch.Tensor, ...]:
+    """The arrays of a compact walk buffer (int32, `walk_words` long, on
+    any device; ops/chain_cuda.py `walk_hits_compact`): (hits (T, 6)
+    int32, each read's room its strobe count of rows at its strobe
+    offset; n_hits, total, good (N,) int32; overflow (N,) uint8), views
+    into `buf`, so that one copy brings a chunk's walk to the host."""
+    T, N = n_strobes, n_reads
+    return (buf[:6 * T].view(T, 6), buf[6 * T:6 * T + N], buf[6 * T + N:6 * T + 2 * N],
+            buf[6 * T + 2 * N:6 * T + 3 * N], buf[6 * T + 3 * N:].view(torch.uint8)[:N])
+
+
+def walk_hits_compact_plain(*args) -> torch.Tensor:
+    """The plain version of `chain_cuda.walk_hits_compact` (the same
+    arguments): `walk_hits_plain` at maxh 0, packed into one buffer."""
+    *arrays, k, cutoff, cap = args
+    hits, n_hits, total, good, overflow = walk_hits_plain(*arrays, k, cutoff, 0, cap)
+    N, T = n_hits.numel(), hits.shape[0]
+    buf = torch.zeros(walk_words(N, T), dtype=torch.int32, device=hits.device)
+    views = walk_views(buf, N, T)
+    for view, x in zip(views, (hits, n_hits, total, good, overflow.to(torch.uint8))):
+        view.copy_(x)
+    return buf
 
 
 def seed_find_walk(codes, lengths, idx_hi, idx_lo, idx_pos, idx_packed, bucket_starts,

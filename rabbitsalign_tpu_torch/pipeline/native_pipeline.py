@@ -21,12 +21,14 @@ run, as the JAX package's `_dispatch` spreads them over its local
 devices. Seeding stays on the first entry.
 
 Wherever the extend runs on a CUDA card, phase A takes each chunk's
-seeds and index hits from that card (`seeds_on_device`;
-ops/seed_device.py:seed_and_find, two kernels against the index arrays
-uploaded once a run, in set-up); reads the closed form cannot seed
-exactly (a min-queue tie, or longer than SEED_L) are seeded by the
-engine itself. ``--device-seed`` names that default, and on the CPU
-asks for the kernels' plain versions.
+seeds, index hits and kept run hits from that card (`seeds_on_device`;
+ops/seed_device.py:seed_and_find, two kernels, and
+ops/chain_cuda.py:walk_hits_compact, the run walk, against the index
+arrays uploaded once a run, in set-up); reads the closed form cannot
+seed exactly (a min-queue tie, or longer than SEED_L) are seeded by the
+engine itself, and a read whose hits overflow its room is walked there.
+``--device-seed`` names that default, and on the CPU asks for the
+kernels' plain versions.
 
 With ``--shard-index`` (which takes precedence over seeding on the device)
 every index lookup of phase A is served by the hash-sharded index
@@ -50,9 +52,9 @@ phase A. Each adds its seconds to a timer of `timers()`
 (summed over the workers) and, while a torch profiler runs, is a
 `record_function` named ``rsb.<name>`` (``rsb.<name>#<c>`` for a chunk's
 span), on the trace's clock beside the card's kernels. `counters()`
-counts at the same boundaries: the records the engine seeded itself,
-chunks, the extend's jobs, DP cells and upload bytes, and the jobs left
-to the host.
+counts at the same boundaries: the records the engine seeded itself
+and those whose runs it walked, chunks, the extend's jobs, DP cells and
+upload bytes, and the jobs left to the host.
 """
 
 from __future__ import annotations
@@ -69,7 +71,9 @@ import numpy as np
 import torch
 
 from ..native.engine import ENGINE_BUCKETS, NativeEngine, NativeReader, engine_available
+from ..ops.chain_cuda import walk_hits_compact
 from ..ops.extend_device import extend_batch_packed_resident_q2, resident_ref_codes
+from ..ops.front_device import walk_views
 from ..ops.seed_device import seed_and_find, strobe_views
 from ..ops.sw_cuda import SwParams
 from ..parallel.sharding import ShardedIndex, check_devices, local_devices, make_mesh
@@ -145,8 +149,8 @@ def _resident_ref_codes(references, engine, device: torch.device) -> torch.Tenso
         return codes
 
 
-# one resident index (hashes, bucket table) per run and device, shared by
-# every worker's pipeline (seeding on the device)
+# one resident index (hashes, bucket table, positions, packed) per run and
+# device, shared by every worker's pipeline (seeding on the device)
 _SEED_IX_CACHE: dict = {}
 
 
@@ -160,31 +164,37 @@ def seeds_on_device(device: torch.device, device_seed: bool = False) -> bool:
     return device.type == "cuda" or device_seed
 
 
-def _int64_bits(a: np.ndarray) -> np.ndarray:
-    """A uint64 array as int64 with the same bits; read-only arrays (the
-    memmaps of --mmap-index) are copied, as torch.from_numpy needs a
-    writable one."""
-    a = np.ascontiguousarray(a).view(np.int64)
+def _signed_bits(a: np.ndarray) -> np.ndarray:
+    """A uint64 or uint32 array as int64 or int32 with the same bits;
+    read-only arrays (the memmaps of --mmap-index) are copied, as
+    torch.from_numpy needs a writable one."""
+    a = np.ascontiguousarray(a)
+    a = a.view(np.int64 if a.dtype.itemsize == 8 else np.int32)
     return a if a.flags.writeable else a.copy()
 
 
-def _resident_seed_index(index, device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+def _resident_seed_index(index, device: torch.device) -> Tuple[torch.Tensor, ...]:
+    """The index on `device` for seeding, lookups and the run walk there:
+    (hashes int64, bucket starts int64, positions int32, packed int32,
+    each with the numpy arrays' bits)."""
     # under the lock, as the genome: one upload per run and device, not
-    # one per worker (64 MB of hashes and 17 MB of buckets at 40 Mbp)
+    # one per worker (64 MB of hashes, 17 MB of buckets and 64 MB of
+    # positions and packed words at 40 Mbp)
     key = (id(index), str(device))
     with _RESIDENT_LOCK:
         cached = _SEED_IX_CACHE.get(key)
         if cached is None:
             for other in [k for k in _SEED_IX_CACHE if k[0] != key[0]]:
                 del _SEED_IX_CACHE[other]  # one index per run
-            arrays = tuple(torch.from_numpy(_int64_bits(a)).to(device)
-                           for a in (index.hashes, index.randstrobe_start_indices))
+            arrays = tuple(torch.from_numpy(_signed_bits(a)).to(device)
+                           for a in (index.hashes, index.randstrobe_start_indices,
+                                     index.positions, index.packed))
             if device.type == "cuda":
                 # queued on this thread's stream; workers read it from theirs
                 torch.cuda.synchronize(device)
             # a strong ref to `index` keeps the id() key valid
             cached = _SEED_IX_CACHE[key] = (index, *arrays)
-        return cached[1], cached[2]
+        return cached[1:]
 
 
 # the engine's rescue walk hard-stops at count > 1000 regardless of the
@@ -318,6 +328,7 @@ class NativePipeline:
         self._map_param = map_param
         self._seed_ix = None  # the resident seed index, when seeding on the device
         self.host_seeded = 0  # records the engine seeded itself
+        self.host_walked = 0  # records whose runs the engine walked on the host index
         self.sharded_index = sharded_index
         if self.shard_index and sharded_index is None:
             self.sharded_index = build_sharded_index(index, self.device, self._devices)
@@ -346,31 +357,45 @@ class NativePipeline:
         return host.pin_memory().to(device, non_blocking=True)
 
     def _preseed(self, fx, n_records: int, chunk_index: int):
-        """Phase A of one reader chunk with its seeds and index hits from
-        the device: the chunk's codes go up, `seed_and_find` seeds,
-        compacts and looks them up there into one buffer, and the arrays
-        `chunk_a_fx_pre` reads come back in one copy into pinned memory
-        (counts[i] = -1: the engine seeds record i itself). The seeding,
-        from the codes' export to the arrays on the host, is the span
-        ``rsb.seed#<chunk>`` (`device_seed_s`)."""
+        """Phase A of one reader chunk with its seeds, index hits and run
+        walk from the device: the chunk's codes go up, `seed_and_find`
+        seeds, compacts and looks them up there into one buffer,
+        `walk_hits_compact` walks the found strobes' runs (the repetitive
+        filter at the index's cutoff, every run it passes walked whole)
+        into a second, and both come back into pinned memory behind one
+        wait (counts[i] = -1: the engine seeds record i itself; a record
+        whose hits overflow its room of one a strobe is walked on the
+        host). The seeding, from the codes' export to the arrays on the
+        host, is the span ``rsb.seed#<chunk>`` (`device_seed_s`)."""
         with Span(self.span_s, "device_seed_s", "seed", chunk_index):
             codes, lens = self.engine.fx_codes(fx, n_records, self.SEED_L)
             sp, rp = self._params.syncmer, self._params.randstrobe
+            ix_hashes, buckets, ix_pos, ix_packed = self._seed_ix
             buf, total = seed_and_find(self._upload(codes, self.device),
-                                       self._upload(lens, self.device), *self._seed_ix, sp.k,
-                                       sp.s, sp.t_syncmer, rp.w_min, rp.w_max, rp.q,
+                                       self._upload(lens, self.device), ix_hashes, buckets,
+                                       sp.k, sp.s, sp.t_syncmer, rp.w_min, rp.w_max, rp.q,
                                        rp.max_dist, self.SEED_L, self._index.bits)
-            if buf.device.type == "cuda":  # the chunk's arrays back in one copy
-                host = torch.empty(buf.shape, dtype=torch.uint8, pin_memory=True)
-                host.copy_(buf, non_blocking=True)
+            cutoff = int(self._index.filter_cutoff)
+            # a run that passes the filter has at most `cutoff` rows
+            walk = walk_hits_compact(*strobe_views(buf, n_records, total), ix_hashes, ix_pos,
+                                     ix_packed, sp.k, cutoff, cutoff)
+            if buf.device.type == "cuda":  # the chunk's arrays back in two copies
+                host = [torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+                        for x in (buf, walk)]
+                for h, x in zip(host, (buf, walk)):
+                    h.copy_(x, non_blocking=True)
                 torch.cuda.current_stream(buf.device).synchronize()
-                buf = host
+                buf, walk = host
             counts, offsets, hashes, starts, ends, is_rev, positions = (
                 x.numpy() for x in strobe_views(buf, n_records, total))
-            self.host_seeded += int((counts < 0).sum())
+            walked = [x.numpy() for x in walk_views(walk, n_records, total)]
+            n_host = int((counts < 0).sum())
+            self.host_seeded += n_host
+            self.host_walked += n_host + int(walked[4].sum())
         return self.engine.chunk_a_fx_pre(
             fx, chunk_index, counts, offsets, _at_least_one(hashes.view(np.uint64)),
-            *map(_at_least_one, (starts, ends, is_rev, positions)))
+            *map(_at_least_one, (starts, ends, is_rev, positions)),
+            walk=[_at_least_one(x) for x in walked])
 
     def _shard_chunk_a(self, fx, n_records: int, chunk_index: int):
         """Phase A with every index lookup served by the sharded index:
@@ -480,6 +505,7 @@ class NativePipeline:
         if self.device_seed:
             return self._preseed(fx, n_records, chunk_index)
         self.host_seeded += n_records
+        self.host_walked += n_records
         if self.shard_index:
             return self._shard_chunk_a(fx, n_records, chunk_index)
         return self.engine.chunk_a_fx(fx, chunk_index)
@@ -543,6 +569,7 @@ class NativePipeline:
         opaque state."""
         with Span(self.span_s, None, "phase_a", chunk_index):
             self.host_seeded += len(records1) + len(records2) + len(records3)
+            self.host_walked += len(records1) + len(records2) + len(records3)
             chunk = self.engine.chunk_a(records1, records2, records3, chunk_index)
         return chunk, self._plan_and_dispatch(chunk, chunk_index), chunk_index
 
@@ -660,7 +687,9 @@ class NativePipeline:
     def counters(self) -> dict:
         """The engine's counters, then the pipeline's: the records the
         engine seeded on the host (every record, or where seeding runs on
-        the device its tie and long reads), chunks, the extend's jobs, DP
+        the device its tie and long reads), the records whose runs it
+        walked on the host (those, and where the device walks the runs the
+        records whose hits overflowed their room), chunks, the extend's jobs, DP
         cells and upload bytes, the planned jobs left to the host (no
         bucket fits them, or a batch under MIN_DEVICE_JOBS), the jobs
         planned into the read-length profile's tight bucket
@@ -669,7 +698,8 @@ class NativePipeline:
         shapes = self.engine.job_shapes()
         per_bucket = [n for _, _, n in shapes["buckets"]]
         tight = per_bucket[0] if self.engine.buckets[0] not in ENGINE_BUCKETS else 0
-        return {**self.engine.counters(), "host_seeded": self.host_seeded, **self.counts,
+        return {**self.engine.counters(), "host_seeded": self.host_seeded,
+                "host_walked": self.host_walked, **self.counts,
                 "small_to_host": shapes["small_to_host"], "unbucketed": shapes["unbucketed"],
                 "tight_jobs": tight, "planned_jobs": sum(per_bucket) + shapes["unbucketed"]}
 

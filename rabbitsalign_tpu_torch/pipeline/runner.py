@@ -415,18 +415,20 @@ def _log_mapping(opt, pipeline, n_reads: int, elapsed: float) -> None:
     elif pipeline.device_seed:
         # the device's share of phase A, which the engine's timers do not see
         logger.info(f"Device seeding: {tm['device_seed_s']:.2f} s, "
-                    f"{c['host_seeded']} tie or long reads seeded on the host")
+                    f"{c['host_seeded']} tie or long reads seeded on the host, "
+                    f"{c['host_walked']} reads' runs walked on the host")
 
 
 def _kernel_launches() -> dict:
     """This process's extend dispatches and kernel launches so far."""
-    from ..ops import extend_device, int16_probe, seed_cuda, shard_cuda, sw_cuda, tb_cuda
+    from ..ops import (chain_cuda, extend_device, int16_probe, seed_cuda, shard_cuda, sw_cuda,
+                       tb_cuda)
 
     return {"extend_dispatches": extend_device.calls,
             "extend_packed": extend_device.packed_calls, "sw_forward": sw_cuda.launches,
             "sw_forward_i16": sw_cuda.launches_i16, "sw_traceback": tb_cuda.launches,
             "int16_probe": int16_probe.launches, "seed_randstrobes": seed_cuda.launches_seed,
-            "index_find": seed_cuda.launches_find,
+            "index_find": seed_cuda.launches_find, "walk_hits": chain_cuda.launches_walk,
             "find_runs": shard_cuda.launches_find_runs}
 
 

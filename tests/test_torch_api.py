@@ -45,6 +45,18 @@ from rabbitsalign_tpu_torch.pipeline import batched, native_pipeline
 from .test_sharded_index import _repetitive_world
 from .torch_extend_cases import READ_LEN, bucket_arrays, mixed_pairs, revcomp, sim_read
 
+
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """The plain versions at these sizes run as fast on one thread as on
+    eight; torch's intra-op threads would only crowd the other test
+    workers' cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 Rec = namedtuple("Rec", "name seq qual")
 SCORINGS = [SwParams(2, 8, 12, 1), SwParams(1, 1, 2, 1)]
 BATCH = 64  # plan_batches' batch size: several batches a bucket

@@ -14,7 +14,8 @@ import torch
 from rabbitsalign_tpu_torch.index.params import IndexParameters
 from rabbitsalign_tpu_torch.ops import cuda_build, seed_device
 from rabbitsalign_tpu_torch.ops.chain_device import merge_hits_plain
-from rabbitsalign_tpu_torch.ops.front_device import walk_hits_plain
+from rabbitsalign_tpu_torch.ops.front_device import (walk_hits_compact_plain, walk_hits_plain,
+                                                     walk_views, walk_words)
 from rabbitsalign_tpu_torch.seed.hash import xxh64
 from rabbitsalign_tpu_torch.seed.syncmers import _packed_mers
 
@@ -23,6 +24,17 @@ from .torch_chain_cases import (LANE_ROWS, merge_edge_streams, mixed_merge_strea
                                 stream_tensors, synthetic_streams, wide_streams, world_strobes)
 from .torch_seed_cases import code_batch, edge_reads, long_scan_reads, sampled_reads, tie_reads
 from .util import random_dna
+
+
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """The plain versions at these sizes run as fast on one thread as on
+    eight; torch's intra-op threads would only crowd the other test
+    workers' cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
@@ -299,7 +311,8 @@ def test_walk_source_on_host_matches_plain(chain_emu, long_runs_world, cutoff, m
 
 def _emu_walk(lib, args, k, cutoff, maxh, cap):
     N = args[0].numel()
-    got = [torch.full((N, maxh, 6), 7, dtype=torch.int32)] + [
+    shape = (args[2].numel(), 6) if maxh == 0 else (N, maxh, 6)
+    got = [torch.full(shape, 7, dtype=torch.int32)] + [
         torch.full((N,), 7, dtype=torch.int32) for _ in range(3)] + [
         torch.full((N,), 7, dtype=torch.uint8)]
     assert lib.walk_hits_launch(
@@ -344,3 +357,47 @@ def test_walk_source_on_mixed_runs(chain_emu, cutoff, maxh, cap):
     assert int(want[1].sum()) > len(counts)
     assert bool(want[4].any()) == (maxh == 60)
     assert bool((want[2] > want[3]).any()) == (cutoff == 33)
+
+
+@pytest.mark.parametrize("case,cutoff,cap", [
+    ("world", None, None), ("mixed", 1000, 100), ("mixed", 33, 33),
+    ("mixed", 1000, LANE_ROWS)],
+    ids=["filter-cutoff", "mixed-runs", "mixed-runs-filtered", "mixed-runs-cap-lane-rows"])
+def test_walk_source_compact_layout(chain_emu, long_runs_world, case, cutoff, cap):
+    """At maxh 0, the main path's layout, each read's room is its own
+    strobe count of rows at its strobe offset: the kernel's hits (T, 6),
+    n_hits, total, good and overflow equal `walk_hits_plain`'s at maxh 0,
+    whose rooms hold the dense layout's first hits of each read and
+    overflow exactly where a read keeps more hits than it has strobes;
+    `walk_hits_compact_plain`'s one buffer holds the same arrays. The
+    repeat's reads of the index's own world, at its cutoff of 80, keep
+    more hits than strobes, and so do reads on the mixed runs."""
+    if case == "world":
+        index, params, reads = long_runs_world
+        views, planes = world_strobes(index, params, reads)
+        args, k = (*views[:7], *planes), params.syncmer.k
+        cutoff = cap = index.filter_cutoff
+    else:
+        args, k = mixed_runs()[0], 20
+    want = walk_hits_plain(*args, k, cutoff, 0, cap)
+    got = _emu_walk(chain_emu["walk_hits"], args, k, cutoff, 0, cap)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    counts, offsets = (x.numpy() for x in args[:2])
+    dense = walk_hits_plain(*args, k, cutoff, 4000, cap)
+    room = np.maximum(counts, 0)
+    n_kept = dense[1].numpy()
+    assert (n_kept < 4000).all()
+    assert np.array_equal(want[1].numpy(), np.minimum(n_kept, room))
+    assert np.array_equal(want[4].numpy(), n_kept > room)
+    for g, w in zip(want[2:4], dense[2:4]):
+        assert torch.equal(g, w)
+    for b in range(len(counts)):
+        n = int(want[1][b])
+        rows = want[0][offsets[b]:offsets[b] + room[b]]
+        assert torch.equal(rows[:n], dense[0][b, :n]) and not rows[n:].any()
+    assert want[4].any() and not want[4].all()
+    buf = walk_hits_compact_plain(*args, k, cutoff, cap)
+    assert buf.dtype == torch.int32 and buf.numel() == walk_words(len(counts), args[2].numel())
+    for g, w in zip(walk_views(buf, len(counts), args[2].numel()), want):
+        assert torch.equal(g, w.to(g.dtype))

@@ -472,11 +472,15 @@ def test_index_find_all_equal_index_on_cuda(cuda, seed_world):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("threads", ["1", "3"])
-def test_device_seed_matches_host_seeding_on_cuda(cuda, tmp_path, threads):
-    """The default run on the card seeds and looks up there: both seeding
-    kernels launch, besides the extend kernels, and its SAM equals a
-    host-seeded run's (`--device cpu`) byte for byte. `--device-seed`
+def test_device_seed_matches_host_seeding_on_cuda(cuda, tmp_path, threads, capsys):
+    """The default run on the card seeds, looks up and walks the runs
+    there: both seeding kernels launch and the run walk exactly once a
+    chunk, besides the extend kernels, the engine walks only the tie and
+    long reads on the host, and its SAM equals a host-seeded run's
+    (`--device cpu`) and `--no-tpu`'s byte for byte. `--device-seed`
     names that default: the same launches, the same SAM."""
+    from rabbitsalign_tpu_torch.ops import chain_cuda
+
     rng = np.random.RandomState(6)
     genome = rng.choice(np.frombuffer(b"ACGT", np.uint8), 200_000).tobytes()
     (tmp_path / "ref.fa").write_bytes(b">chr1\n" + genome + b"\n")
@@ -486,22 +490,33 @@ def test_device_seed_matches_host_seeding_on_cuda(cuda, tmp_path, threads):
                 b"s")
     argv = [str(tmp_path / "ref.fa"), str(tmp_path / "se.fq"), "--chunk-size", "250",
             "--tpu-batch", "128", "-t", threads]
+    n_chunks = -(-len(reads) // 250)
     outs = {}
     for name, extra in (("card", ["--device", "cuda"]),
                         ("flag", ["--device", "cuda", "--device-seed"]),
-                        ("host", ["--device", "cpu"])):
+                        ("host", ["--device", "cpu"]), ("no-tpu", ["--no-tpu"])):
         seeds, finds, fwd = seed_cuda.launches_seed, seed_cuda.launches_find, sw_cuda.launches
+        walks = chain_cuda.launches_walk
+        capsys.readouterr()
         assert port_main([*argv, *extra, "-o", str(tmp_path / "out.sam")]) == 0
+        log = capsys.readouterr().err
         launched = (seed_cuda.launches_seed - seeds, seed_cuda.launches_find - finds)
-        if name == "host":
+        if name in ("host", "no-tpu"):
             assert launched == (0, 0) and sw_cuda.launches == fwd
+            assert chain_cuda.launches_walk == walks
         else:
             assert sw_cuda.launches > fwd
             assert min(launched) >= 8  # a launch of each a chunk: 9 chunks of 250 reads
+            assert chain_cuda.launches_walk - walks == n_chunks
+            m = re.search(r"(\d+) tie or long reads seeded on the host, (\d+) reads' runs "
+                          r"walked on the host", log)
+            assert m, log[-3000:]
+            assert int(m.group(1)) <= int(m.group(2)) <= int(m.group(1)) + 20
         outs[name] = b"".join(ln for ln in open(tmp_path / "out.sam", "rb")
                               if not ln.startswith(b"@PG"))
     assert outs["card"] == outs["host"]
     assert outs["flag"] == outs["host"]
+    assert outs["no-tpu"] == outs["host"]
     assert len(outs["host"].splitlines()) > 2000
 
 
@@ -1051,6 +1066,42 @@ def test_walk_kernel_matches_plain(cuda, chain_world, cutoff, maxh, cap):
     for g, w in zip(got, want):
         assert g.dtype == w.dtype and torch.equal(g, w)
     assert int(want[1].sum()) > len(reads)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["filter-cutoff", "mixed-runs", "mixed-runs-filtered"])
+def test_walk_kernel_compact_layout_matches_plain(cuda, chain_world, case):
+    """`walk_hits_compact` on the card, one launch, the layout the main
+    path copies back (each read's hits at its strobe offset, at most its
+    strobe count of them): its views equal `walk_hits_compact_plain`'s,
+    on the seeded reads of the 80-row repeat at the index's cutoff (the
+    repeat's reads overflow their room) and on `mixed_runs` with the
+    filter lifted and at 33."""
+    from rabbitsalign_tpu_torch.ops import chain_cuda, front_device
+
+    if case == "filter-cutoff":
+        index, params, reads = chain_world
+        codes, lens = (torch.from_numpy(a).to(cuda) for a in code_batch(reads))
+        buf, total = seed_cuda.seed_randstrobes(codes, lens, *_seed_args(params))
+        views = seed_device.strobe_views(buf, len(reads), total)
+        dev_index = front_device.upload_index_split(index, cuda)
+        seed_cuda.index_find(dev_index[7], dev_index[4], index.bits, views[2], out=views[6])
+        args = (*views, dev_index[7], dev_index[2], dev_index[3])
+        k, cutoff = params.syncmer.k, index.filter_cutoff
+    else:
+        args, k = tuple(x.to(cuda) for x in mixed_runs()[0]), 20
+        cutoff = 1000 if case == "mixed-runs" else 33
+    cap = min(cutoff, 100)
+    launches = chain_cuda.launches_walk
+    got = chain_cuda.walk_hits_compact(*args, k, cutoff, cap)
+    assert chain_cuda.launches_walk == launches + 1
+    want = front_device.walk_hits_compact_plain(*args, k, cutoff, cap)
+    N, T = args[0].numel(), args[2].numel()
+    assert got.shape == want.shape == (front_device.walk_words(N, T),)
+    views = [front_device.walk_views(x, N, T) for x in (got, want)]
+    for g, w in zip(*views):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    assert bool(views[1][4].any()) and int(views[1][1].sum()) > N
 
 
 @pytest.mark.cuda

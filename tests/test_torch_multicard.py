@@ -44,6 +44,18 @@ from .test_torch_sharded_index import (_assert_compact_equal, _assert_lookup_equ
                                        _jax_mesh, _keys, _port_index, _random_stub, _sentinel_stub)
 from .test_torch_threaded import CHUNK, _inputs, world  # noqa: F401  (world: a fixture)
 
+
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """The plain versions at these sizes run as fast on one thread as on
+    eight; torch's intra-op threads would only crowd the other test
+    workers' cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ENTRIES = [torch.device("cpu", i) for i in range(8)]
 
 

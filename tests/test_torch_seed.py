@@ -326,8 +326,9 @@ class _StubEngine:
         assert (n_records, L) == self.codes.shape
         return self.codes.copy(), self.lens.copy()
 
-    def chunk_a_fx_pre(self, fx, chunk_index, *arrays):
+    def chunk_a_fx_pre(self, fx, chunk_index, *arrays, walk=None):
         self.arrays = [np.array(a) for a in arrays]
+        self.walk = walk
         return "chunk"
 
 
@@ -359,7 +360,7 @@ def test_preseed_arrays_match_jax():
     port = object.__new__(NativePipeline)
     port.engine = _StubEngine(codes, lens)
     port._index, port._params = index, IndexParameters.from_read_length(150)
-    port.device, port.host_seeded = torch.device("cpu"), 0
+    port.device, port.host_seeded, port.host_walked = torch.device("cpu"), 0, 0
     port._seed_ix = _resident_seed_index(index, port.device)  # uploaded in set-up
     port.span_s = dict.fromkeys(SPAN_TIMERS, 0.0)
     assert jax_pipe._preseed(None, len(reads), 0) == port._preseed(None, len(reads), 0) == "chunk"
@@ -375,3 +376,6 @@ def test_preseed_arrays_match_jax():
     assert port.host_seeded == int((counts < 0).sum()) >= 40  # ties and reads over 256
     assert port.span_s["device_seed_s"] > 0
     assert (got[6][:total] >= 0).sum() > total // 2  # most strobes hit the index
+    # the port's run walk went to the engine beside them
+    assert jax_pipe.engine.walk is None and len(port.engine.walk) == 5
+    assert port.host_walked == port.host_seeded + int(port.engine.walk[4].sum())
