@@ -14,14 +14,16 @@ Each threaded worker enqueues on a CUDA stream of its own on every card
 (the current stream is per thread), as GASAL2 gives each host thread its
 own streams.
 
-A pipeline's device list defaults to every local card (`local_devices`,
+What a run does on its devices, and what it keeps there, is decided and
+uploaded once, by its `DeviceRun`, which every mapping thread of the run
+shares. Its device list defaults to every local card (`local_devices`,
 the counterpart of `jax.local_devices()`): the extend batches go to its
 entries in turn, each card holding one copy of the genome for the whole
 run, as the JAX package's `_dispatch` spreads them over its local
 devices. Seeding stays on the first entry.
 
 Wherever the extend runs on a CUDA card, phase A takes each chunk's
-seeds, index hits and kept run hits from that card (`seeds_on_device`;
+seeds, index hits and kept run hits from that card (`DeviceRun.device_seed`;
 ops/seed_device.py:seed_and_find, two kernels, and
 ops/chain_cuda.py:walk_hits_compact, the run walk, against the index
 arrays uploaded once a run, in set-up); reads the closed form cannot
@@ -65,7 +67,7 @@ import queue
 import threading
 import time
 from collections import deque
-from typing import Callable, Iterable, Optional, Tuple
+from typing import Callable, Iterable, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -123,45 +125,14 @@ def pin_worker_thread(wid: int):
         return None
 
 
-# one resident genome per run and device, shared by every worker's pipeline
-_RESIDENT_CACHE: dict = {}
-_RESIDENT_LOCK = threading.Lock()
-
-
-def _resident_ref_codes(references, engine, device: torch.device) -> torch.Tensor:
-    # the lock matters: threaded workers construct their pipelines
-    # concurrently, and an unlocked miss path would upload N genome
-    # copies and hold N x genome-size device memory for the whole run
-    key = (id(references), str(device))
-    with _RESIDENT_LOCK:
-        cached = _RESIDENT_CACHE.get(key)
-        if cached is not None:
-            return cached[1]
-        for other in [k for k in _RESIDENT_CACHE if k[0] != key[0]]:
-            del _RESIDENT_CACHE[other]  # one genome per run; the other cards' copies stay
-        codes = resident_ref_codes(engine.ref_codes(), device)
-        if device.type == "cuda":
-            # the copy was queued on this thread's stream; the workers
-            # read the tensor from streams of their own
-            torch.cuda.synchronize(device)
-        # a strong ref to `references` keeps the id() key valid
-        _RESIDENT_CACHE[key] = (references, codes)
-        return codes
-
-
-# one resident index (hashes, bucket table, positions, packed) per run and
-# device, shared by every worker's pipeline (seeding on the device)
-_SEED_IX_CACHE: dict = {}
-
-
-def seeds_on_device(device: torch.device, device_seed: bool = False) -> bool:
-    """Whether a pipeline that extends on `device` (the first entry of its
-    list) seeds and looks up each chunk there too: on a CUDA card always
-    (``--device-seed`` names that default), on the CPU only where
-    `device_seed` asks for the kernels' plain versions, which are far
-    slower than the engine's host seeding. Under --shard-index the
-    sharded index serves the lookups instead."""
-    return device.type == "cuda" or device_seed
+def extends_on_device(use_device: bool, aln_params) -> bool:
+    """The gap rule: a run that asks for the device extend (`use_device`,
+    off under --no-tpu) gets it only where gap extension costs less than
+    opening. ssw.c's striped lazy-F pruning diverges from the device
+    kernel's textbook DP exactly when gap extension is as cheap as
+    opening (O == E): host SSW keeps byte parity with the reference there
+    (E > O is rejected by the CLI already)."""
+    return use_device and aln_params.gap_extend < aln_params.gap_open
 
 
 def _signed_bits(a: np.ndarray) -> np.ndarray:
@@ -173,28 +144,22 @@ def _signed_bits(a: np.ndarray) -> np.ndarray:
     return a if a.flags.writeable else a.copy()
 
 
-def _resident_seed_index(index, device: torch.device) -> Tuple[torch.Tensor, ...]:
+def _uploaded(device: torch.device) -> None:
+    """Wait for an upload to `device`, queued on this thread's stream:
+    the workers read it from streams of their own."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _seed_index_on(index, device: torch.device) -> Tuple[torch.Tensor, ...]:
     """The index on `device` for seeding, lookups and the run walk there:
     (hashes int64, bucket starts int64, positions int32, packed int32,
-    each with the numpy arrays' bits)."""
-    # under the lock, as the genome: one upload per run and device, not
-    # one per worker (64 MB of hashes, 17 MB of buckets and 64 MB of
-    # positions and packed words at 40 Mbp)
-    key = (id(index), str(device))
-    with _RESIDENT_LOCK:
-        cached = _SEED_IX_CACHE.get(key)
-        if cached is None:
-            for other in [k for k in _SEED_IX_CACHE if k[0] != key[0]]:
-                del _SEED_IX_CACHE[other]  # one index per run
-            arrays = tuple(torch.from_numpy(_signed_bits(a)).to(device)
-                           for a in (index.hashes, index.randstrobe_start_indices,
-                                     index.positions, index.packed))
-            if device.type == "cuda":
-                # queued on this thread's stream; workers read it from theirs
-                torch.cuda.synchronize(device)
-            # a strong ref to `index` keeps the id() key valid
-            cached = _SEED_IX_CACHE[key] = (index, *arrays)
-        return cached[1:]
+    each with the numpy arrays' bits; 145 MB at 40 Mbp)."""
+    arrays = tuple(torch.from_numpy(_signed_bits(a)).to(device)
+                   for a in (index.hashes, index.randstrobe_start_indices,
+                             index.positions, index.packed))
+    _uploaded(device)
+    return arrays
 
 
 # the engine's rescue walk hard-stops at count > 1000 regardless of the
@@ -208,6 +173,69 @@ def build_sharded_index(index, device: torch.device, devices=None) -> ShardedInd
     default of `local_devices(device)` (a CUDA device without a card
     raises)."""
     return ShardedIndex(make_mesh(None, device) if devices is None else devices, index)
+
+
+class DeviceRun:
+    """What one run does on its devices and keeps there, decided and
+    uploaded once and shared by all of its mapping threads: a
+    `ThreadedNativePipeline` builds one for its workers, a
+    `NativePipeline` built alone its own. The devices hold one seed index
+    and one genome a distinct device, however many threads and `map_file`
+    calls the run has."""
+
+    def __init__(self, index, aln_params, use_device: bool = True, device="cuda",
+                 devices=None, device_seed: bool = False, shard_index: bool = False,
+                 sharded_index: Optional[ShardedIndex] = None):
+        self.use_device = extends_on_device(use_device, aln_params)
+        if use_device and not self.use_device:
+            logger.info(
+                "gap_extend >= gap_open: device extension disabled to "
+                "preserve byte-parity with the reference's ssw semantics "
+                "(host SSW resolves all gapped alignments)")
+        # --shard-index: the shards stay on the devices even with --no-tpu,
+        # which turns off only the extend
+        self.shard_index = bool(shard_index)
+        # the extend's devices, in turn (`NativePipeline._dispatch`): those
+        # given, else every local one where the run needs a device
+        if devices is not None:
+            self.devices = check_devices(devices)
+        elif self.use_device or self.shard_index:
+            self.devices = local_devices(device)
+        else:
+            self.devices = [torch.device(device)]
+        self.device = self.devices[0]
+        # phase A seeds, looks up and walks each chunk on the first device
+        # wherever the extend runs on a CUDA card (--device-seed names that
+        # default), on the CPU only where `device_seed` asks for the plain
+        # versions, far slower than the engine's host seeding; the sharded
+        # index takes precedence
+        self.device_seed = (self.use_device and not self.shard_index
+                            and (self.device.type == "cuda" or device_seed))
+        self.sharded_index = sharded_index
+        if self.shard_index and sharded_index is None:
+            self.sharded_index = build_sharded_index(index, self.device, self.devices)
+        # the cards a mapping thread enqueues on, on streams of its own
+        self.cards = ([d for d in dict.fromkeys(self.devices) if d.type == "cuda"]
+                      if self.use_device or self.shard_index else [])
+        self.sw = (SwParams(aln_params.match, aln_params.mismatch, aln_params.gap_open,
+                            aln_params.gap_extend) if self.use_device else None)
+        # phase A's index, uploaded here, in set-up
+        self.seed_index = _seed_index_on(index, self.device) if self.device_seed else None
+        self._genomes: dict = {}  # device -> its resident genome
+        # the workers set up concurrently: unlocked, each would upload a copy
+        self._lock = threading.Lock()
+
+    def genomes(self, engine) -> list:
+        """The resident genome of each entry of `devices` (an entry
+        repeated shares its copy), from `engine.ref_codes()` on the first
+        call, one upload a distinct device."""
+        with self._lock:
+            if not self._genomes:
+                codes = engine.ref_codes()
+                for d in dict.fromkeys(self.devices):
+                    self._genomes[d] = resident_ref_codes(codes, d)
+                    _uploaded(d)
+            return [self._genomes[d] for d in self.devices]
 
 
 def _at_least_one(a: np.ndarray) -> np.ndarray:
@@ -286,66 +314,36 @@ class NativePipeline:
         shard_index: bool = False,
         sharded_index: Optional[ShardedIndex] = None,
         devices=None,
+        run: Optional[DeviceRun] = None,
     ):
+        """`run`: the device state that the mapping threads of one run
+        share; without it the pipeline builds its own from the device
+        keywords, which are read only then."""
         self.engine = NativeEngine(
             index, index_parameters, references, aln_params, map_param,
             read_group_id,
         )
         self.batch_size = batch_size
-        if use_device and aln_params.gap_extend >= aln_params.gap_open:
-            # ssw.c's striped lazy-F pruning diverges from the device
-            # kernel's textbook DP exactly when gap extension is as cheap
-            # as opening (O == E): host SSW keeps byte parity with the
-            # reference there (E > O is rejected by the CLI already)
-            logger.info(
-                "gap_extend >= gap_open: device extension disabled to "
-                "preserve byte-parity with the reference's ssw semantics "
-                "(host SSW resolves all gapped alignments)")
-            use_device = False
-        self.use_device = use_device
-        # --shard-index: the shards stay on the devices even with --no-tpu,
-        # which turns off only the extend
-        self.shard_index = bool(shard_index)
-        # the extend's devices, round-robin (`_dispatch`): the devices
-        # given, else every local one where the run needs a device; the
-        # first one also seeds (`seeds_on_device`)
-        if devices is not None:
-            self._devices = check_devices(devices)
-        elif use_device or self.shard_index:
-            self._devices = local_devices(device)
-        else:
-            self._devices = [torch.device(device)]
-        self.device = self._devices[0]
-        # seeding needs the device path (--no-tpu keeps host seeding), and
-        # the sharded index takes precedence
-        self.device_seed = (use_device and not self.shard_index
-                            and seeds_on_device(self.device, device_seed))
+        if run is None:
+            run = DeviceRun(index, aln_params, use_device, device, devices, device_seed,
+                            shard_index, sharded_index)
+        self.run = run
+        # what the runner's log and the tests read
+        self.device, self.use_device = run.device, run.use_device
+        self.device_seed, self.sharded_index = run.device_seed, run.sharded_index
+        self._ref_codes = run.genomes(self.engine) if run.use_device else None
         self._next_dev = 0  # dispatches to a list of more than one entry
-        self.dispatched = [0] * len(self._devices)  # extend batches an entry
+        self.dispatched = [0] * len(run.devices)  # extend batches an entry
         self.streams = {}  # a mapping thread's stream a card (stream_context)
         self._index = index
         self._params = index_parameters
         self._map_param = map_param
-        self._seed_ix = None  # the resident seed index, when seeding on the device
         self.host_seeded = 0  # records the engine seeded itself
         self.host_walked = 0  # records whose runs the engine walked on the host index
-        self.sharded_index = sharded_index
-        if self.shard_index and sharded_index is None:
-            self.sharded_index = build_sharded_index(index, self.device, self._devices)
         self.shard_lookup_s = 0.0  # wall time of the sharded lookups
         self.rescue_preflight_s = 0.0  # and of the host's rescue preflight
         self.span_s = dict.fromkeys(SPAN_TIMERS, 0.0)
         self.counts = dict.fromkeys(EXTEND_COUNTERS, 0)
-        if use_device:
-            self._sw = SwParams(aln_params.match, aln_params.mismatch,
-                                aln_params.gap_open, aln_params.gap_extend)
-            # the genome stays resident on each device for the whole run,
-            # one copy a distinct device
-            copies = {d: _resident_ref_codes(references, self.engine, d)
-                      for d in dict.fromkeys(self._devices)}
-            self._ref_codes = [copies[d] for d in self._devices]
-        if self.device_seed:
-            self._seed_ix = _resident_seed_index(index, self.device)
 
     SEED_L = 256  # longest read seeded on the device (longer: host)
 
@@ -366,11 +364,13 @@ class NativePipeline:
         wait (counts[i] = -1: the engine seeds record i itself; a record
         whose hits overflow its room of one a strobe is walked on the
         host). The seeding, from the codes' export to the arrays on the
-        host, is the span ``rsb.seed#<chunk>`` (`device_seed_s`)."""
+        host, is the span ``rsb.seed#<chunk>`` (`device_seed_s`). Returns
+        the chunk, the records the engine seeds itself and those whose
+        runs it walks on the host."""
         with Span(self.span_s, "device_seed_s", "seed", chunk_index):
             codes, lens = self.engine.fx_codes(fx, n_records, self.SEED_L)
             sp, rp = self._params.syncmer, self._params.randstrobe
-            ix_hashes, buckets, ix_pos, ix_packed = self._seed_ix
+            ix_hashes, buckets, ix_pos, ix_packed = self.run.seed_index
             buf, total = seed_and_find(self._upload(codes, self.device),
                                        self._upload(lens, self.device), ix_hashes, buckets,
                                        sp.k, sp.s, sp.t_syncmer, rp.w_min, rp.w_max, rp.q,
@@ -390,12 +390,11 @@ class NativePipeline:
                 x.numpy() for x in strobe_views(buf, n_records, total))
             walked = [x.numpy() for x in walk_views(walk, n_records, total)]
             n_host = int((counts < 0).sum())
-            self.host_seeded += n_host
-            self.host_walked += n_host + int(walked[4].sum())
-        return self.engine.chunk_a_fx_pre(
+        chunk = self.engine.chunk_a_fx_pre(
             fx, chunk_index, counts, offsets, _at_least_one(hashes.view(np.uint64)),
             *map(_at_least_one, (starts, ends, is_rev, positions)),
             walk=[_at_least_one(x) for x in walked])
+        return chunk, n_host, n_host + int(walked[4].sum())
 
     def _shard_chunk_a(self, fx, n_records: int, chunk_index: int):
         """Phase A with every index lookup served by the sharded index:
@@ -498,31 +497,20 @@ class NativePipeline:
             run_off, run_pos, run_packed, resc_off, resc_pos, resc_packed,
         )
 
-    def _chunk_a(self, fx, n_records: int, chunk_index: int):
-        """Phase A of one reader chunk: its lookups served by the sharded
-        index under --shard-index, else seeded and looked up on the
-        device where `device_seed`, else all on the host."""
-        if self.device_seed:
-            return self._preseed(fx, n_records, chunk_index)
-        self.host_seeded += n_records
-        self.host_walked += n_records
-        if self.shard_index:
-            return self._shard_chunk_a(fx, n_records, chunk_index)
-        return self.engine.chunk_a_fx(fx, chunk_index)
-
     def _dispatch(self, buf: np.ndarray, Q: int, T: int, sub: int):
         """Upload one q2 batch to the next device (round-robin), extend it
         there against that device's genome and start the copy of its
         packed output to the host. Returns (host tensor, event); the event
         is None on the CPU, where the result is ready."""
+        devices = self.run.devices
         di = 0
-        if len(self._devices) > 1:
-            di = self._next_dev % len(self._devices)
+        if len(devices) > 1:
+            di = self._next_dev % len(devices)
             self._next_dev += 1
         self.dispatched[di] += 1
-        dev = self._devices[di]
+        dev = devices[di]
         out = extend_batch_packed_resident_q2(self._upload(buf, dev), self._ref_codes[di], Q, T,
-                                              self._sw, sub)
+                                              self.run.sw, sub)
         if dev.type != "cuda":
             return out, None
         out_host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
@@ -551,15 +539,31 @@ class NativePipeline:
                     pending.append((idxs, out, event, Q + T - 1))
         return pending
 
-    def _start_fx(self, reader, fx, n_records: int, chunk_index: int):
-        """Phase A of a reader chunk (its buffer back to the reader's
-        pool), then its extend dispatched; returns the state
-        `finish_chunk` takes."""
+    def _start(self, chunk_index: int, n_records: int, fx=None, reader=None, records=None):
+        """Phase A of a chunk, then its extend dispatched; returns the
+        state `finish_chunk` takes. Phase A takes the Python `records`
+        (r1, r2, r3), seeded on the host, or the reader chunk `fx` (its
+        buffer back to `reader`'s pool) with its lookups served by the
+        sharded index under --shard-index, seeded and looked up on the
+        device where `device_seed`, else all on the host. Where it chooses,
+        it counts the records the engine seeds (`host_seeded`) and whose
+        runs it walks (`host_walked`) on the host."""
+        seeded = walked = n_records
         with Span(self.span_s, None, "phase_a", chunk_index):
             try:
-                chunk = self._chunk_a(fx, n_records, chunk_index)
+                if records is not None:
+                    chunk = self.engine.chunk_a(*records, chunk_index)
+                elif self.device_seed:
+                    chunk, seeded, walked = self._preseed(fx, n_records, chunk_index)
+                elif self.run.shard_index:
+                    chunk = self._shard_chunk_a(fx, n_records, chunk_index)
+                else:
+                    chunk = self.engine.chunk_a_fx(fx, chunk_index)
             finally:
-                reader.free_chunk(fx)  # pooled buffer must always return
+                if reader is not None:
+                    reader.free_chunk(fx)  # pooled buffer must always return
+        self.host_seeded += seeded
+        self.host_walked += walked
         return chunk, self._plan_and_dispatch(chunk, chunk_index), chunk_index
 
     # --- two-phase API (callers drive the cross-chunk pipelining) -------
@@ -567,11 +571,8 @@ class NativePipeline:
     def start_chunk(self, records1, records2, records3, chunk_index: int):
         """Phase A (host seeding) + async device dispatch; returns an
         opaque state."""
-        with Span(self.span_s, None, "phase_a", chunk_index):
-            self.host_seeded += len(records1) + len(records2) + len(records3)
-            self.host_walked += len(records1) + len(records2) + len(records3)
-            chunk = self.engine.chunk_a(records1, records2, records3, chunk_index)
-        return chunk, self._plan_and_dispatch(chunk, chunk_index), chunk_index
+        return self._start(chunk_index, len(records1) + len(records2) + len(records3),
+                           records=(records1, records2, records3))
 
     def finish_chunk(self, state) -> bytes:
         """Wait for the chunk's device results, then phase B; returns the
@@ -591,11 +592,30 @@ class NativePipeline:
                 span_s["device_results_s"] += time.perf_counter() - t0
             return self.engine.chunk_b_bytes(chunk)
 
-    def _finish_emit(self, state, emit) -> None:
-        """Phase B of a started chunk, then emit(chunk index, bytes)."""
-        text = self.finish_chunk(state)
-        with Span(self.span_s, "emit_s", "emit", state[2]):
-            emit(state[2], text)
+    def _pipelined(self, started: Iterator, depth: int, emit, t0: float) -> None:
+        """The software pipelining of every mapping loop: take the next
+        started chunk from `started` (a generator, so the chunk's phase A
+        and dispatch run as it is taken) and, while more than `depth` are
+        in flight, finish the oldest (phase B) and emit(chunk index,
+        bytes) it; then finish the rest in order. The mapping thread's
+        seconds since `t0` go to `worker_s`."""
+        in_flight = deque()
+
+        def finish_emit():
+            state = in_flight.popleft()
+            text = self.finish_chunk(state)
+            with Span(self.span_s, "emit_s", "emit", state[2]):
+                emit(state[2], text)
+
+        try:
+            for state in started:
+                in_flight.append(state)
+                if len(in_flight) > depth:
+                    finish_emit()
+            while in_flight:
+                finish_emit()
+        finally:
+            self.span_s["worker_s"] += time.perf_counter() - t0
 
     def map_all(
         self,
@@ -611,21 +631,14 @@ class NativePipeline:
         t0 = time.perf_counter()
         boost_mapping_thread()
         n_reads = 0
-        in_flight = deque()
 
-        def emit(ci, text):
-            write(text)
-
-        try:
+        def started():
+            nonlocal n_reads
             for chunk_index, r1, r2, r3 in chunks:
                 n_reads += len(r1) + len(r2) + len(r3)
-                in_flight.append(self.start_chunk(r1, r2, r3, chunk_index))
-                if len(in_flight) > depth:
-                    self._finish_emit(in_flight.popleft(), emit)
-            while in_flight:
-                self._finish_emit(in_flight.popleft(), emit)
-        finally:
-            self.span_s["worker_s"] += time.perf_counter() - t0
+                yield self.start_chunk(r1, r2, r3, chunk_index)
+
+        self._pipelined(started(), depth, lambda ci, text: write(text), t0)
         return n_reads
 
     def map_file(self, path1, path2, interleaved, chunk_size, write,
@@ -657,15 +670,16 @@ class NativePipeline:
         t0 = time.perf_counter()
         boost_mapping_thread()
         reader = NativeReader(path1, path2, interleaved, chunk_size)
-        chunks = iter(reader)
         n_reads = 0
-        in_flight = deque()
-        try:
+
+        def started():
+            nonlocal n_reads
+            chunks = iter(reader)
             while True:
                 with Span(self.span_s, "read_wait_s", "read"):
                     item = next(chunks, None)
                 if item is None:
-                    break
+                    return
                 chunk_index, fx, n_pairs, n_singles = item
                 if owns is not None and not owns(chunk_index):
                     reader.free_chunk(fx)
@@ -673,15 +687,12 @@ class NativePipeline:
                 n_reads += 2 * n_pairs + n_singles
                 if progress is not None:
                     progress(n_reads)
-                in_flight.append(self._start_fx(reader, fx, 2 * n_pairs + n_singles,
-                                                chunk_index))
-                if len(in_flight) > depth:
-                    self._finish_emit(in_flight.popleft(), emit)
-            while in_flight:
-                self._finish_emit(in_flight.popleft(), emit)
+                yield self._start(chunk_index, 2 * n_pairs + n_singles, fx, reader)
+
+        try:
+            self._pipelined(started(), depth, emit, t0)
         finally:
             reader.close()
-            self.span_s["worker_s"] += time.perf_counter() - t0
         return n_reads
 
     def counters(self) -> dict:
@@ -713,18 +724,16 @@ class NativePipeline:
 
     @contextlib.contextmanager
     def stream_context(self):
-        """Enter on a mapping thread: a CUDA stream of its own on each
-        distinct card of the device list when the pipeline extends or
-        looks up on CUDA (the current stream is per thread and card, so
+        """Enter on a mapping thread: a CUDA stream of its own on each of
+        the run's `cards` (the current stream is per thread and card, so
         workers that shared a card's default stream would serialize their
-        kernels there), with the first card current; nothing otherwise.
-        `streams` keeps the last context's streams by card."""
-        cards = [d for d in dict.fromkeys(self._devices) if d.type == "cuda"]
-        if not ((self.use_device or self.shard_index) and cards):
+        kernels there), with the first card current; nothing without
+        cards. `streams` keeps the last context's streams by card."""
+        if not self.run.cards:
             yield
             return
         with contextlib.ExitStack() as stack:
-            self.streams = {d: torch.cuda.Stream(d) for d in cards}
+            self.streams = {d: torch.cuda.Stream(d) for d in self.run.cards}
             for stream in self.streams.values():
                 stack.enter_context(torch.cuda.stream(stream))
             stack.enter_context(torch.cuda.device(self.device))
@@ -836,24 +845,15 @@ class ThreadedNativePipeline:
         pin_workers: bool = False,
         devices=None,
     ):
-        # one sharded index serves every worker: its shards are uploaded
-        # once, and each worker looks up on its own streams
-        self.sharded_index = (build_sharded_index(index, torch.device(device), devices)
-                              if shard_index else None)
-        # where the workers will seed on the device, its resident index goes
-        # up here, in set-up, once for all of them (`_SEED_IX_CACHE`); the
-        # workers' pipelines decide the same way (the gap rule: NativePipeline)
-        self.device_seed = False
-        if use_device and aln_params.gap_extend < aln_params.gap_open and not shard_index:
-            first = (check_devices(devices) if devices is not None else local_devices(device))[0]
-            self.device_seed = seeds_on_device(first, device_seed)
-            if self.device_seed:
-                _resident_seed_index(index, first)
+        # one run for every worker, made here, in set-up: one sharded
+        # index (each worker looks up on its own streams), one seed index
+        # and one genome a distinct device
+        self.run = DeviceRun(index, aln_params, use_device, device, devices, device_seed,
+                             shard_index)
+        self.device_seed, self.sharded_index = self.run.device_seed, self.run.sharded_index
         self._mk = lambda: NativePipeline(
             index, index_parameters, references, aln_params, map_param,
-            read_group_id, use_device=use_device, batch_size=batch_size,
-            device=device, device_seed=device_seed, shard_index=shard_index,
-            sharded_index=self.sharded_index, devices=devices,
+            read_group_id, batch_size=batch_size, run=self.run,
         )
         self.n_workers = max(1, n_workers)
         self.queue_depth = queue_depth
@@ -905,7 +905,16 @@ class ThreadedNativePipeline:
             boost_mapping_thread()
             in_q = in_qs[wid % len(in_qs)]
             pipe = None
-            prev = None  # a started chunk's state: per-worker double buffering
+
+            def started():
+                while True:
+                    with Span(own, "input_wait_s", "input_wait"):
+                        item = in_q.get()
+                    if item is None:
+                        return
+                    ci, fx, n_records = item
+                    yield pipe._start(ci, n_records, fx, reader)
+
             try:
                 with contextlib.ExitStack() as stack:
                     # inside the try: a construction failure (device OOM,
@@ -914,25 +923,15 @@ class ThreadedNativePipeline:
                     with Span(own, "worker_setup_s", "setup"):
                         pipe = self._mk()
                         stack.enter_context(pipe.stream_context())
-                    while True:
-                        with Span(own, "input_wait_s", "input_wait"):
-                            item = in_q.get()
-                        if item is None:
-                            break
-                        ci, fx, n_records = item
-                        state = pipe._start_fx(reader, fx, n_records, ci)
-                        if prev is not None:
-                            pipe._finish_emit(prev, emit)
-                        prev = state
-                    if prev is not None:
-                        pipe._finish_emit(prev, emit)
+                    # double buffering: the card extends chunk i while
+                    # phase A of chunk i+1 runs
+                    pipe._pipelined(started(), 1, emit, t0)
             except Exception as e:  # propagated to the caller by map_file
                 errors.append(e)
                 with out_lock:
                     out_lock.notify_all()
             finally:
                 if pipe is not None:
-                    own["worker_s"] = time.perf_counter() - t0
                     self._counters.append(pipe.counters())
                     self._timers.append(_summed([pipe.timers(), own]))
                     self.worker_dispatched.append(pipe.dispatched)

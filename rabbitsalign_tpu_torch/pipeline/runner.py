@@ -99,15 +99,13 @@ def run_aligner(opt: CommandLineOptions) -> int:
         f"({len(references)} contig{'s' if len(references) != 1 else ''})"
     )
 
-    prewarm = None
-    if (opt.use_tpu and not opt.only_gen_index
-            and aln_params.gap_extend < aln_params.gap_open):
-        # build the kernels, create the CUDA context and run the int16
-        # probe while the index is built or read. An -i run never maps;
-        # gap_extend >= gap_open mirrors NativePipeline's gate, which
-        # turns device extension off there
-        from .native_pipeline import prewarm_device
+    from .native_pipeline import extends_on_device, prewarm_device
 
+    prewarm = None
+    if not opt.only_gen_index and extends_on_device(opt.use_tpu, aln_params):
+        # build the kernels, create the CUDA context and run the int16
+        # probe while the index is built or read, where the run will
+        # extend on the device. An -i run never maps
         prewarm = prewarm_device(opt.device)
 
     index = StrobemerIndex(references, index_parameters, opt.bits)

@@ -773,7 +773,6 @@ def _multi_run(multi_world, pe, monkeypatch, **kw):
             streams.append(torch.cuda.current_stream(buf.device))
         return real_extend(buf, *args)
 
-    monkeypatch.setattr(pnp, "_RESIDENT_CACHE", {})
     monkeypatch.setattr(pnp, "resident_ref_codes", counting)
     monkeypatch.setattr(pnp, "extend_batch_packed_resident_q2", extend)
     mp = MappingParameters(r=150, rescue_cutoff=2 * index.filter_cutoff)

@@ -145,15 +145,46 @@ def test_device_seed_without_gpu_is_refused(data, capsys):
     assert "no CUDA device" in capsys.readouterr().err
 
 
-@pytest.mark.parametrize("device,flag,seeds", [
-    ("cuda", False, True), ("cuda:0", False, True), ("cuda", True, True),
-    ("cpu", False, False), ("cpu", True, True),
+@pytest.mark.parametrize("device,kw,extends,seeds", [
+    pytest.param("cuda", {}, True, True, id="cuda-False-True"),
+    pytest.param("cuda:0", {}, True, True, id="cuda:0-False-True"),
+    pytest.param("cuda", {"device_seed": True}, True, True, id="cuda-True-True"),
+    pytest.param("cpu", {}, True, False, id="cpu-False-False"),
+    pytest.param("cpu", {"device_seed": True}, True, True, id="cpu-True-True"),
+    pytest.param("cuda", {"gap_extend": 12}, False, False, id="gap-rule"),
+    pytest.param("cpu", {"gap_extend": 12, "device_seed": True}, False, False,
+                 id="gap-rule-cpu"),
+    pytest.param("cuda", {"use_device": False, "device_seed": True}, False, False,
+                 id="no-tpu"),
+    pytest.param("cuda", {"shard_index": True}, True, False, id="shard-index"),
+    pytest.param("cpu", {"shard_index": True, "device_seed": True}, True, False,
+                 id="shard-index-cpu"),
 ])
-def test_seeds_on_device_where_the_extend_runs_on_a_card(device, flag, seeds):
-    """Phase A seeds on the first device of the extend's list where it is
-    a CUDA card, with or without --device-seed; on the CPU only where the
-    flag asks for the plain versions."""
-    assert pnp.seeds_on_device(torch.device(device), flag) is seeds
+def test_seeds_on_device_where_the_extend_runs_on_a_card(device, kw, extends, seeds,
+                                                         monkeypatch):
+    """The run's one decision (`DeviceRun`): phase A seeds on the first
+    device of the extend's list where it is a CUDA card, with or without
+    --device-seed, and on the CPU only where the flag asks for the plain
+    versions; the gap rule (gap_extend = gap_open: no device extend) and
+    --no-tpu leave the extend and the seeding on the host, and
+    --shard-index takes precedence over seeding on the device. The seed
+    index goes up exactly where phase A seeds on the device. The CUDA
+    cases run here with the card's list and uploads stubbed."""
+    kw = dict(kw)
+    aln = AlignmentParameters(gap_open=12, gap_extend=kw.pop("gap_extend", 1))
+    uploads = []
+    monkeypatch.setattr(pnp, "local_devices", lambda d="cuda": [torch.device(d)])
+    monkeypatch.setattr(pnp, "_seed_index_on", lambda index, d: uploads.append(d) or "ix")
+    monkeypatch.setattr(pnp, "build_sharded_index", lambda index, d, devices: "shards")
+    run = pnp.DeviceRun(None, aln, device=device, **kw)
+    assert run.use_device is extends and run.device_seed is seeds
+    assert run.device == torch.device(device)
+    assert uploads == ([run.device] if seeds else [])
+    assert run.seed_index == ("ix" if seeds else None)
+    assert run.sharded_index == ("shards" if kw.get("shard_index") else None)
+    extends_or_shards = extends or kw.get("shard_index", False)
+    assert run.cards == ([run.device] if extends_or_shards and device != "cpu" else [])
+    assert pnp.extends_on_device(kw.get("use_device", True), aln) is extends
 
 
 def _pipeline_args(data):
@@ -179,7 +210,7 @@ def test_host_seeding_off_the_card(data, mode, workers, monkeypatch):
     seed index goes up, `device_seed_s` stays 0 and `host_seeded` and
     `host_walked` count every record."""
     monkeypatch.setattr(pnp, "seed_and_find", lambda *a: pytest.fail("device seeding ran"))
-    monkeypatch.setattr(pnp, "_resident_seed_index",
+    monkeypatch.setattr(pnp, "_seed_index_on",
                         lambda *a: pytest.fail("the seed index was uploaded"))
     args = _pipeline_args(data)
     kw = HOST_SEEDING[mode]
@@ -196,19 +227,23 @@ def test_host_seeding_off_the_card(data, mode, workers, monkeypatch):
 
 def test_threaded_pipeline_uploads_the_seed_index_in_setup(data, monkeypatch):
     """The seed index goes up once, when the threaded pipeline is built
-    (set-up), and the workers' pipelines find it there: mapping uploads
-    nothing more."""
-    monkeypatch.setattr(pnp, "_SEED_IX_CACHE", {})
+    (set-up), and the workers' pipelines find it there: mapping, twice,
+    uploads nothing more."""
+    uploads = []
+    real = pnp._seed_index_on
+    monkeypatch.setattr(pnp, "_seed_index_on",
+                        lambda index, d: uploads.append((index, d)) or real(index, d))
     args = _pipeline_args(data)
     tp = pnp.ThreadedNativePipeline(*args, n_workers=2, device="cpu", device_seed=True)
-    assert tp.device_seed
-    (key, cached), = pnp._SEED_IX_CACHE.items()
-    assert key == (id(args[0]), "cpu")
+    assert tp.device_seed and uploads == [(args[0], torch.device("cpu"))]
+    cached = tp.run.seed_index
+    assert len(cached) == 4
     monkeypatch.setattr(pnp, "_signed_bits", lambda a: pytest.fail("uploaded while mapping"))
-    out = []
-    assert tp.map_file(str(data / "se.fq"), "", False, 64, out.append) == 300
-    assert pnp._SEED_IX_CACHE == {key: cached}
-    assert tp.timers()["device_seed_s"] > 0
+    for _ in range(2):
+        out = []
+        assert tp.map_file(str(data / "se.fq"), "", False, 64, out.append) == 300
+        assert tp.timers()["device_seed_s"] > 0
+    assert len(uploads) == 1 and tp.run.seed_index is cached
 
 
 # --- the run walk on the device ------------------------------------------
@@ -445,7 +480,7 @@ def test_walk_plain_at_the_cutoff_equals_the_host_walk(walk_worlds):
     index = _world_args(d, 150)[0]
     reads = [ln.strip() for i, ln in enumerate(open(d / "r1.fq", "rb")) if i % 4 == 1]
     codes, lens = code_batch(reads)
-    ix = pnp._resident_seed_index(index, torch.device("cpu"))
+    ix = pnp.DeviceRun(index, AlignmentParameters(), device="cpu", device_seed=True).seed_index
     p = index.parameters
     buf, total = seed_device.seed_and_find(
         torch.from_numpy(codes), torch.from_numpy(lens), *ix[:2], p.syncmer.k, p.syncmer.s,

@@ -6,8 +6,8 @@
   with its q2 upload on that entry and its targets gathered from that
   entry's genome; SE and PE SAM equal `--no-tpu`, the one-entry port and
   the JAX package's 8-device `NativePipeline`;
-- one genome upload per distinct entry across 3 workers, a cache that
-  keeps every card's copy of a genome and drops another genome's;
+- one genome upload per distinct entry across 3 workers and two
+  `map_file` calls, held by the run (`DeviceRun`), each run its own;
 - `ShardedIndex` over 2, 3 and 8 distinct entries: its three lookups
   equal the JAX `ShardedIndex(make_mesh(n))` and the port's one-device
   index (`find_runs_compact` through the host merge across devices);
@@ -20,7 +20,7 @@
 
 The entries are `torch.device("cpu", i)`: their tensors live on the CPU,
 where the wrappers take the kernels' plain versions, but the labels key
-the caches, the shards and the round-robin as cards would. Every output
+the genome copies, the shards and the round-robin as cards would. Every output
 is integer, so every comparison is exact.
 """
 
@@ -164,7 +164,7 @@ def test_round_robin_over_eight_entries_matches_jax(world, one_job_batches, monk
     monkeypatch.setattr(NativeEngine, "MIN_DEVICE_JOBS", 1)
     monkeypatch.setattr(JaxEngine, "MIN_DEVICE_JOBS", 1)
     one, one_pipe = _one_entry(world, pe)
-    assert one_pipe._devices == [torch.device("cpu")] and one_pipe._next_dev == 0
+    assert one_pipe.run.devices == [torch.device("cpu")] and one_pipe._next_dev == 0
     assert one_pipe.dispatched == [n]
     host, _ = _port(world, pe, chunk=SMALL_CHUNK, use_device=False)
     assert len(jax.local_devices()) == 8
@@ -189,11 +189,10 @@ def test_genome_uploaded_once_per_distinct_entry(world, one_job_batches, monkeyp
         uploads.append(device)
         return real(codes, device)
 
-    monkeypatch.setattr(pnp, "_RESIDENT_CACHE", {})
     monkeypatch.setattr(pnp, "resident_ref_codes", counting)
     got, pipe = _port(world, n_workers=3, chunk=SMALL_CHUNK, devices=devices)
     assert sorted(map(str, uploads)) == sorted({str(d) for d in devices})
-    assert len(pnp._RESIDENT_CACHE) == len(set(devices))  # every card's copy kept
+    assert list(pipe.run._genomes) == list(dict.fromkeys(devices))  # every card's copy kept
     assert len(pipe.worker_dispatched) == 3
     for per_entry in pipe.worker_dispatched:
         n = sum(per_entry)
@@ -203,27 +202,40 @@ def test_genome_uploaded_once_per_distinct_entry(world, one_job_batches, monkeyp
     assert got == _one_entry(world, False)[0]
 
 
-def test_genome_cache_keeps_each_cards_copy_and_drops_other_genomes(monkeypatch):
-    """A copy for a second card leaves the first card's copy cached (one
-    upload a card, not one a lookup); a new genome drops the old one's
-    copies on every card."""
+def test_genome_cache_keeps_each_cards_copy_and_drops_other_genomes(world, monkeypatch):
+    """A run keeps one genome copy a distinct card (an entry named twice
+    shares it): its first worker uploads it, and a second `map_file` on
+    the same pipeline uploads nothing. Two runs on two genomes each hold
+    their own copies: no process-wide cache keeps or drops either."""
     uploads = []
-    monkeypatch.setattr(pnp, "_RESIDENT_CACHE", {})
+    real = pnp.resident_ref_codes
     monkeypatch.setattr(pnp, "resident_ref_codes",
-                        lambda codes, device: uploads.append(device) or torch.from_numpy(codes))
+                        lambda codes, device: uploads.append(device) or real(codes, device))
+    pipe = pnp.ThreadedNativePipeline(*_args(world), batch_size=64, device="cpu", n_workers=2,
+                                      devices=[*ENTRIES[:2], ENTRIES[0]])
+    for _ in range(2):
+        out = []
+        pipe.map_file(*_inputs(world, False), False, SMALL_CHUNK, out.append)
+        assert b"".join(out) == _one_entry(world, False)[0]
+        assert uploads == ENTRIES[:2]
 
     class Engine:
-        def ref_codes(self):
-            return np.zeros(4, np.uint8)
+        def __init__(self, codes):
+            self.codes = codes
 
-    a, b, engine = object(), object(), Engine()
-    first = pnp._resident_ref_codes(a, engine, ENTRIES[0])
-    pnp._resident_ref_codes(a, engine, ENTRIES[1])
-    assert pnp._resident_ref_codes(a, engine, ENTRIES[0]) is first
-    assert uploads == ENTRIES[:2]
-    pnp._resident_ref_codes(b, engine, ENTRIES[0])
-    assert uploads == [*ENTRIES[:2], ENTRIES[0]]
-    assert list(pnp._RESIDENT_CACHE) == [(id(b), str(ENTRIES[0]))]
+        def ref_codes(self):
+            return self.codes
+
+    from rabbitsalign_tpu_torch.align.aligner import AlignmentParameters
+
+    runs = [pnp.DeviceRun(world[4], AlignmentParameters(), device="cpu", devices=ENTRIES[:2])
+            for _ in range(2)]
+    first = runs[0].genomes(Engine(np.zeros(4, np.uint8)))
+    second = runs[1].genomes(Engine(np.ones(4, np.uint8)))
+    assert uploads == ENTRIES[:2] * 3
+    again = runs[0].genomes(Engine(np.full(4, 2, np.uint8)))  # cached: no upload
+    assert uploads == ENTRIES[:2] * 3 and all(a is b for a, b in zip(again, first))
+    assert all(int(g[:4].sum()) == 0 for g in first) and all(int(g[:4].sum()) == 4 for g in second)
 
 
 @pytest.mark.parametrize("n_entries", [2, 3, 8])

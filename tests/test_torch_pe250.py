@@ -96,7 +96,8 @@ def test_seed_and_find_matches_the_reference_randstrobes(pe250):
                            if i % 4 == 1][:40]
     codes, lens = code_batch(reads)
     sp, rp = p.syncmer, p.randstrobe
-    ix = pnp._resident_seed_index(index, torch.device("cpu"))[:2]  # hashes, buckets
+    # hashes, buckets
+    ix = pnp.DeviceRun(index, AlignmentParameters(), device="cpu", device_seed=True).seed_index[:2]
     buf, total = psd.seed_and_find(torch.from_numpy(codes), torch.from_numpy(lens), *ix, sp.k,
                                    sp.s, sp.t_syncmer, rp.w_min, rp.w_max, rp.q, rp.max_dist,
                                    pnp.NativePipeline.SEED_L, index.bits)

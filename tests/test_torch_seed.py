@@ -21,11 +21,12 @@ from rabbitsalign_tpu.pipeline.native_pipeline import NativePipeline as JaxPipel
 from rabbitsalign_tpu.seed import hash as jhash
 from rabbitsalign_tpu.seed import randstrobes as jrs
 from rabbitsalign_tpu.seed import syncmers as jsy
+from rabbitsalign_tpu_torch.align.aligner import AlignmentParameters
 from rabbitsalign_tpu_torch.index.params import IndexParameters
 from rabbitsalign_tpu_torch.ops import seed_cuda
 from rabbitsalign_tpu_torch.ops import seed_device as psd
-from rabbitsalign_tpu_torch.pipeline.native_pipeline import (SPAN_TIMERS, NativePipeline,
-                                                             _resident_seed_index)
+from rabbitsalign_tpu_torch.pipeline.native_pipeline import (SPAN_TIMERS, DeviceRun,
+                                                             NativePipeline)
 from rabbitsalign_tpu_torch.seed import hash as phash
 from rabbitsalign_tpu_torch.seed import randstrobes as prs
 from rabbitsalign_tpu_torch.seed import syncmers as psy
@@ -360,10 +361,12 @@ def test_preseed_arrays_match_jax():
     port = object.__new__(NativePipeline)
     port.engine = _StubEngine(codes, lens)
     port._index, port._params = index, IndexParameters.from_read_length(150)
-    port.device, port.host_seeded, port.host_walked = torch.device("cpu"), 0, 0
-    port._seed_ix = _resident_seed_index(index, port.device)  # uploaded in set-up
+    # the seed index goes up in set-up
+    port.run = DeviceRun(index, AlignmentParameters(), device="cpu", device_seed=True)
+    port.device = port.run.device
     port.span_s = dict.fromkeys(SPAN_TIMERS, 0.0)
-    assert jax_pipe._preseed(None, len(reads), 0) == port._preseed(None, len(reads), 0) == "chunk"
+    chunk, host_seeded, host_walked = port._preseed(None, len(reads), 0)
+    assert jax_pipe._preseed(None, len(reads), 0) == chunk == "chunk"
 
     want, got = jax_pipe.engine.arrays, port.engine.arrays
     counts, offsets = got[:2]
@@ -373,9 +376,9 @@ def test_preseed_arrays_match_jax():
     for g, w in zip(got[2:], want[2:]):  # hashes, starts, ends, is_rev, positions
         assert g.dtype == w.dtype and g.size == max(total, 1)
         assert np.array_equal(g[:total], w[:total])
-    assert port.host_seeded == int((counts < 0).sum()) >= 40  # ties and reads over 256
+    assert host_seeded == int((counts < 0).sum()) >= 40  # ties and reads over 256
     assert port.span_s["device_seed_s"] > 0
     assert (got[6][:total] >= 0).sum() > total // 2  # most strobes hit the index
     # the port's run walk went to the engine beside them
     assert jax_pipe.engine.walk is None and len(port.engine.walk) == 5
-    assert port.host_walked == port.host_seeded + int(port.engine.walk[4].sum())
+    assert host_walked == host_seeded + int(port.engine.walk[4].sum())

@@ -164,7 +164,6 @@ def test_genome_uploaded_once_for_all_workers(world, small_batches, monkeypatch)
         uploads.append(device)
         return extend_device.resident_ref_codes(codes, device)
 
-    monkeypatch.setattr(pnp, "_RESIDENT_CACHE", {})
     monkeypatch.setattr(pnp, "resident_ref_codes", counting)
     assert _port(world, 3)[0] == 400
     assert len(uploads) == 1
