@@ -13,7 +13,8 @@ without the result line, and its last line, on stdout and on stderr, is
    native engine needs zlib).
 2. Build: the CUDA kernels (csrc/, one nvcc per source, all started
    together, for sm_90a; ptxas register, shared memory and spill lines,
-   and each forward instantiation's registers and spills; a spill fails,
+   and each forward instantiation's registers and spills, with its loader
+   (CodesIn, Q2In: the q2 forward at R = 5, 8, 16 must be there); a spill fails,
    except in the split forward at R = 16 and 4 pairs a warp, which is
    printed) and the native engine
    (g++), from the checkout's sources; build times.
@@ -23,7 +24,10 @@ without the result line, and its last line, on stdout and on stderr, is
    (score, t_end, q_end; dirs on valid cells), both traceback epilogues
    (runs and meta; the packed transfer buffer) and the fused packed
    transfer buffer (written by the traceback kernel) must be equal byte
-   for byte (tolerance 0: everything is integer). The int16 forward (the
+   for byte (tolerance 0: everything is integer); so must the forward's
+   q2 loader (`sw_forward_q2`, the main path's) and its codes loader on
+   `unpack_q2`'s batch, and one native enqueue (`extend_q2_enqueue`) and
+   the fused chain's buffer. The int16 forward (the
    RSB_SW16 configuration) must equal its plain int16 version and the
    int32 kernel byte for byte at the same shapes; a span-violating
    scoring must stay on int32; the int16 probe kernel must equal its
@@ -39,7 +43,9 @@ without the result line, and its last line, on stdout and on stderr, is
    kernel's time is its time on the card: its calls are queued behind a
    sleep kernel, so the host's enqueue time is hidden (the traceback's
    host-paced time, back-to-back calls, is printed beside it). Plain
-   versions are timed host-paced; the fused extend both ways. At the
+   versions are timed host-paced; the fused extend and the one native
+   enqueue both ways; the q2 forward against unpack_q2 + the forward on
+   the card, with its registers, shared memory and spills (row 1q). At the
    tight bucket and at (512, 2048) the traceback's walks are replayed by
    the numpy emulation of its tile schedule (tests/torch_tb_tiles.py),
    which must give the kernel's runs and meta, for the longest and mean
@@ -260,6 +266,7 @@ REQUIRED = ("rabbitsalign_tpu_torch/__init__.py", "rabbitsalign_tpu_torch/csrc/s
             "rabbitsalign_tpu_torch/csrc/bucket_search.cuh",
             "rabbitsalign_tpu_torch/csrc/syncmers_scan.cu",
             "rabbitsalign_tpu_torch/csrc/merge_hits.cu", "rabbitsalign_tpu_torch/csrc/walk_hits.cu",
+            "rabbitsalign_tpu_torch/csrc/extend_q2.cu",
             "rabbitsalign_tpu_torch/native/engine.cpp", "rabbitsalign_tpu_torch/native/seednam.cpp",
             "rabbitsalign_tpu_torch/parallel/multihost.py",
             "rabbitsalign_tpu_torch/pipeline/batched.py",
@@ -425,10 +432,10 @@ def build():
             say("  " + line.strip())
     entries = ptxas_entries(cuda_build.build_log)
     for name, (regs, spill) in entries.items():
-        m = re.search(r"sw_forward_warp_kernelI([is])Li(\d+)EE", name)
+        m = re.search(r"sw_forward_warp_kernelI([is])Li(\d+)E.*?(CodesIn|Q2In)", name)
         if m:
             say(f"sw_forward_warp_kernel<{'int32' if m.group(1) == 'i' else 'int16'}, "
-                f"R = {m.group(2)}>: {regs} registers, {spill} bytes spilled")
+                f"R = {m.group(2)}, {m.group(3)}>: {regs} registers, {spill} bytes spilled")
         m = re.search(r"sw_forward_split_kernelILi(\d+)ELi(\d+)EE", name)
         if m:
             say(f"sw_forward_split_kernel<R = {m.group(1)}, PAIRS = {m.group(2)}>: {regs} "
@@ -440,6 +447,8 @@ def build():
     spilled = [name for name, (_, spill) in entries.items()
                if spill and "sw_forward_split_kernelILi16ELi4EE" not in name]
     check(not spilled, f"ptxas reports register spills in {spilled}")
+    check(sum("Q2In" in name and "sw_forward_warp_kernel" in name for name in entries) == 6,
+          "ptxas lists no int32 and int16 q2 forward at R = 5, 8 and 16")
     # a fresh engine cache inside the checkout: always built from its sources
     os.environ["RABBITSALIGN_TPU_TORCH_CACHE"] = str(WORK / "engine_cache")
     from rabbitsalign_tpu_torch.native import build_engine
@@ -447,6 +456,7 @@ def build():
     t0 = time.perf_counter()
     path = build_engine()
     say(f"native engine built in {time.perf_counter() - t0:.2f} s -> {path.relative_to(ROOT)}")
+    return entries
 
 
 def ptxas_entries(log: str):
@@ -617,7 +627,7 @@ def sw16(value):
             os.environ["RSB_SW16"] = old
 
 
-def kernels(torch, card):
+def kernels(torch, card, entries):
     phase("3: kernels against their plain versions")
     from rabbitsalign_tpu_torch.native.engine import engine_buckets
     from rabbitsalign_tpu_torch.ops import extend_device as px
@@ -648,6 +658,21 @@ def kernels(torch, card):
         e_t = max_abs_err(torch, list(zip(kt, pt)) + [(kp, pp)])
         with sw16(None):
             fused = px.extend_batch_packed_resident_q2(buf, ref, Q, T, sw, bcap)
+            # the main path's input: the forward's q2 loader against the
+            # codes loader on unpack_q2's batch, and the one native enqueue
+            # against the chain of calls
+            k2 = sw_cuda.sw_forward_q2(buf, ref, Q, T, sw)
+            staged = px.q2_staging(Q, B)
+            staged[...] = buf.cpu().numpy()
+            staged_out = px.extend_q2_enqueue(staged, ref, Q, T, sw)
+            torch.cuda.current_stream(dev).synchronize()
+        e_q2 = max_abs_err(torch, list(zip(k2[:3], k[:3])) + [
+            (torch.where(valid, k2[3], 0), torch.where(valid, k[3], 0))])
+        same_enqueue = bool((staged_out == fused.cpu().numpy()).all())
+        say(f"bucket ({Q}, {T}) B={B}: q2 forward against unpack_q2 + forward max_abs_err "
+            f"{e_q2}, one native enqueue byte-equal to the chain of calls {same_enqueue}")
+        check(e_q2 == 0 and same_enqueue, f"the q2 forward or the native enqueue differs at "
+              f"({Q}, {T})")
         runs_op, runs_len, meta = tb_cuda.sw_traceback_plain(p[3], *p[:3])
         plain = px._pack_rle_output(runs_op, runs_len, *p[:3], meta)
         # the int16 configuration: against its plain int16 version and
@@ -719,8 +744,18 @@ def kernels(torch, card):
             def fused_call():
                 return px.extend_batch_packed_resident_q2(buf, ref, Q, T, sw, bcap)
 
+            def enqueue_call():
+                px.extend_q2_enqueue(staged, ref, Q, T, sw)
+
             with sw16(None):
                 fused_ms = (time_ms(torch, fused_call, 20), device_ms(torch, fused_call, 20))
+                enqueue_ms = (time_ms(torch, enqueue_call, 20), device_ms(torch, enqueue_call, 20))
+                q2_ms = device_ms(torch, lambda: sw_cuda.sw_forward_q2(buf, ref, Q, T, sw), 20)
+                unpack_ms = device_ms(torch, lambda: px.unpack_q2(buf, ref, Q, T), 20)
+            regs = {name: v for name, v in entries.items()
+                    if re.search(r"sw_forward_warp_kernelIiLi5E.*Q2In", name)}
+            check(len(regs) == 1, f"no ptxas line of the int32 q2 forward at R = 5: {regs}")
+            (q2_regs, q2_spill), = regs.values()
             for name, (ms, plain_ms) in times.items():
                 say(f"{name} at ({Q}, {T}) B={B}: kernel {ms:.4f} ms on the card "
                     f"({ms * 1e3 / B:.4f} us/pair), "
@@ -729,6 +764,14 @@ def kernels(torch, card):
             say(f"fused extend (unpack + forward + packed traceback) at ({Q}, {T}) B={B}: "
                 f"{fused_ms[0]:.4f} ms a call host-paced ({fused_ms[0] * 1e3 / B:.4f} us/pair), "
                 f"{fused_ms[1]:.4f} ms on the card [{card}]")
+            say(f"sw_forward q2 loader (row 1q) at ({Q}, {T}) B={B}: {q2_ms:.4f} ms on the card "
+                f"against unpack_q2 {unpack_ms:.4f} + forward {times['sw_forward'][0]:.4f} = "
+                f"{unpack_ms + times['sw_forward'][0]:.4f} ms; R = {R}, {q2_regs} registers, "
+                f"{smem} B shared memory a 4-warp block, {q2_spill} bytes spilled; bound "
+                f"{bounds['sw_forward'][0]:.6f} ms [{card}]")
+            say(f"one native enqueue (upload + q2 forward + packed traceback + copy back) at "
+                f"({Q}, {T}) B={B}: {enqueue_ms[0]:.4f} ms a call host-paced, {enqueue_ms[1]:.4f} "
+                f"ms on the card [{card}]")
     with sw16("1"):
         wide = sw_cuda.pick_dtype(512, 2048, sw_cuda.SwParams(100, 8, 12, 1))
     check(wide == torch.int32, f"SwParams(100, 8, 12, 1) at (512, 2048) picked {wide}")
@@ -2459,8 +2502,8 @@ def api(torch, card, ref, reads):
 
 def main() -> int:
     torch, card = environment()
-    build()
-    err, times, bounds = kernels(torch, card)
+    entries = build()
+    err, times, bounds = kernels(torch, card, entries)
     split_launches = ilp(torch, card)
     ref, reads = make_data()
     index = load_index(ref)

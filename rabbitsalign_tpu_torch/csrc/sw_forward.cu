@@ -42,8 +42,8 @@
 // codes (read once per pair), the direction bytes (written once, in whole
 // sectors) and the three results. Shared memory per warp: 32 * (64 R + 32)
 // ring bytes plus T target bytes; 4 warps per block (46080 bytes at (152,
-// 256), 143360 at (512, 2048)). ptxas (CUDA 12.9): 70, 80 and 128 registers
-// at R = 5, 8, 16 (72, 96, 80 at R = 4, 2, 1), no spills.
+// 256), 143360 at (512, 2048)). chip_smoke.py phase 2 prints each
+// instantiation's ptxas registers and spills, and fails on a spill.
 // What the design does about it: no cell waits on memory (the state stays in
 // registers, the codes in registers and shared memory), DPX instructions fold
 // the max chains (one each for E, F and H), and 2048 pairs give 2048 warps,
@@ -52,6 +52,16 @@
 //
 // Cells outside the valid region (q >= qlen or t >= tlen) are not defined
 // in dirs: the traceback only walks valid cells.
+//
+// The input comes through the kernel's loader parameter, read once in the
+// prologue; the DP body and the epilogue are one code for both. CodesIn
+// (sw_forward_launch, sw_forward_i16_launch) reads decoded (Q, B) / (T, B)
+// codes and int32 lengths. Q2In (sw_forward_q2_launch and its int16 twin,
+// the main path's, at R = 5, 8 and 16) reads the engine's q2 upload and
+// the flat resident genome itself: it decodes the lane's rows from the
+// 2-bit codes and the N mask, and gathers the target window from the
+// genome in coalesced runs, where CodesIn's target reads are strided by B.
+// So no decoded copy of a batch is built in device memory first.
 //
 // Two instantiations, picked per call by ops/sw_cuda.py:pick_dtype (the
 // rule of sw_pallas._pick_dtype, under RSB_SW16): Acc = int32_t, and
@@ -90,6 +100,7 @@
 // = 16 the split spills).
 #include <cstdint>
 #include <cuda_runtime.h>
+#include <type_traits>
 
 namespace {
 
@@ -174,12 +185,80 @@ __device__ __forceinline__ void flush_block(const uint8_t* ring, uint8_t* out, i
     }
 }
 
-template <typename Acc, int R>
+// The forward's input, read in the kernel's prologue by `load`: the
+// pair's clamped lengths (ql, tl), its target codes staged in shared memory
+// (tcode[t] for t < tl, a lane every 32nd) and the lane's R query codes
+// (code 4 for an N and for a row at or past ql). `ring`, the warp's ring,
+// is free until the DP starts, and a loader may stage there. CodesIn reads
+// the decoded layout: (Q, B) query codes, (T, B) target codes 0..4 and
+// int32 lengths, as `unpack_q2` and the Python mapper's fill build them.
+struct CodesIn {
+    const uint8_t* q_t;   // (Q, B)
+    const uint8_t* t_t;   // (T, B)
+    const int32_t* qlen;  // (B,)
+    const int32_t* tlen;  // (B,)
+
+    template <int R>
+    __device__ __forceinline__ void load(int b, int Q, int T, int B, int lane, uint8_t*,
+                                         uint8_t* tcode, int (&qc)[R], int& ql, int& tl) const {
+        const size_t sB = (size_t)B;
+        ql = max(0, min(__ldg(qlen + b), Q));
+        tl = max(0, min(__ldg(tlen + b), T));
+        for (int t = lane; t < tl; t += 32) tcode[t] = __ldg(t_t + t * sB + b);
+        const int q0 = lane * R;
+#pragma unroll
+        for (int r = 0; r < R; ++r) qc[r] = q0 + r < ql ? __ldg(q_t + (q0 + r) * sB + b) : 4;
+    }
+};
+
+// Q2In reads the engine's q2 upload (engine.cpp chunk_fill_batch_q2), the
+// main path's layout, (Qp + Qm + 8, B) u8 with Qp = ceil(Q/4), Qm =
+// ceil(Q/8): the query's 2-bit codes four a byte (row q in byte q / 4 at
+// bits 2 (q % 4)), its N mask eight rows a byte, then qlen u16, tlen u16
+// and the target's u32 offset into the flat resident genome, low bytes
+// first. The target is the genome's window ref[min(tstart + t, len - 1)],
+// read in coalesced runs of 32 codes (the clamp of `gather_targets`). The
+// query is decoded as the target is staged: a lane a code byte (four rows,
+// with its half of a mask byte) into the ring, one word a byte; after a
+// __syncwarp each lane reads its R codes from there. So the prologue keeps
+// the shape of CodesIn's, a strided loop into shared memory and R loads.
+struct Q2In {
+    const uint8_t* q2;   // (Qp + Qm + 8, B)
+    const uint8_t* ref;  // the flat resident genome, ref_len codes
+    long long ref_len;
+
+    template <int R>
+    __device__ __forceinline__ void load(int b, int Q, int T, int B, int lane, uint8_t* ring,
+                                         uint8_t* tcode, int (&qc)[R], int& ql, int& tl) const {
+        const size_t sB = (size_t)B;
+        const int Qp = (Q + 3) >> 2, Qm = (Q + 7) >> 3;
+        const uint8_t* tail = q2 + (size_t)(Qp + Qm) * sB + b;
+        ql = min(__ldg(tail) | (__ldg(tail + sB) << 8), Q);
+        tl = min(__ldg(tail + 2 * sB) | (__ldg(tail + 3 * sB) << 8), T);
+        const long long tstart = (long long)((uint32_t)__ldg(tail + 4 * sB) |
+                                             ((uint32_t)__ldg(tail + 5 * sB) << 8) |
+                                             ((uint32_t)__ldg(tail + 6 * sB) << 16) |
+                                             ((uint32_t)__ldg(tail + 7 * sB) << 24));
+        const long long last = ref_len - 1;
+        for (int t = lane; t < tl; t += 32) tcode[t] = __ldg(ref + min(tstart + t, last));
+        for (int j = lane; j < Qp; j += 32) {  // rows 4 j .. 4 j + 3
+            const uint32_t c = __ldg(q2 + j * sB + b);
+            const uint32_t n = __ldg(q2 + (Qp + (j >> 1)) * sB + b) >> ((j & 1) << 2);
+            uint32_t w = 0;
+#pragma unroll
+            for (int k = 0; k < 4; ++k) w |= ((n >> k) & 1 ? 4u : (c >> (2 * k)) & 3u) << (8 * k);
+            *reinterpret_cast<uint32_t*>(ring + 4 * j) = w;
+        }
+        __syncwarp();
+        const int q0 = lane * R;
+#pragma unroll
+        for (int r = 0; r < R; ++r) qc[r] = q0 + r < ql ? ring[q0 + r] : 4;
+    }
+};
+
+template <typename Acc, int R, typename In>
 __global__ void __launch_bounds__(kWarps * 32) sw_forward_warp_kernel(
-    const uint8_t* __restrict__ q_t,    // (Q, B) query codes 0..4
-    const uint8_t* __restrict__ t_t,    // (T, B) target codes 0..4
-    const int32_t* __restrict__ qlen,   // (B,)
-    const int32_t* __restrict__ tlen,   // (B,)
+    const In in,                        // the pairs' codes and lengths (CodesIn or Q2In)
     int Q, int T, int B, int A, int Bm, int O, int Eg,
     uint8_t* __restrict__ dirs,         // (B, Q, T) direction bytes
     int32_t* __restrict__ score,        // (B,)
@@ -193,19 +272,16 @@ __global__ void __launch_bounds__(kWarps * 32) sw_forward_warp_kernel(
     if (b >= B) return;  // the whole warp
     uint8_t* ring = smem + (threadIdx.x >> 5) * warp_smem(R, T);
     uint8_t* tcode = ring + 32 * kLane;
-    const int ql = max(0, min(qlen[b], Q));
-    const int tl = max(0, min(tlen[b], T));
-    const size_t sB = (size_t)B;
-    for (int t = lane; t < tl; t += 32) tcode[t] = t_t[t * sB + b];
-    const int q0 = lane * R;
+    int ql, tl;
     int qc[R], h_left[R], f_left[R];  // per row: code, H and F of column t-1
+    in.template load<R>(b, Q, T, B, lane, ring, tcode, qc, ql, tl);
+    const int q0 = lane * R;
 #pragma unroll
     for (int r = 0; r < R; ++r) {
-        qc[r] = q0 + r < ql ? q_t[(q0 + r) * sB + b] : 4;
         h_left[r] = 0;
         f_left[r] = kNeg;
     }
-    __syncwarp();
+    __syncwarp();  // tcode staged, and the ring's staging read
     const int rows = ql - q0;         // the lane's valid rows (clamped by R below)
     const int lanes = (ql + R - 1) / R;
     const int steps = ql > 0 && tl > 0 ? tl + lanes - 1 : 0;
@@ -466,16 +542,13 @@ int allow_max_smem(K kernel) {
     return (int)err;
 }
 
-template <typename Acc, int R>
-int launch_warp(const void* q_t, const void* t_t, const void* qlen, const void* tlen,
-                int Q, int T, int B, int A, int Bm, int O, int Eg, void* dirs,
+template <typename Acc, int R, typename In>
+int launch_warp(const In& in, int Q, int T, int B, int A, int Bm, int O, int Eg, void* dirs,
                 void* score, void* t_end, void* q_end, void* stream) {
-    const auto kernel = sw_forward_warp_kernel<Acc, R>;
+    const auto kernel = sw_forward_warp_kernel<Acc, R, In>;
     if (const int err = allow_max_smem(kernel)) return err;
     kernel<<<(B + kWarps - 1) / kWarps, kWarps * 32, kWarps * warp_smem(R, T),
-             (cudaStream_t)stream>>>((const uint8_t*)q_t, (const uint8_t*)t_t,
-                                     (const int32_t*)qlen, (const int32_t*)tlen, Q, T, B, A,
-                                     Bm, O, Eg, (uint8_t*)dirs, (int32_t*)score,
+             (cudaStream_t)stream>>>(in, Q, T, B, A, Bm, O, Eg, (uint8_t*)dirs, (int32_t*)score,
                                      (int32_t*)t_end, (int32_t*)q_end);
     return (int)cudaGetLastError();
 }
@@ -494,6 +567,16 @@ int launch_split(const void* q_t, const void* t_t, const void* qlen, const void*
     return (int)cudaGetLastError();
 }
 
+// f(std::integral_constant<int, R>()) at the smallest R of Rs with 32 R >=
+// Q (the rows a lane owns); cudaErrorInvalidValue past the last
+template <int... Rs, typename F>
+int at_rows(int Q, F&& f) {
+    int rc = (int)cudaErrorInvalidValue;
+    bool done = false;
+    ((done = done || (Q <= 32 * Rs && (rc = f(std::integral_constant<int, Rs>()), true))), ...);
+    return rc;
+}
+
 // The forward (PAIRS = 0: one warp a pair, in Acc) or the split (PAIRS 2
 // or 4, int32) at the R that covers Q
 template <typename Acc, int PAIRS>
@@ -503,20 +586,32 @@ int launch(const void* q_t, const void* t_t, const void* qlen, const void* tlen,
     if (Q < 0 || T < 0 || B < 0 || Q > kMaxQ || (PAIRS && B % PAIRS != 0))
         return (int)cudaErrorInvalidValue;
     if (B == 0) return (int)cudaGetLastError();
-#define RSB_LAUNCH(R)                                                                         \
-    if constexpr (PAIRS == 0)                                                                  \
-        return launch_warp<Acc, R>(q_t, t_t, qlen, tlen, Q, T, B, A, Bm, O, Eg, dirs, score,   \
-                                   t_end, q_end, stream);                                      \
-    else                                                                                       \
-        return launch_split<R, PAIRS>(q_t, t_t, qlen, tlen, Q, T, B, A, Bm, O, Eg, dirs, score, \
-                                      t_end, q_end, stream)
-    if (Q <= 32) RSB_LAUNCH(1);
-    if (Q <= 64) RSB_LAUNCH(2);
-    if (Q <= 128) RSB_LAUNCH(4);
-    if (Q <= 160) RSB_LAUNCH(5);
-    if (Q <= 256) RSB_LAUNCH(8);
-    RSB_LAUNCH(16);
-#undef RSB_LAUNCH
+    return at_rows<1, 2, 4, 5, 8, 16>(Q, [&](auto rows) {
+        constexpr int R = decltype(rows)::value;
+        if constexpr (PAIRS == 0)
+            return launch_warp<Acc, R>(
+                CodesIn{(const uint8_t*)q_t, (const uint8_t*)t_t, (const int32_t*)qlen,
+                        (const int32_t*)tlen},
+                Q, T, B, A, Bm, O, Eg, dirs, score, t_end, q_end, stream);
+        else
+            return launch_split<R, PAIRS>(q_t, t_t, qlen, tlen, Q, T, B, A, Bm, O, Eg, dirs,
+                                          score, t_end, q_end, stream);
+    });
+}
+
+// The forward on the q2 upload (Q2In), at R = 5, 8 or 16: the smallest
+// that covers Q of the rows the engine's buckets take
+template <typename Acc>
+int launch_q2(const void* q2, const void* ref, long long ref_len, int Q, int T, int B, int A,
+              int Bm, int O, int Eg, void* dirs, void* score, void* t_end, void* q_end,
+              void* stream) {
+    if (Q < 0 || T < 0 || B < 0 || Q > kMaxQ || ref_len < 1) return (int)cudaErrorInvalidValue;
+    if (B == 0) return (int)cudaGetLastError();
+    const Q2In in{(const uint8_t*)q2, (const uint8_t*)ref, ref_len};
+    return at_rows<5, 8, 16>(Q, [&](auto rows) {
+        return launch_warp<Acc, decltype(rows)::value>(in, Q, T, B, A, Bm, O, Eg, dirs, score,
+                                                       t_end, q_end, stream);
+    });
 }
 
 }  // namespace
@@ -539,6 +634,26 @@ extern "C" int sw_forward_i16_launch(const void* q_t, const void* t_t, const voi
                                      void* q_end, void* stream) {
     return launch<int16_t, 0>(q_t, t_t, qlen, tlen, Q, T, B, A, Bm, O, Eg, dirs, score,
                               t_end, q_end, stream);
+}
+
+// The forward on the engine's q2 upload, (ceil(Q/4) + ceil(Q/8) + 8, B)
+// u8, and the flat resident genome of ref_len codes, which it decodes and
+// gathers itself: the same outputs as sw_forward_launch on unpack_q2's
+// (q_t, t_t, qlen, tlen). Q at most 512, else cudaErrorInvalidValue.
+extern "C" int sw_forward_q2_launch(const void* q2, const void* ref, long long ref_len, int Q,
+                                    int T, int B, int A, int Bm, int O, int Eg, void* dirs,
+                                    void* score, void* t_end, void* q_end, void* stream) {
+    return launch_q2<int32_t>(q2, ref, ref_len, Q, T, B, A, Bm, O, Eg, dirs, score, t_end, q_end,
+                              stream);
+}
+
+// the same in the int16 configuration (the span bound of pick_dtype)
+extern "C" int sw_forward_q2_i16_launch(const void* q2, const void* ref, long long ref_len,
+                                        int Q, int T, int B, int A, int Bm, int O, int Eg,
+                                        void* dirs, void* score, void* t_end, void* q_end,
+                                        void* stream) {
+    return launch_q2<int16_t>(q2, ref, ref_len, Q, T, B, A, Bm, O, Eg, dirs, score, t_end, q_end,
+                              stream);
 }
 
 // The cross-pair ILP forward, int32, `pairs` pairs a warp; dirs (B, Q, T)

@@ -62,11 +62,11 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "extend_layout.cuh"
+
 namespace {
 
 constexpr int kWarps = 4;  // pairs (warps) per block
-constexpr int kRleM = 32;  // = tb_cuda.RLE_M = engine.cpp chunk_set_device_results M
-constexpr int kOutRows = 2 * kRleM + 14;  // rows of the packed transfer buffer
 constexpr int kOpEq = 1, kOpX = 2;  // then I = 3, D = 4: a gap's op is its source + 1
 // A direction byte's source (bits 0-1): 0 stop, 1 diagonal (bit 4: a
 // match), 2 insertion (up a row; bit 2: E came by extension), 3 deletion

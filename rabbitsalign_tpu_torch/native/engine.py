@@ -480,11 +480,22 @@ class NativeEngine:
         )
         return buf
 
-    def fill_batch_q2(self, chunk: NativeChunk, idxs: np.ndarray, B: int, Q: int) -> np.ndarray:
+    def fill_batch_q2(self, chunk: NativeChunk, idxs: np.ndarray, B: int, Q: int,
+                      out: Optional[np.ndarray] = None) -> np.ndarray:
         """2-bit-packed query fill (4 codes/byte + N-mask bitmap + u16
-        lengths + u32 target offset) - the production upload layout."""
+        lengths + u32 target offset) - the production upload layout,
+        (ceil(Q/4) + ceil(Q/8) + 8, B) u8: into `out` where given (a
+        C-contiguous array of that shape and dtype, such as a view of
+        pinned memory), else into a new array."""
         rows = (Q + 3) // 4 + (Q + 7) // 8 + 8
-        buf = np.empty((rows, B), dtype=np.uint8)
+        if out is None:
+            buf = np.empty((rows, B), dtype=np.uint8)
+        elif (out.shape != (rows, B) or out.dtype != np.uint8
+              or not out.flags.c_contiguous or not out.flags.writeable):
+            raise ValueError(f"fill_batch_q2: a writable C-contiguous ({rows}, {B}) uint8 "
+                             f"array expected, got {out.shape} {out.dtype}")
+        else:
+            buf = out
         self.lib.chunk_fill_batch_q2(
             self.handle, chunk.handle, idxs.ctypes.data, idxs.shape[0], B, Q,
             buf.ctypes.data,

@@ -28,8 +28,9 @@ PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PKG_DIR / "csrc"
 SOURCES = ("sw_forward.cu", "sw_traceback.cu", "int16_probe.cu", "seed_randstrobes.cu",
            "index_find.cu", "find_runs.cu", "launch_floor.cu", "syncmers_scan.cu",
-           "merge_hits.cu", "walk_hits.cu")
-HEADERS = ("bucket_search.cuh",)  # included by SOURCES, so in the digest too
+           "merge_hits.cu", "walk_hits.cu", "extend_q2.cu")
+# included by SOURCES, so in the digest too
+HEADERS = ("bucket_search.cuh", "extend_layout.cuh")
 BUILD_DIR = PKG_DIR / "build"
 LIB_PATH = BUILD_DIR / "libsw_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -109,10 +110,15 @@ def _signatures() -> dict:
     """The argument types of each ``*_launch`` entry (all return int)."""
     p, i, i64, u64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_uint64
     fwd = [p, p, p, p, i, i, i, i, i, i, i, p, p, p, p, p]
+    fwd_q2 = [p, p, i64, i, i, i, i, i, i, i, p, p, p, p, p]
     return {
         "sw_forward_launch": fwd,
         "sw_forward_i16_launch": fwd,
         "sw_forward_split_launch": [p, p, p, p, i, i, i, i, i, i, i, i, p, p, p, p, p],
+        "sw_forward_q2_launch": fwd_q2,
+        "sw_forward_q2_i16_launch": fwd_q2,
+        "extend_q2_enqueue": [p, p, i64, p, i64, i, i, i, i, i, i, i, i, i, p],
+        "extend_q2_scratch_bytes": [i, i, i, p],
         "sw_traceback_launch": [p, p, p, p, i, i, i, p, p, p, p],
         "sw_traceback_packed_launch": [p, p, p, p, i, i, i, p, p],
         "int16_probe_launch": [p, p, i, i, p],

@@ -18,6 +18,15 @@ version). The transfer formats are the engine's and are unchanged:
          n_runs 0xFFFF marks a pair with more than RLE_M runs, which the
          host re-aligns (engine.cpp chunk_set_device_results).
 
+On a card the main path takes a batch through one native call instead,
+`extend_q2_enqueue` (csrc/extend_q2.cu): the q2 upload from pinned
+memory (`q2_staging`, which the engine fills in place), the forward on
+the q2 layout itself (`sw_cuda.sw_forward_q2`'s kernel, which decodes the
+queries and gathers the targets in its prologue), the packed traceback
+and the copy of the packed rows back into the same pinned block, all on
+one stream; `extend_batch_packed_resident_q2` is its composition of
+separate calls, and the CPU's path.
+
 `extend_batch_packed` is the self-contained layout of the Python
 mapper's BatchAligner (ops/batch_extend.py): the input (Q + T + 4, B) u8
 holds the query codes, the target codes, then qlen and tlen as u16 (lo,
@@ -38,6 +47,7 @@ tests).
 
 from __future__ import annotations
 
+import ctypes
 import threading
 from typing import List, Optional, Tuple
 
@@ -45,7 +55,8 @@ import numpy as np
 import torch
 
 from ..align.cigar import CIGAR_DEL, CIGAR_EQ, CIGAR_INS, CIGAR_X, Cigar
-from .sw_cuda import SwParams, sw_forward
+from . import sw_cuda, tb_cuda
+from .sw_cuda import SwParams, pick_dtype, sw_forward
 from .tb_cuda import (OP_D, OP_EQ, OP_I, OP_NONE, OP_X, OUT_ROWS, RLE_M,  # noqa: F401
                       sw_traceback, sw_traceback_packed)
 from .tb_cuda import pack_rle_output as _pack_rle_output  # noqa: F401  (the name callers use)
@@ -54,11 +65,11 @@ REF_PAGE_BITS = 30  # the JAX package's 1 GiB reference pages
 REF_PAGE_SIZE = 1 << REF_PAGE_BITS
 REF_PAGE_OVERLAP = 4096  # >= max target window (T caps at 2048)
 
-# calls of extend_batch_packed_resident_q2 (one per dispatched batch),
-# of extend_batch_packed (one per BatchAligner batch), and of
-# extend_batch_packed_resident, extend_batch_packed_grouped and
-# extend_batch_device; mapping workers call them from several threads,
-# so updates hold _count_lock
+# calls of extend_batch_packed_resident_q2 and extend_q2_enqueue (one per
+# batch the main path dispatches), of extend_batch_packed (one per
+# BatchAligner batch), and of extend_batch_packed_resident,
+# extend_batch_packed_grouped and extend_batch_device; mapping workers call
+# them from several threads, so updates hold _count_lock
 calls = 0
 packed_calls = 0
 resident_calls = 0
@@ -156,6 +167,78 @@ def extend_batch_packed_resident_q2(buf: torch.Tensor, ref_codes: torch.Tensor,
     q_t, t_t, qlen, tlen = unpack_q2(buf, ref_codes, Q, T)
     score, t_end, q_end, dirs = sw_forward(q_t, t_t, qlen, tlen, params)
     return sw_traceback_packed(dirs, score, t_end, q_end)
+
+
+def q2_rows(Q: int) -> int:
+    """Rows of the q2 upload at bucket Q: ceil(Q/4) code rows, ceil(Q/8)
+    N-mask rows, then qlen, tlen and tstart (8 rows)."""
+    return (Q + 3) // 4 + (Q + 7) // 8 + 8
+
+
+def q2_staging(Q: int, B: int) -> np.ndarray:
+    """The q2 upload (q2_rows(Q), B) u8 of one batch of B pairs at bucket
+    Q, for the engine to fill: a view of a new pinned block of torch's
+    caching host allocator that holds, after it, the (OUT_ROWS, B) packed
+    rows that `extend_q2_enqueue` copies back. The view keeps the block
+    alive; drop it, and the output's view, only once the batch's copy back
+    has been waited for."""
+    rows = q2_rows(Q)
+    host = torch.empty((rows + OUT_ROWS) * B, dtype=torch.uint8, pin_memory=True)
+    return host.numpy()[: rows * B].reshape(rows, B)
+
+
+def enqueue_scratch_bytes(Q: int, T: int, B: int) -> int:
+    """Device bytes that `extend_q2_enqueue` takes at (Q, T, B), from the
+    kernel library, which lays them out (csrc/extend_q2.cu)."""
+    from .cuda_build import load_kernels
+
+    n = ctypes.c_longlong()
+    if load_kernels().extend_q2_scratch_bytes(Q, T, B, ctypes.byref(n)):
+        raise ValueError(f"extend_q2_enqueue: no batch of shape ({Q}, {T}, {B})")
+    return n.value
+
+
+def extend_q2_enqueue(q2: np.ndarray, ref_codes: torch.Tensor, Q: int, T: int,
+                      params: SwParams) -> np.ndarray:
+    """Enqueue one q2 batch, `q2` a `q2_staging(Q, B)` view that the engine
+    filled, on the current stream of the card that holds `ref_codes` (the
+    flat resident genome), in one call into the kernel library, which
+    releases the GIL: the upload of `q2`, the forward on it (in the
+    accumulator of `pick_dtype`), the packed traceback, and the copy of the
+    packed rows into the block after `q2`. Returns that (OUT_ROWS, B) view,
+    equal byte for byte to `extend_batch_packed_resident_q2`'s output once
+    the copy is done: nothing is waited for, and the caller records an
+    event on the stream and waits on it before reading the view. The device
+    scratch is one `torch.empty` from that stream's pool."""
+    global calls
+    dev = ref_codes.device
+    if dev.type != "cuda":
+        raise ValueError(f"extend_q2_enqueue: the genome must be on a CUDA card, not {dev}")
+    from .cuda_build import load_kernels
+
+    rows, B = q2.shape
+    block = q2.base
+    if (rows != q2_rows(Q) or not isinstance(block, np.ndarray) or block.dtype != np.uint8
+            or block.shape != ((rows + OUT_ROWS) * B,) or block.ctypes.data != q2.ctypes.data
+            or ref_codes.dtype != torch.uint8 or ref_codes.dim() != 1
+            or not ref_codes.is_contiguous()):
+        raise ValueError(f"extend_q2_enqueue: a q2_staging({Q}, B) view and a flat uint8 "
+                         f"genome expected, got {q2.shape} and {tuple(ref_codes.shape)} "
+                         f"{ref_codes.dtype}")
+    i16 = pick_dtype(Q, T, params) == torch.int16
+    stream = torch.cuda.current_stream(dev)
+    scratch = torch.empty(enqueue_scratch_bytes(Q, T, B), dtype=torch.uint8, device=dev)
+    err = load_kernels().extend_q2_enqueue(
+        block.ctypes.data, scratch.data_ptr(), scratch.shape[0], ref_codes.data_ptr(),
+        ref_codes.shape[0], Q, T, B, *params, i16, dev.index, stream.cuda_stream)
+    if err:
+        raise RuntimeError(f"extend_q2_enqueue failed (CUDA error {err})")
+    with _count_lock:
+        calls += 1
+    if B:
+        sw_cuda.count_launch(i16)
+        tb_cuda.count_launch()
+    return block[rows * B:].reshape(OUT_ROWS, B)
 
 
 def extend_batch_packed_resident(buf: torch.Tensor, ref_codes: torch.Tensor, Q: int, T: int,

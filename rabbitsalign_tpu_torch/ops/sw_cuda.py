@@ -34,6 +34,11 @@ configuration starts E and F at NEG16 and passes the H and E of a lane's
 bottom row to the next lane as two int16 halves of one shuffle; wherever
 the bound holds its outputs equal the int32 ones.
 
+`sw_forward_q2` is the forward on the engine's q2 upload and the flat
+resident genome, which the kernel decodes and gathers itself (the main
+path's input, csrc/sw_forward.cu's Q2In loader): the outputs of
+`sw_forward` on `unpack_q2`'s decoded batch, without the decoded batch.
+
 `sw_forward_split` is the cross-pair ILP variant (a warp for 2 or 4
 pairs, int32, (B, Q, T) dirs), the counterpart of
 tests/sanitize/ilp_probe.py's `_kernel_split`; only the ILP probe
@@ -51,10 +56,11 @@ import torch
 NEG = -(1 << 28)
 NEG16 = -(1 << 14)
 
-# launches of the int32 and int16 CUDA kernels by sw_forward, and of the
-# split kernel by sw_forward_split; calls that take the plain version (CPU
-# tensors) are not counted. Mapping workers launch from several threads,
-# so updates hold _count_lock.
+# launches of the int32 and int16 CUDA kernels by sw_forward, sw_forward_q2
+# and extend_device.extend_q2_enqueue, and of the split kernel by
+# sw_forward_split; calls that take the plain version (CPU tensors) are not
+# counted. Mapping workers launch from several threads, so updates hold
+# _count_lock.
 launches = 0
 launches_i16 = 0
 launches_split = 0
@@ -110,7 +116,6 @@ def sw_forward(q_t: torch.Tensor, t_t: torch.Tensor, qlen: torch.Tensor,
     q_end (B,) i32, dirs (B, Q, T) u8), in the accumulator dtype of
     `pick_dtype`. CPU tensors take the plain version; CUDA tensors launch
     the kernel of that dtype (Q at most MAX_Q)."""
-    global launches, launches_i16
     _check_inputs(q_t, t_t, qlen, tlen)
     Q, B = q_t.shape
     T = t_t.shape[0]
@@ -121,12 +126,60 @@ def sw_forward(q_t: torch.Tensor, t_t: torch.Tensor, qlen: torch.Tensor,
     i16 = acc == torch.int16
     out = _launch_forward(lib.sw_forward_i16_launch if i16 else lib.sw_forward_launch,
                           "sw_forward", q_t, t_t, qlen, tlen, params, (B, Q, T))
+    count_launch(i16)
+    return out
+
+
+def sw_forward_q2(buf: torch.Tensor, ref_codes: torch.Tensor, Q: int, T: int,
+                  params: SwParams
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The forward on the q2 upload `buf` ((ceil(Q/4) + ceil(Q/8) + 8, B)
+    u8, engine `fill_batch_q2`) against the flat resident genome
+    `ref_codes` on its device: the outputs of `sw_forward` on
+    `unpack_q2(buf, ref_codes, Q, T)`, in the accumulator of `pick_dtype`.
+    CPU tensors take that plain chain; CUDA tensors launch the kernel with
+    the q2 loader, which decodes and gathers in its prologue (Q at most
+    MAX_Q)."""
+    from .extend_device import q2_rows, unpack_q2
+
+    rows = q2_rows(Q)
+    if buf.dim() != 2 or buf.dtype != torch.uint8 or buf.shape[0] != rows:
+        raise ValueError(f"sw_forward_q2: a ({rows}, B) uint8 q2 buffer expected, got "
+                         f"{tuple(buf.shape)} {buf.dtype}")
+    if ref_codes.dim() != 1 or ref_codes.dtype != torch.uint8 or ref_codes.device != buf.device:
+        raise ValueError("sw_forward_q2: the genome must be a flat uint8 tensor on the "
+                         "buffer's device")
+    acc = pick_dtype(Q, T, params)
+    if buf.device.type == "cpu":
+        return sw_forward_plain(*unpack_q2(buf, ref_codes, Q, T), params, acc)
+    lib = _cuda_lib(buf, "sw_forward_q2")
+    if Q > MAX_Q:
+        raise ValueError(f"sw_forward_q2: the kernel takes Q <= {MAX_Q}, not {Q}")
+    B = buf.shape[1]
+    buf, ref_codes = buf.contiguous(), ref_codes.contiguous()
+    dev = buf.device
+    dirs = torch.empty((B, Q, T), dtype=torch.uint8, device=dev)
+    out = torch.empty((3, B), dtype=torch.int32, device=dev)
+    i16 = acc == torch.int16
+    launch = lib.sw_forward_q2_i16_launch if i16 else lib.sw_forward_q2_launch
+    with torch.cuda.device(dev):
+        err = launch(buf.data_ptr(), ref_codes.data_ptr(), ref_codes.shape[0], Q, T, B,
+                     *params, dirs.data_ptr(), out[0].data_ptr(), out[1].data_ptr(),
+                     out[2].data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise RuntimeError(f"sw_forward_q2 kernel launch failed (CUDA error {err})")
+    count_launch(i16)
+    return out[0], out[1], out[2], dirs
+
+
+def count_launch(i16: bool) -> None:
+    """Count one launch of the int16 or the int32 forward kernel."""
+    global launches, launches_i16
     with _count_lock:
         if i16:
             launches_i16 += 1
         else:
             launches += 1
-    return out
 
 
 def sw_forward_split(q_t: torch.Tensor, t_t: torch.Tensor, qlen: torch.Tensor,

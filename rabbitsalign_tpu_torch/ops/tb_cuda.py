@@ -51,8 +51,9 @@ _E = 1
 _F = 2
 _DONE = 3
 
-# launches of the CUDA kernel by sw_traceback and sw_traceback_packed;
-# plain-version calls and B = 0 (nothing to launch) are not counted.
+# launches of the CUDA kernel by sw_traceback, sw_traceback_packed and
+# extend_device.extend_q2_enqueue; plain-version calls and B = 0 (nothing
+# to launch) are not counted.
 # Mapping workers launch from several threads, so updates hold _count_lock.
 launches = 0
 _count_lock = threading.Lock()
@@ -69,10 +70,16 @@ def _check_inputs(name, dirs, score, t_end, q_end) -> None:
         raise ValueError(f"{name}: unsupported device {dirs.device}")
 
 
+def count_launch() -> None:
+    """Count one launch of the traceback kernel."""
+    global launches
+    with _count_lock:
+        launches += 1
+
+
 def _launch(name, launch, dirs, score, t_end, q_end, outs) -> None:
     """Launch `launch` on the current stream of dirs' device, writing the
     preallocated `outs`; raise if the launch was refused."""
-    global launches
     B, Q, T = dirs.shape
     if B == 0:
         return
@@ -85,8 +92,7 @@ def _launch(name, launch, dirs, score, t_end, q_end, outs) -> None:
                      torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"{name} kernel launch failed (CUDA error {err})")
-    with _count_lock:
-        launches += 1
+    count_launch()
 
 
 def sw_traceback(dirs: torch.Tensor, score: torch.Tensor, t_end: torch.Tensor,

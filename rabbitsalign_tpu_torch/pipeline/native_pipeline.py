@@ -6,10 +6,12 @@ Drives the two-phase schedule of the reference's async workers
 (reference src/pc.cpp:1206-1510): C++ phase A of a chunk plans its
 gapped-extension jobs into (Q, T) buckets; each batch is packed natively
 (q2 layout), uploaded and extended on the device (ops/extend_device.py);
-C++ phase B then finishes the chunk and writes its SAM/PAF bytes. Device
-work is queued on the current CUDA stream and its results are copied into
-pinned host memory behind a CUDA event, so phase A of the next chunks
-runs while the GPU extends this one; `finish_chunk` waits on the event.
+C++ phase B then finishes the chunk and writes its SAM/PAF bytes. On a
+card the engine fills each batch straight into pinned memory, and one
+call into the kernel library (`extend_q2_enqueue`) queues the upload, the
+two kernels and the copy of the packed results back on the current CUDA
+stream, behind one CUDA event, so phase A of the next chunks runs while
+the GPU extends this one; `finish_chunk` waits on the event.
 Each threaded worker enqueues on a CUDA stream of its own on every card
 (the current stream is per thread), as GASAL2 gives each host thread its
 own streams.
@@ -74,7 +76,8 @@ import torch
 
 from ..native.engine import ENGINE_BUCKETS, NativeEngine, NativeReader, engine_available
 from ..ops.chain_cuda import walk_hits_compact
-from ..ops.extend_device import extend_batch_packed_resident_q2, resident_ref_codes
+from ..ops.extend_device import (extend_batch_packed_resident_q2, extend_q2_enqueue,
+                                 q2_staging, resident_ref_codes)
 from ..ops.front_device import walk_views
 from ..ops.seed_device import seed_and_find, strobe_views
 from ..ops.sw_cuda import SwParams
@@ -251,8 +254,10 @@ def _at_least_one(a: np.ndarray) -> np.ndarray:
 SPAN_TIMERS = ("read_wait_s", "handoff_wait_s", "worker_setup_s", "input_wait_s",
                "device_seed_s", "dispatch_s", "device_wait_s", "device_results_s", "emit_s",
                "worker_s")
-# the pipeline's own counters, beside the engine's
-EXTEND_COUNTERS = ("chunks", "device_jobs", "device_cells", "upload_bytes")
+# the pipeline's own counters, beside the engine's (native_batches: the
+# extend batches that went through the one native enqueue, every batch on
+# a card and none on the CPU)
+EXTEND_COUNTERS = ("chunks", "device_jobs", "device_cells", "upload_bytes", "native_batches")
 
 _autograd_profiler = torch.autograd.profiler
 
@@ -335,6 +340,9 @@ class NativePipeline:
         self._next_dev = 0  # dispatches to a list of more than one entry
         self.dispatched = [0] * len(run.devices)  # extend batches an entry
         self.streams = {}  # a mapping thread's stream a card (stream_context)
+        # the devices are all cards or all the CPU (check_devices): the extend
+        # takes the native enqueue, or the plain chain
+        self._on_card = self.device.type == "cuda"
         self._index = index
         self._params = index_parameters
         self._map_param = map_param
@@ -498,10 +506,13 @@ class NativePipeline:
         )
 
     def _dispatch(self, buf: np.ndarray, Q: int, T: int, sub: int):
-        """Upload one q2 batch to the next device (round-robin), extend it
-        there against that device's genome and start the copy of its
-        packed output to the host. Returns (host tensor, event); the event
-        is None on the CPU, where the result is ready."""
+        """Extend one q2 batch on the next device (round-robin) against
+        that device's genome. On a card (`buf` then the `q2_staging` view
+        that `_plan_and_dispatch` filled): one native enqueue of the
+        upload, the q2 forward, the packed traceback and the copy back on
+        the thread's stream, behind one event. On the CPU: the plain chain.
+        Returns (packed output (OUT_ROWS, B) u8 on the host, event); the
+        event is None on the CPU, where the output is ready."""
         devices = self.run.devices
         di = 0
         if len(devices) > 1:
@@ -509,28 +520,30 @@ class NativePipeline:
             self._next_dev += 1
         self.dispatched[di] += 1
         dev = devices[di]
-        out = extend_batch_packed_resident_q2(self._upload(buf, dev), self._ref_codes[di], Q, T,
-                                              self.run.sw, sub)
-        if dev.type != "cuda":
-            return out, None
-        out_host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
-        out_host.copy_(out, non_blocking=True)
+        if not self._on_card:
+            out = extend_batch_packed_resident_q2(self._upload(buf, dev), self._ref_codes[di], Q,
+                                                  T, self.run.sw, sub)
+            return out.numpy(), None
+        out = extend_q2_enqueue(buf, self._ref_codes[di], Q, T, self.run.sw)
+        self.counts["native_batches"] += 1
         event = torch.cuda.Event()
         event.record(torch.cuda.current_stream(dev))
-        return out_host, event
+        return out, event
 
     def _plan_and_dispatch(self, chunk, chunk_index: int) -> list:
-        """The extend of a chunk after its phase A: plan, q2 fill, upload,
-        launches and the copy back enqueued, batch by batch; counts the
-        chunk and each batch's live jobs, DP cells (query length x target
-        window length) and upload bytes."""
+        """The extend of a chunk after its phase A: plan, q2 fill (on a
+        card into a new pinned block), upload, launches and the copy back
+        enqueued, batch by batch; counts the chunk and each batch's live
+        jobs, DP cells (query length x target window length) and upload
+        bytes."""
         pending = []
         counts = self.counts
         with Span(self.span_s, "dispatch_s", "dispatch", chunk_index):
             counts["chunks"] += 1
             if self.use_device and chunk.n_jobs:
                 for idxs, Q, T, B, sub in self.engine.plan_batches(chunk, self.batch_size):
-                    buf = self.engine.fill_batch_q2(chunk, idxs, B, Q)
+                    buf = self.engine.fill_batch_q2(chunk, idxs, B, Q,
+                                                    q2_staging(Q, B) if self._on_card else None)
                     counts["device_jobs"] += len(idxs)
                     counts["device_cells"] += int(np.dot(chunk.qlens[idxs].astype(np.int64),
                                                          chunk.tlens[idxs]))
@@ -588,7 +601,7 @@ class NativePipeline:
                     if event is not None:
                         event.synchronize()
                 t0 = time.perf_counter()
-                self.engine.set_device_results(chunk, out.numpy(), D, idxs)
+                self.engine.set_device_results(chunk, out, D, idxs)
                 span_s["device_results_s"] += time.perf_counter() - t0
             return self.engine.chunk_b_bytes(chunk)
 

@@ -399,7 +399,8 @@ def _log_mapping(opt, pipeline, n_reads: int, elapsed: float) -> None:
            tm["device_wait_s"], tm["emit_s"], tm["worker_s"]))
     if opt.use_tpu:
         logger.info(f"Device extend: {c['device_jobs']} jobs, {c['device_cells']} DP cells in "
-                    f"{sum(pipeline.dispatches())} batches of {c['chunks']} chunks, "
+                    f"{sum(pipeline.dispatches())} batches ({c['native_batches']} native) of "
+                    f"{c['chunks']} chunks, "
                     f"{c['upload_bytes'] / 1e6:.1f} MB uploaded; on the host "
                     f"{c['small_to_host']} in small batches, {c['unbucketed']} unbucketed, "
                     f"{c['fallbacks']} rejected; {c['planned_jobs']} planned, "

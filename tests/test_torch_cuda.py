@@ -22,6 +22,7 @@ so it also runs where JAX is absent:
 """
 
 import re
+import threading
 
 import numpy as np
 import pytest
@@ -37,8 +38,8 @@ from rabbitsalign_tpu_torch.ops.sw_cuda import SwParams
 from .torch_chain_cases import (chain_reads, composed_reads, merge_edge_streams,
                                 mixed_merge_streams, mixed_runs, nam_key, stream_tensors,
                                 synthetic_streams, wide_streams, world_genome)
-from .torch_extend_cases import (READ_LEN, gap_pairs, mixed_pairs, q2_batch, revcomp, sim_read,
-                                 write_fastq, write_pe250)
+from .torch_extend_cases import (READ_LEN, gap_pairs, mixed_pairs, q2_batch, q2_edge_batch,
+                                 revcomp, sim_read, write_fastq, write_pe250)
 from .torch_gather_lanes import RunsIndex
 from .torch_seed_cases import code_batch, edge_reads, long_scan_reads, sampled_reads, tie_reads
 from .util import random_dna
@@ -100,6 +101,105 @@ def test_kernels_match_plain_versions(cuda, Q, T, sw):
     packed = tb_cuda.sw_traceback_packed(kernel[3], *kernel[:3])
     assert tb_cuda.launches == launches + 2
     assert torch.equal(packed, tb_cuda.sw_traceback_packed_plain(kernel[3], *kernel[:3]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Q,T", BUCKET_SHAPES)
+@pytest.mark.parametrize("acc", ["int32", "int16"])
+def test_q2_forward_matches_unpack_and_forward(cuda, monkeypatch, Q, T, acc):
+    """The forward's q2 loader on the card (`sw_forward_q2`, which decodes
+    the upload and gathers the targets in its prologue) equals `unpack_q2`
+    then `sw_forward` (the codes loader) byte for byte: score, t_end, q_end
+    and the dirs on valid cells, in int32 and int16, at every bucket, on
+    `q2_edge_batch`'s N codes, lengths at 0, at the bucket and past it and
+    windows at the genome's end (against the genome itself, where the
+    clamp repeats its last code, and its resident copy), B = 70 (not a
+    multiple of a block's 4 warps); one launch of the dtype's kernel."""
+    monkeypatch.setenv("RSB_SW16", "1" if acc == "int16" else "0")
+    sw = SwParams(2, 8, 12, 1)
+    assert sw_cuda.pick_dtype(Q, T, sw) == getattr(torch, acc)
+    buf, genome = q2_edge_batch(Q, T, 70, seed=Q + T)
+    buf = torch.from_numpy(buf).to(cuda)
+    for ref in (torch.from_numpy(genome).to(cuda), px.resident_ref_codes(genome, cuda)):
+        q_t, t_t, qlen, tlen = px.unpack_q2(buf, ref, Q, T)
+        want = sw_cuda.sw_forward(q_t, t_t, qlen, tlen, sw)
+        before = (sw_cuda.launches, sw_cuda.launches_i16)
+        got = sw_cuda.sw_forward_q2(buf, ref, Q, T, sw)
+        assert (sw_cuda.launches, sw_cuda.launches_i16) == (
+            before[0] + (acc == "int32"), before[1] + (acc == "int16"))
+        _assert_forward_equal(got, want, _valid(Q, T, qlen, tlen, cuda))
+        assert (got[0] > 0).sum() > 20 and [int(x[i]) for i in (1, 2) for x in got[:3]] == [
+            0, -1, 0] * 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Q,T", BUCKET_SHAPES)
+def test_native_enqueue_matches_the_resident_q2_extend(cuda, monkeypatch, Q, T):
+    """One native enqueue (`extend_q2_enqueue`: the upload from the pinned
+    block, the q2 forward, the packed traceback and the copy back, on the
+    current stream, here one of its own) writes the packed output of
+    `extend_batch_packed_resident_q2` on the same batch into the block,
+    byte for byte, in int32 and int16, with windows at the genome's end;
+    each counts one call and one launch of each kernel. A batch that is not
+    a `q2_staging` view is refused."""
+    sw = SwParams(2, 8, 12, 1)
+    buf, genome = q2_edge_batch(Q, T, 70, seed=Q)
+    ref = px.resident_ref_codes(genome, cuda)
+    stream = torch.cuda.Stream(cuda)
+    for sw16 in ("0", "1"):
+        monkeypatch.setenv("RSB_SW16", sw16)
+        want = px.extend_batch_packed_resident_q2(torch.from_numpy(buf).to(cuda), ref, Q, T, sw,
+                                                  64).cpu().numpy()
+        staged = px.q2_staging(Q, buf.shape[1])
+        staged[...] = buf
+        staged.base[staged.size:] = 0xAB
+        before = (px.calls, sw_cuda.launches, sw_cuda.launches_i16, tb_cuda.launches)
+        with torch.cuda.stream(stream):
+            out = px.extend_q2_enqueue(staged, ref, Q, T, sw)
+            event = torch.cuda.Event()
+            event.record(stream)
+        event.synchronize()
+        assert np.array_equal(out, want) and out.base is staged.base
+        assert np.array_equal(staged, buf)
+        assert (px.calls, sw_cuda.launches, sw_cuda.launches_i16, tb_cuda.launches) == (
+            before[0] + 1, before[1] + (sw16 == "0"), before[2] + (sw16 == "1"), before[3] + 1)
+    with pytest.raises(ValueError, match="q2_staging"):
+        px.extend_q2_enqueue(buf.copy(), ref, Q, T, sw)
+
+
+@pytest.mark.cuda
+def test_native_enqueue_refuses_a_short_scratch(cuda):
+    """The enqueue's entry returns an error and enqueues nothing for a
+    scratch one byte short of `enqueue_scratch_bytes` or a bucket over
+    512 rows; for B = 0 it succeeds with nothing to do. The library's
+    scratch size is dirs, three result rows, the q2 rows and the packed
+    rows, each from a 16-byte boundary."""
+    from rabbitsalign_tpu_torch.ops.cuda_build import load_kernels
+
+    Q, T = 152, 256
+    buf, genome = q2_edge_batch(Q, T, 12)
+    ref = px.resident_ref_codes(genome, cuda)
+    staged = px.q2_staging(Q, 12)
+    staged[...] = buf
+    staged.base[staged.size:] = 7
+    stream = torch.cuda.current_stream(cuda)
+    lib = load_kernels()
+    need = px.enqueue_scratch_bytes(Q, T, 12)
+
+    def a16(n):
+        return -(-n // 16) * 16
+
+    assert need == a16(12 * Q * T) + a16(12 * 12) + a16(px.q2_rows(Q) * 12) + px.OUT_ROWS * 12
+    with pytest.raises(ValueError):
+        px.enqueue_scratch_bytes(513, T, 12)
+    scratch = torch.empty(need, dtype=torch.uint8, device=cuda)
+    for q, b, n in ((Q, 12, need - 1), (513, 12, need << 2), (Q, 0, 0)):
+        err = lib.extend_q2_enqueue(staged.ctypes.data, scratch.data_ptr(), n,
+                                    ref.data_ptr(), ref.shape[0], q, T, b, 2, 8, 12, 1, 0,
+                                    cuda.index or 0, stream.cuda_stream)
+        assert (err != 0) == (b != 0)
+    torch.cuda.synchronize()
+    assert (staged.base[staged.size:] == 7).all()
 
 
 TB_SHAPES = BUCKET_SHAPES + [(40, 72), (13, 21)]
@@ -347,9 +447,11 @@ def test_probe_result_is_cached(cuda, monkeypatch, tmp_path):
 
 
 @pytest.mark.cuda
-def test_three_workers_match_one_on_cuda(cuda, tmp_path):
+def test_three_workers_match_one_on_cuda(cuda, tmp_path, capsys):
     """SE with the default 3 workers, each on its own CUDA stream, gives
-    the bytes of one worker, and both launch the kernels."""
+    the bytes of one worker, and both launch the kernels; every extend
+    batch of both went through the native enqueue (the log's Device extend
+    line: `native_batches` equal to the batches dispatched)."""
     rng = np.random.RandomState(5)
     genome = rng.choice(np.frombuffer(b"ACGT", np.uint8), 200_000).tobytes()
     (tmp_path / "ref.fa").write_bytes(b">chr1\n" + genome + b"\n")
@@ -363,6 +465,10 @@ def test_three_workers_match_one_on_cuda(cuda, tmp_path):
         launches = sw_cuda.launches
         assert port_main([*argv, "-t", threads, "-o", str(tmp_path / f"t{threads}.sam")]) == 0
         assert sw_cuda.launches > launches
+        log = capsys.readouterr().err
+        extend = re.search(r"Device extend: \d+ jobs, \d+ DP cells in (\d+) batches "
+                           r"\((\d+) native\)", log)
+        assert extend and int(extend.group(2)) == int(extend.group(1)) > 3, log[-2000:]
         outs.append(b"".join(ln for ln in open(tmp_path / f"t{threads}.sam", "rb")
                              if not ln.startswith(b"@PG")))
     assert outs[0] == outs[1]
@@ -761,20 +867,20 @@ def _multi_run(multi_world, pe, monkeypatch, **kw):
     from rabbitsalign_tpu_torch.pipeline import native_pipeline as pnp
 
     d, refs, index = multi_world
-    uploads, streams = [], []
-    real_upload, real_extend = pnp.resident_ref_codes, pnp.extend_batch_packed_resident_q2
+    uploads, enqueued = [], []
+    real_upload, real_enqueue = pnp.resident_ref_codes, pnp.extend_q2_enqueue
 
     def counting(codes, device):
         uploads.append(device)
         return real_upload(codes, device)
 
-    def extend(buf, *args):
-        if buf.is_cuda:
-            streams.append(torch.cuda.current_stream(buf.device))
-        return real_extend(buf, *args)
+    def enqueue(q2, ref_codes, Q, T, params):
+        enqueued.append((threading.get_ident(), ref_codes,
+                         torch.cuda.current_stream(ref_codes.device)))
+        return real_enqueue(q2, ref_codes, Q, T, params)
 
     monkeypatch.setattr(pnp, "resident_ref_codes", counting)
-    monkeypatch.setattr(pnp, "extend_batch_packed_resident_q2", extend)
+    monkeypatch.setattr(pnp, "extend_q2_enqueue", enqueue)
     mp = MappingParameters(r=150, rescue_cutoff=2 * index.filter_cutoff)
     pipe = pnp.ThreadedNativePipeline(index, index.parameters, refs, AlignmentParameters(), mp,
                                       batch_size=128, n_workers=3, deterministic=True, **kw)
@@ -784,19 +890,21 @@ def _multi_run(multi_world, pe, monkeypatch, **kw):
     out = []
     pipe.map_file(*files, False, 100, out.append)
     monkeypatch.undo()
-    return b"".join(out), made, uploads, streams
+    return b"".join(out), made, uploads, enqueued
 
 
 def _check_multi_entry(cuda, multi_world, monkeypatch, devices):
     """3 workers over `devices` against the plain CPU run, SE and PE: equal
     bytes; the genome uploaded once a distinct card; each worker's batches
-    split over the entries in turn, on one stream of its own a card (not
-    the card's default stream); and, with --shard-index, the same SAM."""
+    split over the entries in turn, every one through the native enqueue
+    against its entry's genome on the worker's stream of that card (one
+    stream of its own a card, not the card's default stream); and, with
+    --shard-index, the same SAM."""
     cards = list(dict.fromkeys(devices))
     for pe in (False, True):
         want, *_ = _multi_run(multi_world, pe, monkeypatch, device="cpu")
         launches = sw_cuda.launches
-        got, pipes, uploads, streams = _multi_run(multi_world, pe, monkeypatch, devices=devices)
+        got, pipes, uploads, enqueued = _multi_run(multi_world, pe, monkeypatch, devices=devices)
         assert got == want and len(got.splitlines()) == (1200 if pe else 2000)
         assert sw_cuda.launches > launches
         assert sorted(map(str, uploads)) == sorted(map(str, cards))
@@ -804,11 +912,23 @@ def _check_multi_entry(cuda, multi_world, monkeypatch, devices):
         for pipe in pipes:
             n = sum(pipe.dispatched)
             assert pipe.dispatched == [len(range(k, n, len(devices))) for k in range(len(devices))]
+            assert pipe.counters()["native_batches"] == n
             assert list(pipe.streams) == cards
             for card, stream in pipe.streams.items():
                 assert stream != torch.cuda.default_stream(card)
+        # a worker's batch i: entry i % n's genome, on the worker's stream of its card
+        genomes = pipes[0].run._genomes
+        assert len(enqueued) == sum(sum(p.dispatched) for p in pipes)
+        by_thread = {}
+        for tid, ref, stream in enqueued:
+            by_thread.setdefault(tid, []).append((ref, stream))
+        assert sorted(map(len, by_thread.values())) == sorted(sum(p.dispatched) for p in pipes)
+        for batches in by_thread.values():
+            for i, (ref, stream) in enumerate(batches):
+                entry = devices[i % len(devices)]
+                assert ref is genomes[entry] and stream.device == entry
         mine = {s for p in pipes for s in p.streams.values()}
-        assert len(mine) == 3 * len(cards) and set(streams) <= mine
+        assert len(mine) == 3 * len(cards) and {s for *_, s in enqueued} <= mine
         assert sum(sum(p.dispatched) for p in pipes) >= 2 * len(devices)
         shard, *_ = _multi_run(multi_world, pe, monkeypatch, devices=devices, shard_index=True)
         assert shard == want

@@ -22,7 +22,7 @@ from rabbitsalign_tpu_torch.ops import seed_device as psd
 from . import torch_cuda_emu
 from .test_sharded_index import _repetitive_world
 from .test_torch_sharded_index import _random_stub, _sentinel_stub
-from .torch_extend_cases import mixed_pairs, q2_batch
+from .torch_extend_cases import mixed_pairs, q2_batch, q2_edge_batch
 
 SW = sw_cuda.SwParams(2, 8, 12, 1)
 # a gap extension of 0: an extension ties with the opening it follows
@@ -72,7 +72,8 @@ def forward_emu(tmp_path_factory):
     """csrc/sw_forward.cu built for the host (tests/torch_cuda_emu.py)."""
     lib = torch_cuda_emu.build("sw_forward", tmp_path_factory.mktemp("forward_emu"))
     cuda_build.declare(lib, ("sw_forward_launch", "sw_forward_i16_launch",
-                             "sw_forward_split_launch"))
+                             "sw_forward_split_launch", "sw_forward_q2_launch",
+                             "sw_forward_q2_i16_launch"))
     return lib
 
 
@@ -132,6 +133,65 @@ def test_forward_source_on_host_matches_plain(forward_emu, monkeypatch, sw, vari
     assert torch.equal(torch.where(valid, got[3], 0), want[3])
     assert [int(x[i]) for i in (1, 2) for x in got[:3]] == [0, -1, 0] * 2
     assert (got[0] > 0).sum() > B // 2
+
+
+@pytest.mark.parametrize("Q,T,B", [(152, 256, 13), (40, 47, 9), (256, 360, 9), (300, 80, 9),
+                                   (512, 48, 10)],
+                         ids=["152x256", "40x47", "256x360", "300x80", "512x48"])
+@pytest.mark.parametrize("variant", ["int32", "int16"])
+def test_q2_forward_source_on_host_matches_unpack_and_plain(forward_emu, monkeypatch, variant,
+                                                            Q, T, B):
+    """The forward's q2 loader (sw_forward_q2_launch and its int16 twin),
+    run on the host on the engine's upload and a flat genome: score,
+    t_end, q_end and the dirs on valid cells equal `sw_forward_plain` on
+    `unpack_q2`'s decoded batch, at R = 5, 8 and 16 (Q = 512: a lane's
+    last code bytes past the packed rows), T a multiple of 16 and not,
+    B not a multiple of a block's 4 warps, N codes, qlen and tlen at 0, at
+    the bucket and past it with codes in every row, and windows at the
+    genome's end, against the genome itself (the clamp repeats its last
+    code) and against its resident copy (which reads the padding)."""
+    if variant == "int16":
+        monkeypatch.setenv("RSB_SW16", "1")
+    acc = sw_cuda.pick_dtype(Q, T, SW)
+    assert acc == (torch.int16 if variant == "int16" else torch.int32)
+    buf, genome = q2_edge_batch(Q, T, B, seed=Q + B)
+    buf = torch.from_numpy(buf)
+    launch = (forward_emu.sw_forward_q2_i16_launch if variant == "int16"
+              else forward_emu.sw_forward_q2_launch)
+    for ref in (torch.from_numpy(genome), px.resident_ref_codes(genome, "cpu")):
+        dirs = torch.zeros((B, Q, T), dtype=torch.uint8)
+        out = torch.zeros((3, B), dtype=torch.int32)
+        assert launch(buf.data_ptr(), ref.data_ptr(), ref.shape[0], Q, T, B, *SW,
+                      dirs.data_ptr(), out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
+                      None) == 0
+        q_t, t_t, qlen, tlen = px.unpack_q2(buf, ref, Q, T)
+        want = sw_cuda.sw_forward_plain(q_t, t_t, qlen, tlen, SW, acc)
+        for a, b in zip(out, want[:3]):
+            assert torch.equal(a, b)
+        valid = sw_cuda.valid_cells(qlen, tlen, Q, T)
+        assert torch.equal(torch.where(valid, dirs, 0), want[3])
+        assert [int(x[i]) for i in (1, 2) for x in out] == [0, -1, 0] * 2
+        assert (out[0] > 0).sum() > B // 3
+    # the windows at the end: the clamp's repeated last code, then the padding
+    assert (px.unpack_q2(buf, torch.from_numpy(genome), Q, T)[1][T - 1, 5:8] == genome[-1]).all()
+    assert (t_t[T // 2:, 5:8] == 4).all() and (q_t[:, 3:5] < 4).sum() > Q
+    assert torch.equal(want[3], sw_cuda.sw_forward_q2(buf, ref, Q, T, SW)[3])
+
+
+def test_q2_forward_source_refuses_bad_shapes(forward_emu):
+    """The q2 entries launch nothing for Q over 512, a negative shape or an
+    empty genome."""
+    buf, genome = q2_edge_batch(40, 64, 8)
+    ref = px.resident_ref_codes(genome, "cpu")
+    dirs = torch.zeros((8, 40, 64), dtype=torch.uint8)
+    out = torch.zeros((3, 8), dtype=torch.int32)
+    ptrs = (dirs.data_ptr(), out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(), None)
+    for launch in (forward_emu.sw_forward_q2_launch, forward_emu.sw_forward_q2_i16_launch):
+        for Q, T, B, n in ((513, 64, 8, ref.shape[0]), (40, -1, 8, ref.shape[0]),
+                           (40, 64, 8, 0)):
+            assert launch(torch.from_numpy(buf).data_ptr(), ref.data_ptr(), n, Q, T, B, *SW,
+                          *ptrs) != 0
+    assert not dirs.any() and not out.any()
 
 
 def test_split_source_refuses_bad_splits(forward_emu):

@@ -19,9 +19,14 @@
   fails the run.
 
 The entries are `torch.device("cpu", i)`: their tensors live on the CPU,
-where the wrappers take the kernels' plain versions, but the labels key
-the genome copies, the shards and the round-robin as cards would. Every output
-is integer, so every comparison is exact.
+where the wrappers take the kernels' plain versions (the extend through
+`extend_batch_packed_resident_q2`), but the labels key the genome copies,
+the shards and the round-robin as cards would. On a card each batch goes
+through the native enqueue instead (`extend_q2_enqueue`); the card case
+of the round-robin, each worker's batches and the genome each one used
+through that entry, is tests/test_torch_cuda.py's
+`test_two_entries_of_one_card_match_the_cpu`. Every output is integer, so
+every comparison is exact.
 """
 
 import threading

@@ -222,7 +222,8 @@ def test_same_keys_for_one_worker_and_three(world, small_batches):
 
 def test_runner_logs_waits_and_device_extend(world, small_batches, capsys):
     """The CLI's log gains the wait line, with the workers' set-up, and
-    the native path's Device extend line, with the chunks counted."""
+    the native path's Device extend line, with the chunks counted and no
+    batch through the native enqueue, which only a card takes."""
     d = world[0]
     assert port_main([str(d / "ref.fa"), str(d / "se.fq"), "--device", "cpu", "--chunk-size",
                       str(CHUNK), "--tpu-batch", "32", "-o", str(d / "log.sam")]) == 0
@@ -233,8 +234,9 @@ def test_runner_logs_waits_and_device_extend(world, small_batches, capsys):
                       r"input [\d.]+ s, device [\d.]+ s, ordered output [\d.]+ s; mapping "
                       r"threads [\d.]+ s", err)
     assert waits, err[-2000:]
-    extend = re.search(r"Device extend: (\d+) jobs, (\d+) DP cells in (\d+) batches of (\d+) "
-                       r"chunks, [\d.]+ MB uploaded; on the host \d+ in small batches, \d+ "
-                       r"unbucketed, \d+ rejected", err)
+    extend = re.search(r"Device extend: (\d+) jobs, (\d+) DP cells in (\d+) batches \((\d+) "
+                       r"native\) of (\d+) chunks, [\d.]+ MB uploaded; on the host \d+ in small "
+                       r"batches, \d+ unbucketed, \d+ rejected", err)
     assert extend and int(extend.group(1)) > 0 and int(extend.group(3)) > 0, err[-2000:]
-    assert int(extend.group(4)) == -(-N_SE // CHUNK)
+    assert int(extend.group(4)) == 0  # the CPU takes the plain chain, never the native enqueue
+    assert int(extend.group(5)) == -(-N_SE // CHUNK)

@@ -36,6 +36,32 @@ def q2_batch(pairs, Q, seed=0):
     return buf, np.concatenate(parts)
 
 
+def q2_edge_batch(Q, T, B, seed=0):
+    """(q2 upload, genome codes) of B >= 8 mixed pairs (`q2_batch`) with
+    the edge columns that a reader of the q2 layout must take as
+    `unpack_q2` does: qlen 0 (column 1), tlen 0 (2), both at the bucket's
+    maximum (3) and past it (4), these two with random codes in every code
+    row and column 4 with an N in its last row, and target windows at the
+    genome's end: starting T // 2 before it (5), at its last code (6) and
+    at the largest u32 offset (7). With the genome itself as the flat
+    array, the clamp min(tstart + t, len - 1) repeats its last code there;
+    `resident_ref_codes`' copy reads its padding of code 4."""
+    buf, genome = q2_batch(mixed_pairs(Q, T, B, seed=seed), Q, seed=seed)
+    rng = np.random.RandomState(seed)
+    Qp, Qm = (Q + 3) // 4, (Q + 7) // 8
+    buf[:Qp, 3:5] = rng.randint(0, 256, (Qp, 2))
+    buf[Qp + (Q - 1) // 8, 4] |= 1 << ((Q - 1) % 8)
+    tail = buf[Qp + Qm:]
+    n = genome.shape[0]
+    edges = {1: (0, None, None), 2: (None, 0, None), 3: (Q, T, None), 4: (Q + 9, T + 2, None),
+             5: (None, T, n - T // 2), 6: (None, T, n - 1), 7: (None, T, 2**32 - 1)}
+    for col, (qlen, tlen, tstart) in edges.items():
+        for row, value, width in ((0, qlen, 2), (2, tlen, 2), (4, tstart, 4)):
+            if value is not None:
+                tail[row:row + width, col] = [(value >> (8 * i)) & 0xFF for i in range(width)]
+    return buf, genome
+
+
 def bucket_arrays(pairs, Q, T):
     """(q_t (Q, B), t_t (T, B) u8 padded with code 4, qlen, tlen (B,) i32)
     of (query, target) code pairs: a BatchAligner bucket's arrays, which
